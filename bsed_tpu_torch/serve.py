@@ -1,0 +1,190 @@
+"""Serving path: raw audio → frame and clip posteriors, eval mode.
+
+Port of ``bsed_tpu/serve.py`` (``make_fast_forward``,
+``predict_long_recording``): mel front end → folded stem (blocks 0-2) →
+remaining conv blocks → BiGRU → predictor. On CUDA the front end is kernel
+K1 (``ops/mel_kernel.py``) and each folded block's epilogue is kernel K2
+(``ops/stem_epilogue.py``); everything else is ordinary PyTorch/cuDNN, as
+the JAX package leaves it to XLA.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from bsed_tpu_torch.config import Config
+from bsed_tpu_torch.models.cnn import CNN
+from bsed_tpu_torch.models.crnn import CRNN, compute_dtype
+from bsed_tpu_torch.models.predictor import make_predictor_head
+from bsed_tpu_torch.models.rnn import BidirectionalGRU
+from bsed_tpu_torch.ops import mel_kernel
+from bsed_tpu_torch.ops.folded_stem import build_folded_stem
+from bsed_tpu_torch.ops.mel import PRECISIONS, MelFrontEnd
+from bsed_tpu_torch.utils import weights
+from bsed_tpu_torch.utils.device import resolve_device
+
+
+class _RestCNN(CNN):
+    """Blocks ``start``..N-1 of the CNN stack (the leading blocks are served
+    by the folded stem); float32 output."""
+
+    def __init__(self, cfg: Config, start: int = 1, dtype=None):
+        m = cfg.model
+        super().__init__(tuple(m.nb_filters),
+                         tuple(tuple(p) for p in m.pooling), m.activation,
+                         m.kernel_size, dtype=dtype,
+                         n_in_channel=m.n_in_channel, start=start)
+
+
+def _fold_divides(pooling, fold0: int = 8) -> bool:
+    """True when every leading block's frequency pool divides the running
+    fold, i.e. ``build_folded_stem`` can fold this layout."""
+    f = fold0
+    for _, pf in (tuple(p) for p in pooling):
+        if f == 1:
+            break
+        if pf == 0 or f % pf != 0:
+            return False
+        f //= pf
+    return True
+
+
+def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
+                      device="cuda", precision: str = "high",
+                      mel_algorithm: Optional[str] = None,
+                      use_folded_stem: Optional[bool] = None,
+                      use_fused_epilogue: Optional[bool] = None,
+                      use_fused_stem: bool = False,
+                      use_kernels: bool = True) -> Callable:
+    """Returns ``forward(audio (B, n_samples)) -> (strong (B, T', C),
+    weak (B, C))`` on raw audio, float32 tensors on ``device``.
+
+    Differs from ``bsed_tpu.serve.make_fast_forward`` in its signature:
+    ``params``/``batch_stats`` are the flax-layout trees as numpy arrays
+    (``utils/weights.py``) in place of ``TrainModules``, the device is
+    explicit, and ``use_kernels=False`` runs the kernels' plain PyTorch
+    versions on any device (for holding the kernel path against them).
+
+    Auto choices (None) follow the JAX package with "on CUDA" for "on TPU":
+    the mel kernel K1 runs when ``precision`` is 'high' or 'fast' and the
+    audio geometry meets its constraints; the folded stem serves eligible
+    topologies; its fused epilogue (kernel K2) is on by default on CUDA.
+    """
+    dev = resolve_device(device)
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision}")
+    if use_fused_stem:
+        raise NotImplementedError(
+            "use_fused_stem needs kernel K5 (bsed_tpu/ops/stem_kernel.py:"
+            "fused_stem_block), which is not ported yet (ROADMAP.md)")
+    a = cfg.audio
+    if mel_algorithm is None:
+        mel_algorithm = (
+            "block_kernel"
+            if (precision in ("high", "fast") and dev.type == "cuda"
+                and mel_kernel.supports(a.n_window, a.hop_size, a.n_mels))
+            else "dense")
+    fe = MelFrontEnd(a, algorithm=mel_algorithm, device=dev,
+                     use_kernel=use_kernels)
+    enc_params = params["encoder"]
+    enc_stats = batch_stats["encoder"]
+    m = cfg.model
+    predictor = make_predictor_head(cfg)
+    weights.load_predictor(predictor, params["predictor"])
+    predictor.to(dev).eval()
+
+    folded = (use_folded_stem is not False
+              and not m.use_fpn
+              and m.kernel_size == 3
+              and m.activation in ("glu", "cg", "relu", "leakyrelu")
+              and a.n_mels % 8 == 0
+              and m.predictor_head != "crnn"
+              and _fold_divides(m.pooling))
+    if folded:
+        dtype = compute_dtype(m)
+        if use_fused_epilogue is None:
+            use_fused_epilogue = dev.type == "cuda"
+        stem, n_folded = build_folded_stem(
+            enc_params["cnn"], enc_stats["cnn"], m.nb_filters,
+            tuple(tuple(p) for p in m.pooling), activation=m.activation,
+            n_mels=a.n_mels, dtype=dtype,
+            fused_epilogue=use_fused_epilogue, device=dev,
+            use_kernels=use_kernels)
+        rest = _RestCNN(cfg, start=n_folded, dtype=dtype)
+        weights.load_cnn(rest, enc_params["cnn"], enc_stats["cnn"])
+        rnn = BidirectionalGRU(m.nb_filters[-1], m.n_rnn_cell,
+                               m.n_layers_rnn, m.dropout_recurrent,
+                               dtype=dtype)
+        weights.load_gru(rnn, enc_params["rnn"])
+        rest.to(dev).eval()
+        rnn.to(dev).eval()
+
+        def encode(mel):
+            h = rest(stem(mel)).squeeze(2)
+            return rnn(h)
+    else:
+        encoder = CRNN(m)
+        weights.load_crnn(encoder, enc_params, enc_stats)
+        encoder.to(dev).eval()
+
+        def encode(mel):
+            return encoder(mel)[0]
+
+    @torch.inference_mode()
+    def forward(audio):
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=dev)
+        mel = fe(audio, log=True)[..., None]
+        return predictor(encode(mel))
+
+    return forward
+
+
+def predict_long_recording(forward: Callable, audio, cfg: Config,
+                           batch_size: int = 32, hop_seconds: float = None):
+    """Sound-event inference over an arbitrarily long recording: the
+    recording is cut into clip windows (optionally overlapping), batched
+    through ``forward``, and the frame posteriors are re-assembled on a
+    global timeline (overlaps averaged). Returns (strong (T_total, C),
+    frame_seconds)."""
+    sr = cfg.audio.sr
+    clip = cfg.audio.n_samples
+    hop = int((hop_seconds or cfg.audio.max_len_seconds) * sr)
+    audio = np.asarray(audio, np.float32)
+    if len(audio) < clip:
+        audio = np.pad(audio, (0, clip - len(audio)))
+    starts = list(range(0, max(len(audio) - clip, 0) + 1, hop))
+    if starts[-1] + clip < len(audio):
+        starts.append(len(audio) - clip)
+    windows = np.stack([audio[s:s + clip] for s in starts])
+
+    frames_per_clip = cfg.n_frames
+    sec_per_frame = cfg.model.pooling_time_ratio / (sr / cfg.audio.hop_size)
+    total_frames = int(np.ceil(
+        (starts[-1] / sr) / sec_per_frame)) + frames_per_clip
+    acc = np.zeros((total_frames, cfg.nclass), np.float64)
+    cnt = np.zeros((total_frames, 1), np.float64)
+
+    for i in range(0, len(windows), batch_size):
+        chunk = windows[i:i + batch_size]
+        pad = 0
+        if len(chunk) < batch_size and len(windows) > batch_size:
+            pad = batch_size - len(chunk)
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
+        strong, _ = forward(chunk)
+        strong = strong.cpu().numpy() if torch.is_tensor(strong) \
+            else np.asarray(strong)
+        if pad:
+            strong = strong[:-pad]
+        for j, s in enumerate(starts[i:i + len(strong)]):
+            f0 = int(round((s / sr) / sec_per_frame))
+            acc[f0:f0 + frames_per_clip] += strong[j]
+            cnt[f0:f0 + frames_per_clip] += 1.0
+    covered = cnt[:, 0] > 0
+    last = int(np.nonzero(covered)[0][-1]) + 1
+    acc, cnt, covered = acc[:last], cnt[:last], covered[:last]
+    acc[covered] /= cnt[covered]
+    # frame index == global time index: interior frames no window covered
+    # (hop_seconds > clip length) stay ZERO posteriors
+    return acc.astype(np.float32), sec_per_frame
