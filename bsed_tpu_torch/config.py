@@ -595,3 +595,16 @@ def get_config(preset: str = "baseline", **overrides) -> Config:
     if overrides:
         cfg = cfg.replace(**overrides)
     return cfg
+
+
+def perf_config(cfg: Config) -> Config:
+    """The throughput configuration of ``bsed_tpu/cli.py``'s ``--perf``
+    flag (cli.py:72-81): bf16 conv stack, the train-mode folded-frequency
+    stem with its fused epilogue kernels, and fused student/teacher
+    streams. Exact up to float reassociation and BatchNorm statistics
+    pooled over the fused streams."""
+    model = dataclasses.replace(cfg.model, compute_dtype="bfloat16",
+                                folded_train_stem=True,
+                                fused_stem_epilogue=True)
+    train = dataclasses.replace(cfg.train, fused_streams=True)
+    return cfg.replace(model=model, train=train)

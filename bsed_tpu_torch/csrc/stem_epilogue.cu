@@ -1,13 +1,16 @@
 // Kernel K2: folded-stem epilogue, forward (sm_90a, float32 FMA).
 //
 // Replaces the TPU kernel bsed_tpu/ops/stem_epilogue.py:make_fused_epilogue
-// (_run_fwd, body _fwd_kernel) in its serving form: pool_w frequency pool,
-// no dropout. Wrapper and plain version: bsed_tpu_torch/ops/stem_epilogue.py.
+// (_run_fwd, body _fwd_kernel) with the pool_w frequency pool, in its
+// serving form (no dropout) and its train form (uint8 dropout bits).
+// Wrapper and plain version: bsed_tpu_torch/ops/stem_epilogue.py; the
+// backward is kernel K3, csrc/stem_epilogue_bwd.cu.
 //
 // Per row (t, g) of h (B, T, 16, 128) and lane l:
 //   y   = h * inv[l] + c[l]                          (f32)
 //   lin = round_dt(y) @ w + b                        (f32 accumulation)
 //   z   = lin * sigmoid(y)   (glu)   |   y * sigmoid(lin)   (cg)
+//   z   = bits < k ? z * 256/k : 0                   (train form only)
 //   z   = (z[2t] + z[2t+1]) / 2                      (pt = 2; odd last row dropped)
 //   out = round_dt(z) @ pool_w                       (pool_w averages lane
 //         pairs l = 2q*pc + ch and (2q+1)*pc + ch into q*pc + ch)
@@ -23,65 +26,16 @@
 // thread owns 4 time rows of one group and the 8 lanes that pool into 4
 // output lanes, so both pools happen in registers and the output is written
 // once. Panel rows past the valid time range are zero-filled and never
-// stored.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// stored. The train form reads the dropout bits of a thread's 8 lanes as
+// two 4-byte words (bits has h's layout, one byte per element).
+#include "stem_common.cuh"
 
 namespace {
-
-constexpr int L = 128;        // lanes
-constexpr int G = 16;         // groups
-constexpr int L2 = 64;        // output lanes (pair-averaged)
-constexpr int TRI = 4;        // input time rows per panel
-constexpr int ROWS = TRI * G; // panel rows (64)
-constexpr int NT = 256;
 
 struct Smem {
   float w[L][L];              // w with columns permuted per thread (see wcol)
   float ya[ROWS][L];          // round_dt(y) of the panel
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
-}
-template <typename T> __device__ __forceinline__ float round_dt(float v) {
-  return to_f(from_f<T>(v));
-}
-
-// 4 consecutive elements <-> f32
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* q = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = __bfloat162float(q[i]);
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  uint2 u;
-  __nv_bfloat16* q = reinterpret_cast<__nv_bfloat16*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) q[i] = __float2bfloat16_rn(v[i]);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-__device__ __forceinline__ float sigmoidf(float v) {
-  return 1.f / (1.f + expf(-v));
-}
 
 // Lane of w held in shared-memory column ``slot``: slot cg*4 + j (< 64)
 // is lane colA + j and slot 64 + cg*4 + j is lane colB + j, where output
@@ -94,12 +48,13 @@ __device__ __forceinline__ int wcol(int slot, int pc) {
   return 2 * q * pc + ch0 + j + (slot >= 64 ? pc : 0);
 }
 
-template <typename T, bool GLU, int PT>
+template <typename T, bool GLU, int PT, bool DROP>
 __global__ void __launch_bounds__(NT, 2)
 epilogue_kernel(const T* __restrict__ h, const float* __restrict__ inv,
                 const float* __restrict__ cvec, const T* __restrict__ w,
-                const float* __restrict__ bvec, T* __restrict__ out, int B,
-                int Tin, int Tout, int pc) {
+                const float* __restrict__ bvec,
+                const unsigned char* __restrict__ bits, int keep_k,
+                T* __restrict__ out, int B, int Tin, int Tout, int pc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x;
@@ -114,6 +69,7 @@ epilogue_kernel(const T* __restrict__ h, const float* __restrict__ inv,
   constexpr int TRO = TRI / PT;                  // output rows per panel
   const int tiles_t = (Tout + TRO - 1) / TRO;
   const int tv = Tout * PT;                      // input rows that count
+  const float keep_scale = DROP ? 256.f / (float)keep_k : 1.f;
   for (int tile = blockIdx.x; tile < B * tiles_t; tile += gridDim.x) {
     const int bi = tile / tiles_t;
     const int to0 = (tile % tiles_t) * TRO;
@@ -156,17 +112,29 @@ epilogue_kernel(const T* __restrict__ h, const float* __restrict__ inv,
 #pragma unroll
     for (int tr = 0; tr < TRI; ++tr) {
       float hv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      unsigned int kb[2] = {0u, 0u};
       if (ti0 + tr < tv) {
+        const size_t off = ((size_t)bi * Tin + ti0 + tr) * G * L
+                           + (size_t)g * L;
         const T* row = hp + (size_t)(tr * G + g) * L;
         load4(row + colA, hv);
         load4(row + colB, hv + 4);
+        if constexpr (DROP) {
+          kb[0] = *reinterpret_cast<const unsigned int*>(bits + off + colA);
+          kb[1] = *reinterpret_cast<const unsigned int*>(bits + off + colB);
+        }
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = j < 4 ? colA + j : colB + j - 4;
         const float y = fmaf(hv[j], inv[col], cvec[col]);
         const float lin = acc[tr][j] + bvec[col];
-        z[tr][j] = GLU ? lin * sigmoidf(y) : y * sigmoidf(lin);
+        float zz = GLU ? lin * sigmoidf(y) : y * sigmoidf(lin);
+        if constexpr (DROP) {
+          const unsigned int byte = (kb[j / 4] >> (8 * (j % 4))) & 0xffu;
+          zz = (int)byte < keep_k ? zz * keep_scale : 0.f;
+        }
+        z[tr][j] = zz;
       }
     }
 #pragma unroll
@@ -188,13 +156,13 @@ epilogue_kernel(const T* __restrict__ h, const float* __restrict__ inv,
   }
 }
 
-template <typename T, bool GLU, int PT>
+template <typename T, bool GLU, int PT, bool DROP>
 int launch(const void* h, const float* inv, const float* c, const void* w,
-           const float* b, void* out, int B, int Tin, int Tout, int pc,
-           cudaStream_t stream) {
+           const float* b, const unsigned char* bits, int keep_k, void* out,
+           int B, int Tin, int Tout, int pc, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    cudaFuncSetAttribute(epilogue_kernel<T, GLU, PT>,
+    cudaFuncSetAttribute(epilogue_kernel<T, GLU, PT, DROP>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)sizeof(Smem));
     configured = true;
@@ -206,10 +174,22 @@ int launch(const void* h, const float* inv, const float* c, const void* w,
   const long tiles = (long)B * ((Tout + TRO - 1) / TRO);
   const int grid = (int)(tiles < 2L * sms ? tiles : 2L * sms);
   if (grid > 0)
-    epilogue_kernel<T, GLU, PT><<<grid, NT, sizeof(Smem), stream>>>(
-        static_cast<const T*>(h), inv, c, static_cast<const T*>(w), b,
-        static_cast<T*>(out), B, Tin, Tout, pc);
+    epilogue_kernel<T, GLU, PT, DROP><<<grid, NT, sizeof(Smem), stream>>>(
+        static_cast<const T*>(h), inv, c, static_cast<const T*>(w), b, bits,
+        keep_k, static_cast<T*>(out), B, Tin, Tout, pc);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool GLU, int PT>
+int launch_form(const void* h, const float* inv, const float* c,
+                const void* w, const float* b, const unsigned char* bits,
+                int keep_k, void* out, int B, int Tin, int Tout, int pc,
+                cudaStream_t stream) {
+  if (bits != nullptr)
+    return launch<T, GLU, PT, true>(h, inv, c, w, b, bits, keep_k, out, B,
+                                    Tin, Tout, pc, stream);
+  return launch<T, GLU, PT, false>(h, inv, c, w, b, bits, keep_k, out, B,
+                                   Tin, Tout, pc, stream);
 }
 
 }  // namespace
@@ -218,25 +198,30 @@ int launch(const void* h, const float* inv, const float* c, const void* w,
 // (0 = float32, 1 = bfloat16); inv, c, b: (128,) float32;
 // out: (B, Tout, 16, 64) in the input dtype, Tout = Tin // pt.
 // act: 0 = GLU, 1 = context gating. pc: channels per fold copy; pool_w
-// averages lanes 2q*pc + ch and (2q+1)*pc + ch. Returns cudaGetLastError().
+// averages lanes 2q*pc + ch and (2q+1)*pc + ch. bits: (B, Tin, 16, 128)
+// uint8 dropout bits, keep where bits < keep_k (1..255), or null for the
+// serving form. Returns cudaGetLastError().
 extern "C" int bsed_stem_epilogue(const void* h, const float* inv,
                                   const float* c, const void* w,
-                                  const float* b, void* out, int dtype,
-                                  int act, int pt, int B, int Tin, int Tout,
-                                  int pc, void* stream) {
+                                  const float* b, const void* bits,
+                                  int keep_k, void* out, int dtype, int act,
+                                  int pt, int B, int Tin, int Tout, int pc,
+                                  void* stream) {
   if (pc < 4 || pc % 4 != 0 || L % (2 * pc) != 0 || (pt != 1 && pt != 2) ||
-      Tout != Tin / pt || dtype < 0 || dtype > 1 || act < 0 || act > 1)
+      Tout != Tin / pt || dtype < 0 || dtype > 1 || act < 0 || act > 1 ||
+      (bits != nullptr && (keep_k < 1 || keep_k > 255)))
     return (int)cudaErrorInvalidValue;
+  const unsigned char* kb = static_cast<const unsigned char*>(bits);
   const cudaStream_t st = (cudaStream_t)stream;
   const int key = dtype * 4 + act * 2 + (pt - 1);
   switch (key) {
-    case 0: return launch<float, true, 1>(h, inv, c, w, b, out, B, Tin, Tout, pc, st);
-    case 1: return launch<float, true, 2>(h, inv, c, w, b, out, B, Tin, Tout, pc, st);
-    case 2: return launch<float, false, 1>(h, inv, c, w, b, out, B, Tin, Tout, pc, st);
-    case 3: return launch<float, false, 2>(h, inv, c, w, b, out, B, Tin, Tout, pc, st);
-    case 4: return launch<__nv_bfloat16, true, 1>(h, inv, c, w, b, out, B, Tin, Tout, pc, st);
-    case 5: return launch<__nv_bfloat16, true, 2>(h, inv, c, w, b, out, B, Tin, Tout, pc, st);
-    case 6: return launch<__nv_bfloat16, false, 1>(h, inv, c, w, b, out, B, Tin, Tout, pc, st);
-    default: return launch<__nv_bfloat16, false, 2>(h, inv, c, w, b, out, B, Tin, Tout, pc, st);
+    case 0: return launch_form<float, true, 1>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
+    case 1: return launch_form<float, true, 2>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
+    case 2: return launch_form<float, false, 1>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
+    case 3: return launch_form<float, false, 2>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
+    case 4: return launch_form<__nv_bfloat16, true, 1>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
+    case 5: return launch_form<__nv_bfloat16, true, 2>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
+    case 6: return launch_form<__nv_bfloat16, false, 1>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
+    default: return launch_form<__nv_bfloat16, false, 2>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
   }
 }

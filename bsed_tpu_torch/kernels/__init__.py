@@ -8,7 +8,8 @@ build takes seconds, not minutes):
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``bsed_tpu_torch/kernels/_build/`` (git-ignored),
-named by a hash of the source and the flags, at first use. Only the
+named by a hash of the source, the shared headers ``csrc/*.cuh`` and the
+flags, at first use. Only the
 sources in the checkout are compiled. Nothing here runs at import time:
 the CPU tests import every module of the package on a host without
 ``nvcc`` or a card.
@@ -28,7 +29,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("mel_kernel", "stem_epilogue")
+SOURCES = ("mel_kernel", "stem_epilogue", "stem_epilogue_bwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -42,8 +43,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, the
+    shared headers and the flags."""
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

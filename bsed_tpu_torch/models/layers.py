@@ -1,6 +1,10 @@
-"""Building-block layers for the CRNN family, eval form.
+"""Building-block layers for the CRNN family.
 
-Port of ``bsed_tpu/models/layers.py``. Public tensors keep the JAX layout,
+Port of ``bsed_tpu/models/layers.py``. ``TorchBatchNorm`` and ``ConvBlock``
+follow the module's mode: ``.eval()`` uses the running statistics and no
+dropout; training mode (``.train()``, PyTorch's default) normalises with
+the batch statistics, updates the running ones in place, and drops out
+with bits drawn from the generator passed to ``forward``. Public tensors keep the JAX layout,
 NHWC (B, T, F, C). A conv runs on the NCHW view of that memory, which is
 PyTorch's ``channels_last`` format, so no copy is made on either side.
 Parameters are stored in PyTorch layout (conv OIHW, ``nn.Linear`` (out,
@@ -14,7 +18,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bsed_tpu_torch.ops.dropout import FastDropout
 from bsed_tpu_torch.ops.pooling import avg_pool
+
+# running-stat momentum in the flax convention ra = m·ra + (1−m)·batch:
+# 0.01 here is torch's BatchNorm2d momentum 0.99 of the reference
+BN_MOMENTUM = 0.01
 
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
@@ -86,11 +95,36 @@ def activation_layer(name: str, features: int, dtype=None) -> nn.Module:
     raise ValueError(f"unknown activation {name}")
 
 
+def batch_stats(x: torch.Tensor, groups: int = 1):
+    """(mean, biased var, n) per channel of the last axis in float32, over
+    every other axis; ``groups`` > 1 folds the last axis as (groups, C) and
+    reduces over the groups too (the folded stem's fold copies)."""
+    x32 = x.float()
+    if groups > 1:
+        x32 = x32.reshape(*x.shape[:-1], groups, x.shape[-1] // groups)
+    dims = tuple(range(x32.ndim - 1))
+    mean = x32.mean(dims)
+    var = (x32 * x32).mean(dims) - mean * mean
+    return mean, var, x32.numel() // x32.shape[-1]
+
+
+@torch.no_grad()
+def update_running(running_mean, running_var, mean, var, n: int) -> None:
+    """ra = m·ra + (1−m)·batch in place with m = BN_MOMENTUM,
+    accumulating the UNBIASED variance (× n/(n−1)) as torch does while
+    normalising with the biased one."""
+    m = BN_MOMENTUM
+    corr = n / (n - 1) if n > 1 else 1.0
+    running_mean.copy_(m * running_mean + (1.0 - m) * mean)
+    running_var.copy_(m * running_var + (1.0 - m) * (var * corr))
+
+
 class TorchBatchNorm(nn.Module):
-    """Eval-mode batch norm over the last axis with running statistics:
-    ``(x − mean)·(scale·rsqrt(var + ε)) + bias``, computed in the layer
-    dtype (or x's) as ``bsed_tpu``'s TorchBatchNorm does
-    (layers.py:145-147)."""
+    """Batch norm over the last axis: ``(x − mean)·(scale·rsqrt(var + ε))
+    + bias``, computed in the layer dtype (or x's) as ``bsed_tpu``'s
+    TorchBatchNorm does (layers.py:95-147). Eval mode uses the running
+    statistics; training mode the batch statistics, always in float32,
+    and updates the running ones (``update_running``)."""
 
     def __init__(self, features: int, eps: float = 1e-3,
                  dtype: Optional[torch.dtype] = None):
@@ -104,31 +138,38 @@ class TorchBatchNorm(nn.Module):
 
     def forward(self, x):
         dt = self.dtype or x.dtype
-        inv = (torch.rsqrt(self.running_var + self.eps) * self.weight).to(dt)
-        return ((x.to(dt) - self.running_mean.to(dt)) * inv
-                + self.bias.to(dt))
+        if self.training:
+            mean, var, n = batch_stats(x)
+            update_running(self.running_mean, self.running_var,
+                           mean.detach(), var.detach(), n)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = (torch.rsqrt(var + self.eps) * self.weight).to(dt)
+        return (x.to(dt) - mean.to(dt)) * inv + self.bias.to(dt)
 
 
 class ConvBlock(nn.Module):
-    """conv3x3(s1, p1) → BatchNorm(ε 1e-3) → activation → (eval dropout) →
-    avg-pool: one block of the 7-block stack (CNN.py:43-67), eval form."""
+    """conv3x3(s1, p1) → BatchNorm(ε 1e-3) → activation → dropout →
+    avg-pool: one block of the 7-block stack (CNN.py:43-67)."""
 
     def __init__(self, in_channels: int, features: int,
                  pooling: Tuple[int, int], activation: str = "glu",
-                 kernel: int = 3, dtype: Optional[torch.dtype] = None):
+                 kernel: int = 3, dtype: Optional[torch.dtype] = None,
+                 dropout: float = 0.0):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, features, kernel,
                               padding=kernel // 2)
         self.bn = TorchBatchNorm(features, eps=1e-3, dtype=dtype)
         self.act = activation_layer(activation, features, dtype)
+        self.dropout = FastDropout(dropout)
         self.pooling = tuple(pooling)
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, gen: Optional[torch.Generator] = None):
         dt = _dt(self.dtype, x)
         x = conv2d_nhwc(x.to(dt), self.conv.weight.to(dt),
                         self.conv.bias.to(dt), padding=self.conv.padding[0])
-        x = self.act(self.bn(x))
+        x = self.dropout(self.act(self.bn(x)), gen)
         if self.pooling != (1, 1):
             x = avg_pool(x, self.pooling)
         return x

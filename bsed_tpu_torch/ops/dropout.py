@@ -1,0 +1,69 @@
+"""Inverted dropout from uint8 bits. Port of ``bsed_tpu/ops/dropout.py``.
+
+When the keep probability is k/256 (every dropout of the model family is
+0.5 = 128/256), one uint8 draw per element is an exact Bernoulli(k/256)
+sample as ``bits < k``. Rates off the 1/256 grid draw a float32 uniform.
+Every draw comes from the caller's ``torch.Generator``, on the tensor's
+device, so a step seeded the same way drops the same elements. The bits
+are drawn apart from where they are used: the fused stem epilogue (kernel
+K2 and its plain version) takes them as an input.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+
+def _u8_threshold(keep_prob: float) -> Optional[int]:
+    """k if keep_prob == k/256 exactly (1 ≤ k ≤ 255), else None."""
+    t = keep_prob * 256.0
+    k = int(round(t))
+    if abs(t - k) < 1e-9 and 1 <= k <= 255:
+        return k
+    return None
+
+
+def draw_bits(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """uint8 bits, uniform over 0..255, from ``gen``."""
+    return torch.randint(0, 256, tuple(shape), generator=gen,
+                         device=device, dtype=torch.uint8)
+
+
+def keep_mask(gen: torch.Generator, shape, rate: float,
+              device) -> torch.Tensor:
+    """Boolean keep mask, P(keep) = 1 − rate, iid."""
+    keep_prob = 1.0 - rate
+    k = _u8_threshold(keep_prob)
+    if k is not None:
+        return draw_bits(gen, shape, device) < k
+    return torch.rand(tuple(shape), generator=gen, device=device) < keep_prob
+
+
+def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
+            deterministic: bool = False) -> torch.Tensor:
+    """Inverted dropout: keep → x/(1−rate), drop → 0 (torch semantics)."""
+    if deterministic or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if gen is None:
+        raise ValueError("dropout needs a torch.Generator")
+    keep = keep_mask(gen, x.shape, rate, x.device)
+    scale = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
+class FastDropout(nn.Module):
+    """Dropout through ``dropout``: active in training mode, drawing from
+    the generator passed to ``forward``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(gen, x, self.rate, deterministic=not self.training)

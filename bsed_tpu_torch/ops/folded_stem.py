@@ -13,15 +13,26 @@ On NHWC memory the folded (B, T, F/f, f·C) and unfolded (B, T, F, C)
 tensors are the same bytes, so fold and unfold are free reshapes. With
 ``fused_epilogue`` the bias → GLU/CG → time pool → frequency pool chain
 after each conv is kernel K2 (``ops/stem_epilogue.py``).
+
+``make_folded_train_stem`` is the train form (port of the JAX function of
+that name): differentiable, on the standard ``ConvBlock`` parameters
+(the kernel and the GLU dense are folded on the fly, so gradients land on
+the original parameters), BatchNorm on batch statistics grouped over the
+fold copies, dropout on the folded layout; with the fused epilogue its
+forward is K2's train form and its backward kernel K3.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+import functools
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from bsed_tpu_torch.models.layers import conv2d_nhwc
+from bsed_tpu_torch.models.layers import (batch_stats, conv2d_nhwc,
+                                          update_running)
+from bsed_tpu_torch.ops.dropout import _u8_threshold, draw_bits, dropout
 from bsed_tpu_torch.ops.pooling import fast_avg_pool
 from bsed_tpu_torch.ops.stem_epilogue import make_fused_epilogue
 from bsed_tpu_torch.utils.device import resolve_device
@@ -158,3 +169,188 @@ def build_folded_stem(cnn_params: Dict, cnn_stats: Dict,
         return x.reshape(b2, t2, g * f_rem, c_last)
 
     return stem, n_folded
+
+
+# ---------------------------------------------------------------------------
+# Train form: the same re-layout, differentiable, on the standard parameters.
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_gather_idx(f: int, cin: int, cout: int) -> np.ndarray:
+    """Constant index map realising fold_conv_kernel as ONE gather:
+    idx[g, fi, fo] selects from the kernel flattened to (kt, 3·cin·cout)
+    with a trailing zero slot."""
+    idx = np.full((3, f * cin, f * cout), 3 * cin * cout, np.int64)
+    for r_out in range(f):
+        for d in (-1, 0, 1):
+            s = r_out + d
+            g = (s // f) + 1
+            r_in = s % f
+            for ci in range(cin):
+                for co in range(cout):
+                    idx[g, r_in * cin + ci, r_out * cout + co] = \
+                        (d + 1) * cin * cout + ci * cout + co
+    return idx.reshape(-1)
+
+
+def _fold_gather_plan(f: int, cin: int, cout: int, device):
+    """(pos, src) int64 tensors on ``device``: the folded kernel's flat
+    positions that hold a tap and the flat index of the original kernel
+    each one takes (``_fold_gather_idx`` without its zero slot)."""
+    idx = _fold_gather_idx(f, cin, cout)
+    pos = np.nonzero(idx < 3 * cin * cout)[0]
+    return (torch.as_tensor(pos, device=device),
+            torch.as_tensor(idx[pos], device=device))
+
+
+def _fold_kernel_torch(kernel: torch.Tensor, f: int, pos: torch.Tensor,
+                       src: torch.Tensor) -> torch.Tensor:
+    """Differentiable fold_conv_kernel on an HWIO (kt, 3, cin, cout)
+    kernel → (kt, 3, f·cin, f·cout): one constant-index gather of the taps
+    (``index_select``) copied into zeros; the backward is one scatter-add
+    onto the original kernel, each tap receiving its f fold copies.
+    ``pos``, ``src``: ``_fold_gather_plan(f, cin, cout, device)``."""
+    kt, _, cin, cout = kernel.shape
+    taps = kernel.reshape(kt, 3 * cin * cout).index_select(1, src)
+    out = kernel.new_zeros((kt, 3 * f * cin * f * cout)).index_copy(
+        1, pos, taps)
+    return out.reshape(kt, 3, f * cin, f * cout)
+
+
+def folded_train_eligible(model_cfg, n_mels: int, fold0: int = 8) -> bool:
+    """Whether the train-form folded stem can run this topology (non-FPN,
+    kernel 3, glu/cg/relu/leakyrelu, each leading frequency pool dividing
+    the running fold)."""
+    if (model_cfg.use_fpn or model_cfg.kernel_size != 3
+            or model_cfg.activation not in ("glu", "cg", "relu", "leakyrelu")
+            or n_mels % fold0 != 0):
+        return False
+    f = fold0
+    for _, pf in (tuple(p) for p in model_cfg.pooling):
+        if f == 1:
+            break
+        if pf == 0 or f % pf != 0:
+            return False
+        f //= pf
+    return True
+
+
+def make_folded_train_stem(model_cfg, n_mels: int, fold0: int = 8,
+                           bn_eps: float = 1e-3, device="cuda",
+                           use_kernels: bool = True):
+    """(apply, n_folded) where ``apply(blocks, x, train, gen) -> h`` runs
+    the leading foldable blocks on the folded layout from the standard
+    ``ConvBlock`` modules ``blocks['block{i}']`` (conv, bn, act.linear).
+
+    BatchNorm matches the JAX stem: in training the batch statistics are
+    the biased mean/var per original channel over (batch, time, freq), a
+    reduction grouped over the fold copies, in float32, and the blocks'
+    running statistics are updated in place (``update_running``). With ``model_cfg.fused_stem_epilogue``
+    each eligible block's epilogue is K2/K3 (``use_kernels=False``: their
+    plain versions); dropout bits are drawn from ``gen`` on the folded
+    layout before the epilogue, one (B, T·G, L) uint8 tensor per block."""
+    from bsed_tpu_torch.ops.stem_epilogue import make_fused_epilogue
+
+    act = model_cfg.activation
+    rate = model_cfg.dropout
+    dtype = (torch.bfloat16 if model_cfg.compute_dtype == "bfloat16"
+             else torch.float32)
+
+    def _ep_ok(pt):
+        return (model_cfg.fused_stem_epilogue and act in ("glu", "cg")
+                and pt in (1, 2)
+                and (rate == 0 or _u8_threshold(1.0 - rate)))
+
+    plan: List[Tuple] = []
+    f = fold0
+    cin = 1
+    for i, (cout, (pt, pf)) in enumerate(zip(model_cfg.nb_filters,
+                                             model_cfg.pooling)):
+        if f == 1:
+            break
+        if f % pf != 0:
+            raise ValueError(f"block{i}: pool {pf} does not divide fold {f}")
+        pool_w = (torch.as_tensor(_freq_pool_matrix(f, pf, cout),
+                                  device=device) if pf > 1 else None)
+        eps = None
+        if _ep_ok(pt) and pool_w is not None:
+            eps = (make_fused_epilogue(act, pt, pool_w, use_kernels, rate),
+                   make_fused_epilogue(act, pt, pool_w, use_kernels, 0.0))
+        pos, src = _fold_gather_plan(f, cin, cout, device)
+        plan.append((i, cout, pt, f, pool_w, pos, src, eps))
+        f //= pf
+        cin = cout
+    n_folded = len(plan)
+    f_rem = f
+    c_last = model_cfg.nb_filters[n_folded - 1]
+
+    def _stats(bn, h, fi, shift, train):
+        """(mean, var) for this block's normalisation; the running ones
+        are updated in training. ``shift`` (the conv bias, or None) is
+        added to the mean of a pre-bias activation."""
+        if not train:
+            return bn.running_mean, bn.running_var
+        mean, var, n = batch_stats(h, groups=fi)
+        if shift is not None:
+            mean = mean + shift
+        update_running(bn.running_mean, bn.running_var, mean.detach(),
+                       var.detach(), n)
+        return mean, var
+
+    def apply(blocks: Mapping, x: torch.Tensor, train: bool,
+              gen: Optional[torch.Generator]) -> torch.Tensor:
+        b, t, n_f, _ = x.shape
+        h = x.reshape(b, t, n_f // fold0, fold0).to(dtype)
+        for (i, co, pt, fi, pool_w, pos, src, eps) in plan:
+            blk = blocks[f"block{i}"]
+            k = _fold_kernel_torch(blk.conv.weight.permute(2, 3, 1, 0)
+                                   .to(dtype), fi, pos, src)
+            h = conv2d_nhwc(h, k.permute(3, 2, 0, 1)).contiguous()
+            bn = blk.bn
+            if eps is not None:
+                # bias stays out of the conv output: it folds into the
+                # epilogue's per-lane affine c; the batch mean shifts by
+                # it and the variance does not see it
+                bias = blk.conv.bias
+                mean, var = _stats(bn, h, fi, bias, train)
+                inv = bn.weight * torch.rsqrt(var + bn_eps)
+                cvec = (bias - mean) * inv + bn.bias
+                lin = blk.act.linear
+                w = torch.block_diag(*[lin.weight.t().to(dtype)] * fi)
+                b_t = lin.bias.repeat(fi)
+                if train and rate > 0:
+                    bits = draw_bits(gen, (h.shape[0], h.shape[1] * h.shape[2],
+                                           h.shape[3]), h.device)
+                    h = eps[0](h, inv.repeat(fi), cvec.repeat(fi), w, b_t,
+                               bits)
+                else:
+                    h = eps[1](h, inv.repeat(fi), cvec.repeat(fi), w, b_t)
+                continue
+
+            h = h + blk.conv.bias.repeat(fi).to(h.dtype)
+            mean, var = _stats(bn, h, fi, None, train)
+            inv = bn.weight * torch.rsqrt(var + bn_eps)
+            h = ((h - mean.repeat(fi).to(h.dtype)) * inv.repeat(fi).to(h.dtype)
+                 + bn.bias.repeat(fi).to(h.dtype))
+            if act in ("glu", "cg"):
+                lin = blk.act.linear
+                w = torch.block_diag(*[lin.weight.t().to(dtype)] * fi)
+                z = h @ w + lin.bias.repeat(fi).to(h.dtype)
+                h = (z * torch.sigmoid(h) if act == "glu"
+                     else h * torch.sigmoid(z))
+            elif act == "relu":
+                h = torch.relu(h)
+            else:
+                h = F.leaky_relu(h, negative_slope=0.2)
+            if train and rate > 0:
+                h = dropout(gen, h, rate)
+            if pt > 1:
+                h = fast_avg_pool(h, (pt, 1))
+            if pool_w is not None:
+                h = h @ pool_w.to(h.dtype)
+
+        # unfold (B, T', G, f_rem·C) → (B, T', G·f_rem, C)
+        b2, t2, g2, _ = h.shape
+        return h.reshape(b2, t2, g2 * f_rem, c_last)
+
+    return apply, n_folded

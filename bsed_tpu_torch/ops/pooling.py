@@ -1,10 +1,14 @@
-"""Average pooling over (time, freq) of NHWC tensors, forward only.
+"""Average pooling over (time, freq) of NHWC tensors.
 
 Port of ``bsed_tpu/ops/pooling.py``: VALID padding, stride equal to the
 window, floor semantics (1255 → 627 → 313 on the time axis). Power-of-two
 windows are summed as strided slices in the same pairwise order as the JAX
 version (time pairs first, then frequency pairs, then one division in the
 tensor's dtype), so single-axis window-2 pools agree bit for bit.
+
+Autograd differentiates the strided slices into the cotangent the JAX
+package writes as its ``custom_vjp``: every input of a window receives
+g/(kt·kf), and the VALID-dropped remainder rows receive 0.
 """
 from __future__ import annotations
 

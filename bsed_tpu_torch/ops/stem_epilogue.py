@@ -1,42 +1,48 @@
-"""Kernel K2: fused folded-stem epilogue, forward.
+"""Kernels K2 and K3: the fused folded-stem epilogue, forward and backward.
 
 Replaces the TPU kernel ``bsed_tpu/ops/stem_epilogue.py:make_fused_epilogue``
-(``_run_fwd``, body ``_fwd_kernel``) in its serving form. The CUDA source is
-``csrc/stem_epilogue.cu``.
+with the ``pool_w`` frequency pool: ``_run_fwd`` (body ``_fwd_kernel``) is
+K2, ``csrc/stem_epilogue.cu``; ``_run_bwd`` (body ``_bwd_kernel``) is K3,
+``csrc/stem_epilogue_bwd.cu``; the ``custom_vjp`` is ``StemEpilogueFn``.
 
 For a conv output h (B, T, G=16, L=128) without bias it computes
 
     y = h·inv + c;  GLU z = (y@w + b)·σ(y)  or  CG z = y·σ(y@w + b);
+    dropout z = bits < k ? z·256/k : 0   (train form; bits uint8, h's layout);
     time avg-pool pt ∈ {1, 2} (VALID, the odd last row dropped);
     frequency pool z @ pool_w  → (B, T//pt, G, L/2)
 
 with elementwise math in float32, matmul operands in the input dtype and
 float32 accumulation, and the output in the input dtype, as the TPU kernel
 does. In the serving stem inv = 1 and c is the conv bias (the eval-mode
-BatchNorm is folded into the conv).
+BatchNorm is folded into the conv); in training inv = γ·rsqrt(var+ε) and
+c = (bias − mean)·inv + β from the batch statistics, which autograd
+differentiates around the kernels. The backward recomputes y, lin and σ
+from h (the forward saves only its inputs) and returns dh and the
+parameter reductions dinv = Σdy·h, dc = Σdy, dW = yᵀ·dlin (float32
+operands), db = Σdlin, summed deterministically.
 
-Bound on the H100: device memory for the work (h read once, the output
-written once; ~0.74 GB per batch-64 bf16 forward over blocks 0-2), but the
-first kernel runs its 128×128 product in float32 FMA, which costs more
-than the bytes. Design: persistent blocks hold w in shared memory and walk
-over contiguous panels of 4 time rows × 16 groups × 128 lanes; each thread
-owns 4 time rows of one group and the lane pairs ``pool_w`` averages, so
-the time and frequency pools happen in registers and h is read once.
+Bound on the H100: K2 reads h once and writes the output once (~0.74 GB
+per batch-64 bf16 forward over blocks 0-2), but both kernels run their
+128×128 products in float32 FMA, which costs more than the bytes (K3 does
+three per row). Design: persistent blocks hold w in shared memory and walk
+over contiguous panels of 4 time rows × 16 groups × 128 lanes; see the
+sources for the thread layout.
 
 ``pool_w`` must be the folded stem's pair-averaging matrix
-(``ops/folded_stem._freq_pool_matrix(f, 2, c)``): the kernel computes that
-matmul as the pair average it is. The dropout (``bits``) and group-pool
-(``pg``) forms of the TPU kernel belong to the training step and are not
-ported yet.
+(``ops/folded_stem._freq_pool_matrix(f, 2, c)``): the kernels compute that
+matmul as the pair average it is. The group-pool (``pg``) form of the TPU
+kernel is not ported.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from bsed_tpu_torch.ops.dropout import _u8_threshold
 from bsed_tpu_torch.ops.pooling import fast_avg_pool
 
 L, G = 128, 16
@@ -45,16 +51,34 @@ _ACTS = {"glu": 0, "cg": 1}
 
 
 def stem_epilogue_plain(h, inv, c, w, b, act: str, pt: int,
-                        pool_w: torch.Tensor) -> torch.Tensor:
+                        pool_w: torch.Tensor, bits=None,
+                        keep_k: int = 0) -> torch.Tensor:
     """The plain PyTorch version: the unfused chain, every op in h's dtype
-    (as the unfused folded stem composes it)."""
+    (as the unfused folded stem composes it). ``bits`` (B, T·G, L) uint8
+    and ``keep_k`` give the train form's dropout."""
     dt = h.dtype
     y = h * inv.to(dt) + c.to(dt)
     lin = y @ w.to(dt) + b.to(dt)
     z = lin * torch.sigmoid(y) if act == "glu" else y * torch.sigmoid(lin)
+    if bits is not None:
+        keep = bits.reshape(h.shape) < keep_k
+        z = torch.where(keep, z * (256.0 / keep_k),
+                        torch.zeros((), dtype=dt, device=h.device))
     if pt > 1:
         z = fast_avg_pool(z, (pt, 1))
     return z @ pool_w.to(dt)
+
+
+def stem_epilogue_bwd_plain(gz, h, inv, c, w, b, act: str, pt: int,
+                            pool_w: torch.Tensor, bits=None,
+                            keep_k: int = 0):
+    """K3's plain version: (dh, dinv, dc, dW, db) of the plain chain for
+    the cotangent ``gz``, by autograd; dW in float32."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (h, inv, c, w, b)]
+        out = stem_epilogue_plain(*leaves, act, pt, pool_w, bits, keep_k)
+        dh, dinv, dc, dw, db = torch.autograd.grad(out, leaves, gz)
+    return dh, dinv, dc, dw.float(), db
 
 
 def pair_pool_channels(pool_w: np.ndarray) -> int:
@@ -74,20 +98,7 @@ def pair_pool_channels(pool_w: np.ndarray) -> int:
                      "stem's (128, 64) pair-averaging pool_w")
 
 
-def _bind(lib):
-    fn = lib.bsed_stem_epilogue
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
-    return fn
-
-
-def stem_epilogue_fwd(h, inv, c, w, b, act: str, pt: int,
-                      pool_w: torch.Tensor, pool_c: int) -> torch.Tensor:
-    """K2's wrapper. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (``pool_c`` from ``pair_pool_channels(pool_w)``)."""
-    if h.device.type == "cpu":
-        return stem_epilogue_plain(h, inv, c, w, b, act, pt, pool_w)
+def _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k) -> None:
     if h.device.type != "cuda":
         raise ValueError(f"stem epilogue kernel runs on CUDA, got {h.device}")
     if h.dtype not in _DTYPES:
@@ -107,15 +118,44 @@ def stem_epilogue_fwd(h, inv, c, w, b, act: str, pt: int,
         raise ValueError("stem epilogue inputs must share h's device")
     if act not in _ACTS or pt not in (1, 2):
         raise ValueError(f"unsupported act={act} pt={pt}")
+    if bits is not None:
+        if (bits.dtype != torch.uint8 or bits.numel() != h.numel()
+                or bits.shape[0] != h.shape[0] or not bits.is_contiguous()
+                or bits.device != h.device):
+            raise ValueError("bits must be contiguous uint8 (B, T·16, 128) "
+                             "on h's device")
+        if not 1 <= keep_k <= 255:
+            raise ValueError(f"keep_k must be in 1..255, got {keep_k}")
+
+
+def _bind_fwd(lib):
+    fn = lib.bsed_stem_epilogue
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    return fn
+
+
+def stem_epilogue_fwd(h, inv, c, w, b, act: str, pt: int,
+                      pool_w: torch.Tensor, pool_c: int, bits=None,
+                      keep_k: int = 0) -> torch.Tensor:
+    """K2's wrapper. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (``pool_c`` from ``pair_pool_channels(pool_w)``)."""
+    if h.device.type == "cpu":
+        return stem_epilogue_plain(h, inv, c, w, b, act, pt, pool_w, bits,
+                                   keep_k)
+    _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k)
     bsz, t_in = h.shape[:2]
     out = torch.empty((bsz, t_in // pt, G, L // 2), device=h.device,
                       dtype=h.dtype)
     from bsed_tpu_torch import kernels
-    fn = _bind(kernels.load("stem_epilogue"))
+    fn = _bind_fwd(kernels.load("stem_epilogue"))
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = fn(h.data_ptr(), inv.data_ptr(), c.data_ptr(), w.data_ptr(),
-             b.data_ptr(), out.data_ptr(), _DTYPES[h.dtype], _ACTS[act], pt,
-             bsz, t_in, t_in // pt, pool_c, stream)
+             b.data_ptr(), None if bits is None else bits.data_ptr(),
+             keep_k if bits is not None else 0, out.data_ptr(),
+             _DTYPES[h.dtype], _ACTS[act], pt, bsz, t_in, t_in // pt, pool_c,
+             stream)
     kernels.check(err, "stem epilogue kernel")
     stem_epilogue_fwd.launches += 1
     return out
@@ -123,21 +163,126 @@ def stem_epilogue_fwd(h, inv, c, w, b, act: str, pt: int,
 
 stem_epilogue_fwd.launches = 0
 
+_WORKSPACE: Dict[torch.device, torch.Tensor] = {}
+
+
+def _workspace(lib, device: torch.device) -> torch.Tensor:
+    """One (SMs, partial size) float32 buffer per device for K3's per-block
+    partial sums; the kernel's grid is at most one block per SM."""
+    ws = _WORKSPACE.get(device)
+    if ws is None:
+        size_fn = lib.bsed_stem_epilogue_bwd_partial_size
+        size_fn.restype = ctypes.c_int
+        size_fn.argtypes = []
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        ws = torch.empty((sms, size_fn()), device=device,
+                         dtype=torch.float32)
+        _WORKSPACE[device] = ws
+    return ws
+
+
+def _bind_bwd(lib):
+    fn = lib.bsed_stem_epilogue_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def stem_epilogue_bwd(gz, h, inv, c, w, b, act: str, pt: int,
+                      pool_w: torch.Tensor, pool_c: int, bits=None,
+                      keep_k: int = 0):
+    """K3's wrapper: (dh in h's dtype, dinv, dc, dW, db in float32). CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if h.device.type == "cpu":
+        return stem_epilogue_bwd_plain(gz, h, inv, c, w, b, act, pt, pool_w,
+                                       bits, keep_k)
+    _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k)
+    bsz, t_in = h.shape[:2]
+    t_out = t_in // pt
+    gz = gz.contiguous()
+    if gz.shape != (bsz, t_out, G, L // 2) or gz.dtype != h.dtype:
+        raise ValueError(f"gz must be ({bsz}, {t_out}, {G}, {L // 2}) in "
+                         f"h's dtype, got {tuple(gz.shape)} {gz.dtype}")
+    from bsed_tpu_torch import kernels
+    lib = kernels.load("stem_epilogue_bwd")
+    fn = _bind_bwd(lib)
+    ws = _workspace(lib, h.device)
+    dh = torch.empty_like(h)
+    # rows after the last panel (the dropped odd row when T//pt is even)
+    covered = -(-t_out // (4 // pt)) * 4
+    if covered < t_in:
+        dh[:, covered:].zero_()
+    f32 = dict(device=h.device, dtype=torch.float32)
+    dw = torch.empty((L, L), **f32)
+    dinv, dc, db = (torch.empty(L, **f32) for _ in range(3))
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    err = fn(gz.data_ptr(), h.data_ptr(), inv.data_ptr(), c.data_ptr(),
+             w.data_ptr(), b.data_ptr(),
+             None if bits is None else bits.data_ptr(),
+             keep_k if bits is not None else 0, dh.data_ptr(), dw.data_ptr(),
+             dinv.data_ptr(), dc.data_ptr(), db.data_ptr(), ws.data_ptr(),
+             ws.shape[0], _DTYPES[h.dtype], _ACTS[act], pt, bsz, t_in, t_out,
+             pool_c, stream)
+    kernels.check(err, "stem epilogue backward kernel")
+    stem_epilogue_bwd.launches += 1
+    return dh, dinv, dc, dw, db
+
+
+stem_epilogue_bwd.launches = 0
+
+
+class StemEpilogueFn(torch.autograd.Function):
+    """K2 forward, K3 backward: the port of the TPU kernel's custom_vjp.
+    Saves only the inputs; returns (dh, dinv, dc, dW in w's dtype, db) and
+    no gradient for the bits."""
+
+    @staticmethod
+    def forward(ctx, h, inv, c, w, b, bits, act, pt, pool_w, pool_c,
+                keep_k):
+        ctx.save_for_backward(h, inv, c, w, b, bits)
+        ctx.cfg = (act, pt, pool_w, pool_c, keep_k)
+        return stem_epilogue_fwd(h, inv, c, w, b, act, pt, pool_w, pool_c,
+                                 bits, keep_k)
+
+    @staticmethod
+    def backward(ctx, gz):
+        h, inv, c, w, b, bits = ctx.saved_tensors
+        act, pt, pool_w, pool_c, keep_k = ctx.cfg
+        dh, dinv, dc, dw, db = stem_epilogue_bwd(
+            gz.to(h.dtype), h, inv, c, w, b, act, pt, pool_w, pool_c, bits,
+            keep_k)
+        return (dh, dinv, dc, dw.to(w.dtype), db, None, None, None, None,
+                None, None)
+
 
 def make_fused_epilogue(act: str, pt: int, pool_w: torch.Tensor,
-                        use_kernel: bool = True) -> Callable:
-    """Build ``ep(h, inv, c, w, b) -> out`` for one folded conv-block
-    epilogue in its serving form (no dropout), with ``pool_w`` on h's
-    device. ``use_kernel=False`` gives the plain version on any device."""
+                        use_kernel: bool = True,
+                        rate: float = 0.0) -> Callable:
+    """Build ``ep(h, inv, c, w, b, bits=None) -> out`` for one folded
+    conv-block epilogue, differentiable in (h, inv, c, w, b), with
+    ``pool_w`` on h's device. ``rate`` > 0 is the train form: ``bits``
+    (B, T·G, L) uint8 are then required, keep = bits < round(256·(1−rate)).
+    ``use_kernel=False`` gives the plain version on any device."""
     if act not in _ACTS:
         raise ValueError(f"fused epilogue supports glu/cg, got {act}")
     if pt not in (1, 2):
         raise ValueError(f"fused epilogue supports time pool 1/2, got {pt}")
+    keep_k = 0
+    if rate > 0:
+        keep_k = _u8_threshold(1.0 - rate)
+        if keep_k is None:
+            raise ValueError(f"dropout rate {rate} not on the k/256 grid")
     pool_c = pair_pool_channels(pool_w.cpu().numpy())
 
-    def ep(h, inv, c, w, b):
+    def ep(h, inv, c, w, b, bits: Optional[torch.Tensor] = None):
+        if (bits is None) != (keep_k == 0):
+            raise ValueError("bits are required exactly when rate > 0")
         if use_kernel:
-            return stem_epilogue_fwd(h, inv, c, w, b, act, pt, pool_w, pool_c)
-        return stem_epilogue_plain(h, inv, c, w, b, act, pt, pool_w)
+            return StemEpilogueFn.apply(h, inv, c, w, b, bits, act, pt,
+                                        pool_w, pool_c, keep_k)
+        return stem_epilogue_plain(h, inv, c, w, b, act, pt, pool_w, bits,
+                                   keep_k)
 
     return ep

@@ -3,22 +3,36 @@
     python3 chip_smoke.py [--profile-dir DIR]
 
 Builds the port's CUDA kernels from ``bsed_tpu_torch/csrc`` (nvcc, at first
-use), holds each kernel against its plain PyTorch version at the shapes the
-serving path gives it, drives the serving path (``make_fast_forward`` on
-preset ``baseline``, bf16, precision 'high', B=64 full 10 s clips, random
-weights from seed 0) and checks that it went through both kernels, then
-holds the float32 kernel path against the plain path. One JSON line per
-phase; then the card's name and power limit as nvidia-smi gives them, the
-kernels line, and last ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero before the last line. Needs one CUDA device; imports no JAX.
-``--profile-dir`` also writes the full torch.profiler table of one serving
-batch to ``DIR/serve_profile.txt``.
+use, all sources in parallel) and drives both slices of the port:
+
+  * serving: K1 (mel) and K2's eval form against their plain PyTorch
+    versions at the serving shapes, then the serving path
+    (``make_fast_forward`` on preset ``baseline``, bf16, precision 'high',
+    B=64 full 10 s clips, random weights from seed 0), which must launch K1
+    once and K2 three times per batch, and the float32 kernel path against
+    the plain path;
+  * training: K2's train form (dropout bits) and K3 (its backward) against
+    their plain versions at the student shapes (B=72), then the flagship
+    train step (``train.steps.make_train_step`` on ``baseline_mt_isp`` with
+    ``perf_config``: bf16, folded train stem with fused epilogues, fused
+    streams; 12 SYN + 12 real full-width clips, epoch 30, random weights
+    from seed 0), which must launch K2 six times and K3 three times per
+    step, a profiled step, and the float32 kernel step against the plain
+    step.
+
+One JSON line per phase; then the card's name and power limit as
+nvidia-smi gives them, the kernels line, and last ``{"ok": true,
+"device": {...}}``. Any failure exits non-zero before the last line. Needs
+one CUDA device; imports no JAX. ``--profile-dir`` also writes the
+torch.profiler tables of one serving batch and one train step to
+``DIR/serve_profile.txt`` and ``DIR/train_profile.txt``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -28,6 +42,9 @@ H100_FLOPS = {"float32": 67e12,   # CUDA-core float32
               "bfloat16": 989e12}  # dense tensor-core bf16
 B_SERVE = 64
 N_TIMED = 5
+B_TRAIN = 12                      # SYN clips per step; the real stream too
+B_STUDENT = 6 * B_TRAIN           # the fused student forward's batch
+BF16_GRAD_GATE = 5e-2             # relative Frobenius error, bf16 grads
 
 
 def emit(**kw) -> None:
@@ -245,7 +262,6 @@ def main_path(torch, dev, card, kernel_ms, profile_dir):
 def profile(torch, forward, audio, profile_dir):
     """Device time by kernel over one batch (torch.profiler); the top
     entries are printed, the full table written to ``profile_dir``."""
-    import os
     from torch.profiler import ProfilerActivity, profile as prof
 
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
@@ -256,13 +272,18 @@ def profile(torch, forward, audio, profile_dir):
             else "cuda_time_total")
     rows = sorted(((getattr(e, attr), e.key, e.count) for e in events
                    if getattr(e, attr) > 0), reverse=True)
-    if profile_dir:
-        os.makedirs(profile_dir, exist_ok=True)
-        with open(os.path.join(profile_dir, "serve_profile.txt"), "w") as fh:
-            fh.write(events.table(sort_by=attr, row_limit=60))
+    write_table(events, attr, profile_dir, "serve_profile.txt")
     emit(phase="profile", batch=int(audio.shape[0]),
          top=[{"name": k[:60], "ms": t / 1e3, "calls": n}
               for t, k, n in rows[:12]])
+
+
+def write_table(events, attr, profile_dir, name):
+    import os
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        with open(os.path.join(profile_dir, name), "w") as fh:
+            fh.write(events.table(sort_by=attr, row_limit=80))
 
 
 def path_equality(torch, dev):
@@ -280,6 +301,328 @@ def path_equality(torch, dev):
     emit(phase="path_equality", dtype="float32", batch=8,
          max_abs_err_posteriors=err, gate=2e-3)
     assert err <= 2e-3, f"kernel path differs from plain path by {err}"
+
+
+def rel_fro(a, b) -> float:
+    """Relative Frobenius error ||a − b|| / ||b|| in float32."""
+    b = b.float()
+    return float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def check_stem_epilogue_train(torch, dev):
+    """K2's train form (dropout bits) and K3 against their plain versions
+    at blocks 0-2's student shapes (B=72), GLU, real per-lane BN affine:
+    float32 forward 1e-5 and gradients 2e-4 (rtol/atol; for the parameter
+    reductions, or at most twice the plain version's distance from the
+    float64 chain), bfloat16 forward 0.06 and gradients within
+    BF16_GRAD_GATE relative Frobenius error; K3 twice on the same input
+    must give the same bits. Times are bf16."""
+    from bsed_tpu_torch.ops import folded_stem, stem_epilogue as se
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = {"fwd_f32": 0.0, "bwd_f32": 0.0, "fwd_bf16": 0.0,
+             "bwd_bf16_rel": 0.0}
+    fwd_t = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "t_ops": 0.0,
+             "t_bytes": 0.0}
+    bwd_t = dict(fwd_t)
+    per_block = []
+    for blk, t_in, pt, c in STEM_BLOCKS:
+        f = 128 // c
+        shape = (B_STUDENT, t_in, 16, 128)
+        h32 = torch.randn(shape, generator=gen, device=dev)
+        w_small = torch.randn((c, c), generator=gen, device=dev) / c ** 0.5
+        w32 = torch.block_diag(*[w_small] * f).contiguous()
+        inv = 1.0 + 0.2 * torch.randn(128, generator=gen, device=dev)
+        cvec = 0.3 * torch.randn(128, generator=gen, device=dev)
+        bvec = 0.1 * torch.randn(128, generator=gen, device=dev)
+        bits = torch.randint(0, 256, (B_STUDENT, t_in * 16, 128),
+                             generator=gen, device=dev, dtype=torch.uint8)
+        gz32 = torch.randn((B_STUDENT, t_in // pt, 16, 64), generator=gen,
+                           device=dev)
+        pool_w = torch.as_tensor(folded_stem._freq_pool_matrix(f, 2, c),
+                                 device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            h, w, gz = h32.to(dt), w32.to(dt), gz32.to(dt)
+            args = (h, inv, cvec, w, bvec, "glu", pt, pool_w)
+            got = se.stem_epilogue_fwd(*args, c, bits, 128)
+            want = se.stem_epilogue_plain(*args, bits, 128)
+            g1 = se.stem_epilogue_bwd(gz, *args, c, bits, 128)
+            g2 = se.stem_epilogue_bwd(gz, *args, c, bits, 128)
+            gp = se.stem_epilogue_bwd_plain(gz, *args, bits, 128)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+            dfw = (got.float() - want.float()).abs()
+            name = str(dt).split(".")[1]
+            rec = {"block": blk, "dtype": name, "shape": list(h.shape),
+                   "fwd_max_abs_err": float(dfw.max()),
+                   "bwd_bit_identical": same}
+            if dt is torch.float32:
+                fwd_ok = bool((dfw <= 1e-5 + 1e-5 * want.abs()).all())
+                # the parameter gradients are sums over B·T·16 rows (1.4M
+                # at block 0), whose float32 rounding depends on the
+                # order: a gradient passes within 2e-4 rtol/atol of the
+                # plain version, or no further from the float64 chain
+                # than twice the plain float32 version is
+                g64 = se.stem_epilogue_bwd_plain(
+                    gz.double(), h.double(), inv.double(), cvec.double(),
+                    w.double(), bvec.double(), "glu", pt, pool_w.double(),
+                    bits, 128)
+                bwd_ok, errs = True, {}
+                for n, a, b, e in zip("h inv c w b".split(), g1, gp, g64):
+                    close = bool(((a - b).abs()
+                                  <= 2e-4 + 2e-4 * b.abs()).all())
+                    ek = float((a.double() - e).abs().max())
+                    ep = float((b.double() - e).abs().max())
+                    errs[n] = {"vs_plain": float((a - b).abs().max()),
+                               "kernel_vs_f64": ek, "plain_vs_f64": ep}
+                    bwd_ok = bwd_ok and (close or ek <= 2 * ep)
+                rec["bwd_max_abs_err"] = errs
+                del g64
+                worst["fwd_f32"] = max(worst["fwd_f32"], float(dfw.max()))
+                worst["bwd_f32"] = max(worst["bwd_f32"], max(
+                    float((a - b).abs().max()) for a, b in zip(g1, gp)))
+            else:
+                fwd_ok = bool((dfw <= 0.06 + 0.06 * want.float().abs()).all())
+                rels = {n: rel_fro(a, b) for n, a, b in
+                        zip("h inv c w b".split(), g1, gp)}
+                rec["bwd_rel_fro"] = rels
+                bwd_ok = all(r <= BF16_GRAD_GATE for r in rels.values())
+                worst["fwd_bf16"] = max(worst["fwd_bf16"], float(dfw.max()))
+                worst["bwd_bf16_rel"] = max(worst["bwd_bf16_rel"],
+                                            max(rels.values()))
+            emit(phase="stem_epilogue_train_check", **rec)
+            assert fwd_ok, f"K2 train form, block {blk} {name}"
+            assert bwd_ok, f"K3, block {blk} {name}"
+            assert same, f"K3 block {blk} {name}: reductions not repeatable"
+            if dt is not torch.bfloat16:
+                continue
+            rows = B_STUDENT * t_in * 16
+            n = rows * 128
+            mm = rows * 128 * 128 * 2
+            kf = time_ms(lambda: se.stem_epilogue_fwd(*args, c, bits, 128),
+                         10)
+            pf = time_ms(lambda: se.stem_epilogue_plain(*args, bits, 128), 5)
+            kb = time_ms(lambda: se.stem_epilogue_bwd(gz, *args, c, bits,
+                                                      128), 10)
+            pb = time_ms(lambda: se.stem_epilogue_bwd_plain(
+                gz, *args, bits, 128), 5)
+            # K2: h and bits read, output written; 1 product in bf16
+            fb = n * 2 + n + got.numel() * 2 + w.numel() * 2 + 3 * 512
+            f_ops = {"bfloat16": mm, "float32": n * 10}
+            # K3: gz, h, bits read, dh written; 2 products in bf16 and dW
+            # with float32 operands
+            bb = gz.numel() * 2 + n * 2 + n + n * 2 + w.numel() * 2 \
+                + 128 * 128 * 4 + 7 * 512
+            b_ops = {"bfloat16": 2 * mm, "float32": mm + n * 20}
+            for acc, k, pl, nbytes, ops in ((fwd_t, kf, pf, fb, f_ops),
+                                            (bwd_t, kb, pb, bb, b_ops)):
+                bms, _ = bound(nbytes, ops)
+                acc["ms"] += k
+                acc["plain_ms"] += pl
+                acc["bound_ms"] += bms
+                acc["t_bytes"] += nbytes / H100_BYTES_PER_S
+                acc["t_ops"] += sum(v / H100_FLOPS[t] for t, v in ops.items())
+            per_block.append({"block": blk, "fwd_ms": kf, "fwd_plain_ms": pf,
+                              "bwd_ms": kb, "bwd_plain_ms": pb})
+        del h32, w32, bits, gz32, h, w, gz, got, want, g1, g2, gp
+        torch.cuda.empty_cache()
+    emit(phase="stem_epilogue_train_times", dtype="bfloat16",
+         batch=B_STUDENT, blocks=per_block)
+
+    def entry(name, src, replaces, t, err):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": ("bytes" if t["t_bytes"] >= t["t_ops"]
+                             else "operations"),
+                "library_ms": None,
+                "times_are": "sum over blocks 0-2 of one B=72 bf16 student "
+                             "forward/backward"}
+    return (entry("stem_epilogue_train", "bsed_tpu_torch/csrc/stem_epilogue.cu",
+                  "bsed_tpu/ops/stem_epilogue.py:307", fwd_t,
+                  worst["fwd_bf16"]) | {"max_abs_err_f32": worst["fwd_f32"]},
+            entry("stem_epilogue_bwd",
+                  "bsed_tpu_torch/csrc/stem_epilogue_bwd.cu",
+                  "bsed_tpu/ops/stem_epilogue.py:325", bwd_t,
+                  worst["bwd_f32"]) | {
+                      "max_abs_err_is": "float32 gradients",
+                      "bf16_rel_fro_err": worst["bwd_bf16_rel"],
+                      "bf16_gate": BF16_GRAD_GATE})
+
+
+def train_setup(torch, dev, compute_dtype, use_kernels, batch_size):
+    """(cfg, state, step, batch) of the flagship train step on ``dev``:
+    ``baseline_mt_isp`` + perf_config, random weights from seed 0, a random
+    full-width batch made on the card as bench.py:160-171 makes it."""
+    from bsed_tpu_torch.config import get_config, perf_config
+    from bsed_tpu_torch.train import steps
+
+    cfg = perf_config(get_config("baseline_mt_isp"))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype=compute_dtype))
+    modules = steps.build_modules(cfg, device=dev, use_kernels=use_kernels)
+    state = steps.create_train_state(cfg, modules, 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t_in, f = cfg.audio.max_frames, cfg.audio.n_mels
+    batch = {
+        "syn": torch.randn((batch_size, t_in, f), generator=gen,
+                           device=dev).abs(),
+        "syn_strong": (torch.rand((batch_size, cfg.n_frames, cfg.nclass),
+                                  generator=gen, device=dev) > 0.9).float(),
+        "real": torch.randn((batch_size, t_in, f), generator=gen,
+                            device=dev).abs(),
+        "real_weak": (torch.rand((batch_size, cfg.nclass), generator=gen,
+                                 device=dev) > 0.8).float()}
+    return cfg, state, steps.make_train_step(modules), batch
+
+
+def train_path(torch, dev, card, profile_dir):
+    """The flagship train step, bf16, 12 + 12 full-width clips at epoch 30:
+    2 warm-up steps, then 5 timed; K2 must launch 6 times (3 student + 3
+    teacher blocks) and K3 3 times per step; finite metrics; the params
+    and the EMA params must move."""
+    from bsed_tpu_torch.ops import stem_epilogue as se
+
+    cfg, state, step, batch = train_setup(torch, dev, "bfloat16", True,
+                                          B_TRAIN)
+    for _ in range(2):
+        step(state, batch, 1, 30.0)
+    torch.cuda.synchronize()
+    p0 = [p.detach().clone() for p in state.model.parameters()]
+    e0 = [p.detach().clone() for p in state.ema_model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+
+    se.stem_epilogue_fwd.launches = 0
+    se.stem_epilogue_bwd.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(N_TIMED):
+        metrics = step(state, batch, 1, 30.0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"stem_epilogue_train": se.stem_epilogue_fwd.launches,
+                "stem_epilogue_bwd": se.stem_epilogue_bwd.launches}
+
+    values = {k: float(v) for k, v in metrics.items()}
+    assert all(math.isfinite(v) for v in values.values()), values
+    assert launches == {"stem_epilogue_train": 6 * N_TIMED,
+                        "stem_epilogue_bwd": 3 * N_TIMED}, launches
+    moved = lambda a, b: any(not torch.equal(x, y.detach())  # noqa: E731
+                             for x, y in zip(a, b))
+    assert moved(p0, state.model.parameters()), "params did not move"
+    assert moved(e0, state.ema_model.parameters()), "EMA did not move"
+    step_s = elapsed / N_TIMED
+    emit(phase="train_path", preset="baseline_mt_isp", config="perf_config",
+         compute_dtype="bfloat16", batch_syn=B_TRAIN, batch_real=B_TRAIN,
+         steps=N_TIMED, epoch=30.0, ms_per_step=step_s * 1e3,
+         clips_per_s=2 * B_TRAIN / step_s, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         loss=values["loss"], card=card)
+    train_profile(torch, state, step, batch, step_s, profile_dir)
+    return launches
+
+
+def train_profile(torch, state, step, batch, step_s, profile_dir):
+    """One train step under torch.profiler: device self time by kernel
+    (top entries printed, the full table to ``profile_dir``)."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        step(state, batch, 1, 30.0)
+        torch.cuda.synchronize()
+    events = p.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    # device-side events only (kernels, memcpy, memset): the operators
+    # that launch them repeat the same time
+    rows = sorted(((getattr(e, attr), e.key, e.count) for e in events
+                   if getattr(e, attr) > 0
+                   and "CUDA" in str(getattr(e, "device_type", ""))),
+                  reverse=True)
+    write_table(events, attr, profile_dir, "train_profile.txt")
+    busy_ms = sum(t for t, _, _ in rows) / 1e3
+    emit(phase="train_profile", device_ms=busy_ms,
+         timed_step_ms=step_s * 1e3,
+         device_busy_share=busy_ms / (step_s * 1e3),
+         top=[{"name": k[:70], "ms": t / 1e3, "calls": n}
+              for t, k, n in rows[:30]])
+    gru_weight_cast(torch, state.model.encoder.rest.rnn.gru.weight_ih_l0.device)
+
+
+def gru_weight_cast(torch, dev):
+    """Forward + backward of the train GRU at the student shape (B=72,
+    313 frames) with float32 master weights cast to bf16 on every call
+    (the train step's form) against bf16 weights held by the module (the
+    serving form); host clock around synchronised calls, median of 5."""
+    from bsed_tpu_torch.models.rnn import BidirectionalGRU
+
+    x = torch.randn((B_STUDENT, 313, 128), device=dev)
+    res = {}
+    for cast in (False, True):
+        gru = BidirectionalGRU(128, 128, 2, dtype=torch.bfloat16,
+                               cast_weights=cast).to(dev).train()
+        xi = x.clone().requires_grad_(True)
+        times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gru(xi).sum().backward()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        res["bf16_weights_ms" if cast else "f32_master_cast_ms"] = \
+            sorted(times)[len(times) // 2]
+    emit(phase="gru_weight_cast", batch=B_STUDENT, frames=313, **res)
+
+
+def train_equality(torch, dev):
+    """The float32 train step with the kernels against the same step on
+    their plain versions: same init, same generator seed, 4 + 4 full-width
+    clips, dropout 0.5. Gates: metrics rel 1e-4; Adam first moments atol
+    3e-5 (gradients 3e-4); BatchNorm running stats 1e-5 (+1e-5 relative)."""
+    import numpy as np
+    from bsed_tpu_torch.utils import weights
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for use_kernels in (True, False):
+            _, state, step, batch = train_setup(torch, dev, "float32",
+                                                use_kernels, 4)
+            metrics = step(state, batch, 7, 30.0)
+            torch.cuda.synchronize()
+            out[use_kernels] = ({k: float(v) for k, v in metrics.items()},
+                                weights.export_train_state(state))
+            del state, step, batch
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (mk, tk), (mp, tp) = out[True], out[False]
+
+    def leaves(tree, prefix=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, prefix + (k,))
+        else:
+            yield prefix, np.asarray(tree)
+
+    def worst(key, rtol):
+        want = dict(leaves(tp[key]))
+        return max(float((np.abs(v - want[p]) - rtol * np.abs(want[p])).max())
+                   for p, v in leaves(tk[key]))
+    loss_rel = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mp)
+    mu_err = worst("mu", 0.0)
+    stats_err = max(worst("batch_stats", 1e-5),
+                    worst("ema_batch_stats", 1e-5))
+    emit(phase="train_equality", dtype="float32", batch_syn=4, batch_real=4,
+         dropout=0.5, metrics_max_rel_err=loss_rel, gate_metrics=1e-4,
+         adam_mu_max_abs_err=mu_err, gate_mu=3e-5,
+         bn_stats_max_err=stats_err, gate_bn_stats=1e-5,
+         loss_kernels=mk["loss"], loss_plain=mp["loss"])
+    assert loss_rel <= 1e-4, f"metrics differ by {loss_rel} (relative)"
+    assert mu_err <= 3e-5, f"Adam first moments differ by {mu_err}"
+    assert stats_err <= 1e-5, f"BN statistics differ by {stats_err}"
 
 
 def main() -> int:
@@ -320,11 +663,18 @@ def main() -> int:
                          {k["name"]: k["ms"] for k in (k1, k2)},
                          args.profile_dir)
     path_equality(torch, dev)
+    torch.cuda.empty_cache()
 
-    k1["launches"] = launches["mel_kernel"]
-    k2["launches"] = launches["stem_epilogue"]
+    k2t, k3 = check_stem_epilogue_train(torch, dev)
+    launches.update(train_path(torch, dev, smi, args.profile_dir))
+    torch.cuda.empty_cache()
+    train_equality(torch, dev)
+
+    kernels_line = [k1, k2, k2t, k3]
+    for k in kernels_line:
+        k["launches"] = launches[k["name"]]
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -63,3 +63,79 @@ def test_stem_epilogue_matches_plain(dev, dtype, tol, act, pt, pc):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (2, 21 // pt, 16, 64)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _train_inputs(dev, dtype, t_in, pc, seed=2):
+    rng = np.random.default_rng(seed)
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev)
+    h = g(2, t_in, 16, 128).to(dtype)
+    inv, c, b = g(128) * 0.2 + 1.0, g(128) * 0.3, g(128) * 0.1
+    w = (g(128, 128) / np.sqrt(128)).to(dtype)
+    bits = torch.from_numpy(rng.integers(0, 256, (2, t_in * 16, 128),
+                                         dtype=np.uint8)).to(dev)
+    pool_w = torch.from_numpy(_freq_pool_matrix(128 // pc, 2, pc)).to(dev)
+    return h, inv, c, w, b, bits, pool_w
+
+
+@pytest.mark.parametrize("act,pt,pc,t_in", [("glu", 2, 16, 21),
+                                            ("glu", 2, 32, 23),
+                                            ("cg", 1, 64, 21)])
+@pytest.mark.parametrize("with_bits", [False, True])
+def test_stem_epilogue_train_matches_plain_f32(dev, act, pt, pc, t_in,
+                                               with_bits):
+    """K2 (train form) and K3 against the plain chain and its autograd,
+    float32: forward 1e-5, the five gradients 2e-4
+    (tests/test_stem_epilogue.py gates)."""
+    h, inv, c, w, b, bits, pool_w = _train_inputs(dev, torch.float32, t_in,
+                                                  pc)
+    bits = bits if with_bits else None
+    ep = stem_epilogue.make_fused_epilogue(act, pt, pool_w,
+                                           rate=0.5 if with_bits else 0.0)
+    leaves = [t.clone().requires_grad_(True) for t in (h, inv, c, w, b)]
+    n_fwd = stem_epilogue.stem_epilogue_fwd.launches
+    n_bwd = stem_epilogue.stem_epilogue_bwd.launches
+    got = ep(*leaves, bits)
+    gz = torch.randn(got.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(5))
+    grads = torch.autograd.grad(got, leaves, gz)
+    want = stem_epilogue.stem_epilogue_plain(h, inv, c, w, b, act, pt,
+                                             pool_w, bits,
+                                             128 if with_bits else 0)
+    want_g = stem_epilogue.stem_epilogue_bwd_plain(
+        gz, h, inv, c, w, b, act, pt, pool_w, bits, 128 if with_bits else 0)
+    torch.cuda.synchronize()
+    assert stem_epilogue.stem_epilogue_fwd.launches == n_fwd + 1
+    assert stem_epilogue.stem_epilogue_bwd.launches == n_bwd + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for name, a, e in zip("h inv c w b".split(), grads, want_g):
+        torch.testing.assert_close(a.float(), e.float(), rtol=2e-4,
+                                   atol=2e-4, msg=f"grad {name}")
+    if t_in % pt:                                 # the dropped odd row
+        assert float(grads[0][:, -1].abs().max()) == 0.0
+
+
+def test_stem_epilogue_train_bf16_and_deterministic(dev):
+    """bf16: forward within 0.06 and each gradient within 5e-2 relative
+    Frobenius error of the plain chain (which rounds every op to bf16);
+    K3's parameter reductions are bit-identical across two runs."""
+    h, inv, c, w, b, bits, pool_w = _train_inputs(dev, torch.bfloat16, 21,
+                                                  16, seed=3)
+    gz = torch.randn((2, 10, 16, 64), device=dev,
+                     generator=torch.Generator(dev).manual_seed(6)).bfloat16()
+    out = stem_epilogue.stem_epilogue_fwd(h, inv, c, w, b, "glu", 2, pool_w,
+                                          16, bits, 128)
+    want = stem_epilogue.stem_epilogue_plain(h, inv, c, w, b, "glu", 2,
+                                             pool_w, bits, 128)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0.06,
+                               atol=0.06)
+    run = lambda: stem_epilogue.stem_epilogue_bwd(  # noqa: E731
+        gz, h, inv, c, w, b, "glu", 2, pool_w, 16, bits, 128)
+    first, second = run(), run()
+    plain = stem_epilogue.stem_epilogue_bwd_plain(gz, h, inv, c, w, b, "glu",
+                                                  2, pool_w, bits, 128)
+    torch.cuda.synchronize()
+    for name, a, a2, e in zip("h inv c w b".split(), first, second, plain):
+        assert torch.equal(a, a2), f"grad {name} differs between runs"
+        rel = float((a.float() - e.float()).norm() / e.float().norm())
+        assert rel < 5e-2, f"grad {name}: relative error {rel}"
