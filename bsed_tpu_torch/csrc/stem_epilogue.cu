@@ -1,10 +1,12 @@
 // Kernel K2: folded-stem epilogue, forward (sm_90a, float32 FMA).
 //
 // Replaces the TPU kernel bsed_tpu/ops/stem_epilogue.py:make_fused_epilogue
-// (_run_fwd, body _fwd_kernel) with the pool_w frequency pool, in its
-// serving form (no dropout) and its train form (uint8 dropout bits).
-// Wrapper and plain version: bsed_tpu_torch/ops/stem_epilogue.py; the
-// backward is kernel K3, csrc/stem_epilogue_bwd.cu.
+// (_run_fwd, body _fwd_kernel) in both frequency-pool forms, each in its
+// serving form (no dropout) and its train form (uint8 dropout bits): the
+// pool_w lane pool of the folded blocks (epilogue_kernel) and the group
+// pool pg of standard-layout blocks (epilogue_pg_kernel, below). Wrapper
+// and plain version: bsed_tpu_torch/ops/stem_epilogue.py; the backward is
+// kernel K3, csrc/stem_epilogue_bwd.cu.
 //
 // Per row (t, g) of h (B, T, 16, 128) and lane l:
 //   y   = h * inv[l] + c[l]                          (f32)
@@ -156,10 +158,161 @@ epilogue_kernel(const T* __restrict__ h, const float* __restrict__ inv,
   }
 }
 
+// Group-pool form (pool_w = None), for standard-layout blocks where the
+// group axis is the spatial frequency axis: h (B, T, G, 128) with G | 64,
+// rows (t, g) with g fastest. Per row the same y, lin, gate and dropout as
+// above; then the mean over pt time rows and PG adjacent groups in f32,
+//   out[t', g', l] = mean_{a < pt, c < PG} z[t'*pt + a, g'*PG + c, l],
+// written once in the input dtype: (B, Tout, G / PG, 128), no lane matrix.
+// Design: the same persistent blocks, w in shared memory (unpermuted) and
+// panels of 64 contiguous rows (64 / G time rows); each thread owns 4 panel
+// rows that make whole pooling groups (4 / (pt * PG) output rows) and 8
+// lanes (two float4 columns, as above), so the pool happens in registers.
+template <typename T, bool GLU, int PT, int PG, bool DROP>
+__global__ void __launch_bounds__(NT, 2)
+epilogue_pg_kernel(const T* __restrict__ h, const float* __restrict__ inv,
+                   const float* __restrict__ cvec, const T* __restrict__ w,
+                   const float* __restrict__ bvec,
+                   const unsigned char* __restrict__ bits, int keep_k,
+                   T* __restrict__ out, int B, int Tin, int Tout, int Gn) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int rg = tid / 16, cg = tid % 16;
+  const int colA = cg * 4, colB = L2 + cg * 4;
+
+  for (int i = tid; i < L * L; i += NT) s.w[i / L][i % L] = to_f(w[i]);
+
+  constexpr int RU = PT * PG;                    // input rows per output row
+  constexpr int UT = TRI / RU;                   // output rows per thread
+  const int tp = ROWS / Gn;                      // time rows per panel
+  const int gout = Gn / PG;
+  const int tro = tp / PT;                       // output time rows per panel
+  const int tiles_t = (Tout + tro - 1) / tro;
+  const int tv = Tout * PT;                      // input rows that count
+  const float keep_scale = DROP ? 256.f / (float)keep_k : 1.f;
+
+  // this thread's output rows u = rg*UT + q of a panel, each pooling the
+  // panel rows (to_l*PT + a)*G + go*PG + c, kept in order q*RU + a*PG + c
+  int prow[TRI], tl[TRI];
+#pragma unroll
+  for (int q = 0; q < UT; ++q) {
+    const int u = rg * UT + q, to_l = u / gout, go = u % gout;
+#pragma unroll
+    for (int a = 0; a < PT; ++a)
+#pragma unroll
+      for (int c = 0; c < PG; ++c) {
+        const int i = q * RU + a * PG + c;
+        tl[i] = to_l * PT + a;
+        prow[i] = tl[i] * Gn + go * PG + c;
+      }
+  }
+
+  for (int tile = blockIdx.x; tile < B * tiles_t; tile += gridDim.x) {
+    const int bi = tile / tiles_t;
+    const int to0 = (tile % tiles_t) * tro;
+    const int ti0 = to0 * PT;
+    const size_t base = ((size_t)bi * Tin + ti0) * Gn * L;
+
+    __syncthreads();                             // ya of the last panel is read
+    for (int i = tid * 4; i < ROWS * L; i += NT * 4) {
+      const int row = i / L, col = i % L;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (ti0 + row / Gn < tv) load4(h + base + i, v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[q] = round_dt<T>(fmaf(v[q], inv[col + q], cvec[col + q]));
+      store4(&s.ya[row][col], v);
+    }
+    __syncthreads();
+
+    float acc[TRI][8] = {};
+#pragma unroll 2
+    for (int k = 0; k < L; k += 4) {
+      float a[TRI][4];
+#pragma unroll
+      for (int tr = 0; tr < TRI; ++tr) load4(&s.ya[prow[tr]][k], a[tr]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float wv[8];
+        load4(&s.w[k + kk][colA], wv);
+        load4(&s.w[k + kk][colB], wv + 4);
+#pragma unroll
+        for (int tr = 0; tr < TRI; ++tr)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[tr][j] = fmaf(a[tr][kk], wv[j], acc[tr][j]);
+      }
+    }
+
+    float z[TRI][8];
+#pragma unroll
+    for (int tr = 0; tr < TRI; ++tr) {
+      float hv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      unsigned int kb[2] = {0u, 0u};
+      if (ti0 + tl[tr] < tv) {
+        const size_t off = base + (size_t)prow[tr] * L;
+        load4(h + off + colA, hv);
+        load4(h + off + colB, hv + 4);
+        if constexpr (DROP) {
+          kb[0] = *reinterpret_cast<const unsigned int*>(bits + off + colA);
+          kb[1] = *reinterpret_cast<const unsigned int*>(bits + off + colB);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = j < 4 ? colA + j : colB + j - 4;
+        const float y = fmaf(hv[j], inv[col], cvec[col]);
+        const float lin = acc[tr][j] + bvec[col];
+        float zz = GLU ? lin * sigmoidf(y) : y * sigmoidf(lin);
+        if constexpr (DROP) {
+          const unsigned int byte = (kb[j / 4] >> (8 * (j % 4))) & 0xffu;
+          zz = (int)byte < keep_k ? zz * keep_scale : 0.f;
+        }
+        z[tr][j] = zz;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < UT; ++q) {
+      const int u = rg * UT + q, to = to0 + u / gout, go = u % gout;
+      if (to >= Tout) continue;
+      float o[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float acc_p = z[q * RU][j];
+#pragma unroll
+        for (int i = 1; i < RU; ++i) acc_p += z[q * RU + i][j];
+        o[j] = acc_p * (1.f / (float)RU);
+      }
+      T* dst = out + (((size_t)bi * Tout + to) * gout + go) * L;
+      store4(dst + colA, o);
+      store4(dst + colB, o + 4);
+    }
+  }
+}
+
+// The arguments of one forward launch.
+struct FwdArgs {
+  const void* h;
+  const float* inv;
+  const float* c;
+  const void* w;
+  const float* b;
+  const unsigned char* bits;
+  int keep_k;
+  void* out;
+  int B, Tin, Tout, G, pc, pg;
+};
+
+int grid_size(long tiles) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)(tiles < 2L * sms ? tiles : 2L * sms);
+}
+
 template <typename T, bool GLU, int PT, bool DROP>
-int launch(const void* h, const float* inv, const float* c, const void* w,
-           const float* b, const unsigned char* bits, int keep_k, void* out,
-           int B, int Tin, int Tout, int pc, cudaStream_t stream) {
+int launch(const FwdArgs& a, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaFuncSetAttribute(epilogue_kernel<T, GLU, PT, DROP>,
@@ -167,61 +320,87 @@ int launch(const void* h, const float* inv, const float* c, const void* w,
                          (int)sizeof(Smem));
     configured = true;
   }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   constexpr int TRO = TRI / PT;
-  const long tiles = (long)B * ((Tout + TRO - 1) / TRO);
-  const int grid = (int)(tiles < 2L * sms ? tiles : 2L * sms);
+  const int grid = grid_size((long)a.B * ((a.Tout + TRO - 1) / TRO));
   if (grid > 0)
     epilogue_kernel<T, GLU, PT, DROP><<<grid, NT, sizeof(Smem), stream>>>(
-        static_cast<const T*>(h), inv, c, static_cast<const T*>(w), b, bits,
-        keep_k, static_cast<T*>(out), B, Tin, Tout, pc);
+        static_cast<const T*>(a.h), a.inv, a.c, static_cast<const T*>(a.w),
+        a.b, a.bits, a.keep_k, static_cast<T*>(a.out), a.B, a.Tin, a.Tout,
+        a.pc);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool GLU, int PT, int PG, bool DROP>
+int launch_pg(const FwdArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaFuncSetAttribute(epilogue_pg_kernel<T, GLU, PT, PG, DROP>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)sizeof(Smem));
+    configured = true;
+  }
+  const int tro = ROWS / a.G / PT;
+  const int grid = grid_size((long)a.B * ((a.Tout + tro - 1) / tro));
+  if (grid > 0)
+    epilogue_pg_kernel<T, GLU, PT, PG, DROP>
+        <<<grid, NT, sizeof(Smem), stream>>>(
+            static_cast<const T*>(a.h), a.inv, a.c,
+            static_cast<const T*>(a.w), a.b, a.bits, a.keep_k,
+            static_cast<T*>(a.out), a.B, a.Tin, a.Tout, a.G);
+  return (int)cudaGetLastError();
+}
+
+// runtime form -> template instance
+template <typename T, bool GLU, int PT, bool DROP>
+int run_form(const FwdArgs& a, cudaStream_t st) {
+  if (a.pc > 0) return launch<T, GLU, PT, DROP>(a, st);
+  if (a.pg == 2) return launch_pg<T, GLU, PT, 2, DROP>(a, st);
+  return launch_pg<T, GLU, PT, 1, DROP>(a, st);
+}
+
 template <typename T, bool GLU, int PT>
-int launch_form(const void* h, const float* inv, const float* c,
-                const void* w, const float* b, const unsigned char* bits,
-                int keep_k, void* out, int B, int Tin, int Tout, int pc,
-                cudaStream_t stream) {
-  if (bits != nullptr)
-    return launch<T, GLU, PT, true>(h, inv, c, w, b, bits, keep_k, out, B,
-                                    Tin, Tout, pc, stream);
-  return launch<T, GLU, PT, false>(h, inv, c, w, b, bits, keep_k, out, B,
-                                   Tin, Tout, pc, stream);
+int run_drop(const FwdArgs& a, cudaStream_t st) {
+  return a.bits != nullptr ? run_form<T, GLU, PT, true>(a, st)
+                           : run_form<T, GLU, PT, false>(a, st);
+}
+
+template <typename T>
+int run_act(const FwdArgs& a, int act, int pt, cudaStream_t st) {
+  if (act == 0)
+    return pt == 2 ? run_drop<T, true, 2>(a, st) : run_drop<T, true, 1>(a, st);
+  return pt == 2 ? run_drop<T, false, 2>(a, st) : run_drop<T, false, 1>(a, st);
 }
 
 }  // namespace
 
-// h: (B, Tin, 16, 128); w: (128, 128), both in the input dtype
-// (0 = float32, 1 = bfloat16); inv, c, b: (128,) float32;
-// out: (B, Tout, 16, 64) in the input dtype, Tout = Tin // pt.
-// act: 0 = GLU, 1 = context gating. pc: channels per fold copy; pool_w
-// averages lanes 2q*pc + ch and (2q+1)*pc + ch. bits: (B, Tin, 16, 128)
-// uint8 dropout bits, keep where bits < keep_k (1..255), or null for the
-// serving form. Returns cudaGetLastError().
+// h: (B, Tin, G, 128); w: (128, 128), both in the input dtype
+// (0 = float32, 1 = bfloat16); inv, c, b: (128,) float32. act: 0 = GLU,
+// 1 = context gating; Tout = Tin // pt. bits: (B, Tin, G, 128) uint8
+// dropout bits, keep where bits < keep_k (1..255), or null for the serving
+// form. Frequency pool, one of:
+//   pc > 0: the pool_w lane pool (G = 16, pg = 1): pool_w averages lanes
+//     2q*pc + ch and (2q+1)*pc + ch; out (B, Tout, 16, 64);
+//   pc = 0: the group pool pg in {1, 2} (G | 64, (64 / G) % pt = 0,
+//     G % pg = 0); out (B, Tout, G / pg, 128).
+// out is in the input dtype. Returns cudaGetLastError().
 extern "C" int bsed_stem_epilogue(const void* h, const float* inv,
                                   const float* c, const void* w,
                                   const float* b, const void* bits,
                                   int keep_k, void* out, int dtype, int act,
-                                  int pt, int B, int Tin, int Tout, int pc,
-                                  void* stream) {
-  if (pc < 4 || pc % 4 != 0 || L % (2 * pc) != 0 || (pt != 1 && pt != 2) ||
+                                  int pt, int B, int Tin, int Tout, int G,
+                                  int pc, int pg, void* stream) {
+  const bool lane_form =
+      pc >= 4 && pc % 4 == 0 && L % (2 * pc) == 0 && G == 16 && pg == 1;
+  const bool group_form = pc == 0 && (pg == 1 || pg == 2) && G >= 1 &&
+                          ROWS % G == 0 && (ROWS / G) % pt == 0 &&
+                          G % pg == 0;
+  if (!(lane_form || group_form) || (pt != 1 && pt != 2) ||
       Tout != Tin / pt || dtype < 0 || dtype > 1 || act < 0 || act > 1 ||
       (bits != nullptr && (keep_k < 1 || keep_k > 255)))
     return (int)cudaErrorInvalidValue;
-  const unsigned char* kb = static_cast<const unsigned char*>(bits);
+  const FwdArgs a{h, inv, c, w, b, static_cast<const unsigned char*>(bits),
+                  keep_k, out, B, Tin, Tout, G, pc, pg};
   const cudaStream_t st = (cudaStream_t)stream;
-  const int key = dtype * 4 + act * 2 + (pt - 1);
-  switch (key) {
-    case 0: return launch_form<float, true, 1>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
-    case 1: return launch_form<float, true, 2>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
-    case 2: return launch_form<float, false, 1>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
-    case 3: return launch_form<float, false, 2>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
-    case 4: return launch_form<__nv_bfloat16, true, 1>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
-    case 5: return launch_form<__nv_bfloat16, true, 2>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
-    case 6: return launch_form<__nv_bfloat16, false, 1>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
-    default: return launch_form<__nv_bfloat16, false, 2>(h, inv, c, w, b, kb, keep_k, out, B, Tin, Tout, pc, st);
-  }
+  return dtype == 1 ? run_act<__nv_bfloat16>(a, act, pt, st)
+                    : run_act<float>(a, act, pt, st);
 }

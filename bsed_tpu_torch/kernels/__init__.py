@@ -29,7 +29,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("mel_kernel", "stem_epilogue", "stem_epilogue_bwd")
+SOURCES = ("mel_kernel", "stem_epilogue", "stem_epilogue_bwd", "stem_kernel",
+           "gru_kernel")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -5,9 +5,16 @@ The JAX module's gate order (r, z, n) with the recurrent bias inside the
 reset gate ("linear before reset") is exactly ``torch.nn.GRU``'s, and its
 parameter names (``weight_ih_l0``, ``bias_hh_l1_reverse``, …) are
 torch's, so the module is an ``nn.GRU``. The JAX package runs this
-recurrence in XLA (``lax.scan``), not in a Pallas kernel, so cuDNN runs it
-here. Dtype handling follows rnn.py:83-111: the input, the projection and
-the carry are in the compute dtype; the output is cast to float32.
+recurrence in XLA (``lax.scan``), so cuDNN runs it here. Dtype handling
+follows rnn.py:83-111: the input, the projection and the carry are in the
+compute dtype; the output is cast to float32.
+
+``bigru_hoisted`` is the JAX module's own form of the same network: one
+input-projection matmul per layer and direction, then both directions'
+recurrences in one walk over time (``gru_scan_bidir``, the port of
+``_gru_scan_bidir``, or kernel K4, ``ops/gru_kernel.py``, the port of the
+Pallas drop-in for it). ``bsed_tpu`` wires K4 into no path, and neither
+does the port: serving and training keep ``nn.GRU``.
 
 Weights: serving casts them to the compute dtype once, at build time
 (``cast_weights=True``). Training keeps float32 master weights, as the JAX
@@ -22,6 +29,34 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+
+from bsed_tpu_torch.ops import gru_kernel
+
+
+def gru_scan_bidir(xp2: torch.Tensor, w_hh2: torch.Tensor,
+                   b_hh2: torch.Tensor) -> torch.Tensor:
+    """Both GRU directions in one walk over time, everything in xp2's
+    dtype (port of ``bsed_tpu/models/rnn.py:_gru_scan_bidir``).
+
+    xp2: (2, B, T, 3H) with xp2[1] already time-flipped; w_hh2: (2, 3H, H);
+    b_hh2: (2, 3H). Returns (2, B, T, H) with out[1] in flipped time
+    order."""
+    dt = xp2.dtype
+    w_t2 = w_hh2.transpose(1, 2).to(dt)
+    b2 = b_hh2.to(dt)[:, None, :]
+    h = torch.zeros(xp2.shape[:2] + (w_hh2.shape[2],), dtype=dt,
+                    device=xp2.device)
+    ys = []
+    for t in range(xp2.shape[2]):
+        hp = torch.bmm(h, w_t2) + b2
+        xr, xz, xn = xp2[:, :, t].chunk(3, dim=-1)
+        hr, hz, hn = hp.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - z) * n + z * h
+        ys.append(h)
+    return torch.stack(ys, dim=2)
 
 
 class BidirectionalGRU(nn.Module):
@@ -57,3 +92,32 @@ class BidirectionalGRU(nn.Module):
                                         "chunk of memory.*")
                 out, _ = torch.func.functional_call(self.gru, cast, (x,))
         return out.float()
+
+
+def bigru_hoisted(rnn: BidirectionalGRU, x: torch.Tensor,
+                  use_kernel: bool = True) -> torch.Tensor:
+    """Eval forward of ``rnn`` in ``bsed_tpu``'s hoisted form
+    (rnn.py:84-111): per layer and direction one (B·T, D) @ (D, 3H)
+    projection plus b_ih in the module's dtype, then the recurrence of both
+    directions on the stacked, flipped projections — kernel K4
+    (``gru_kernel.gru_bidir_recurrence``) or, with ``use_kernel=False``,
+    ``gru_scan_bidir``. Reads the weights of ``rnn.gru`` (torch names and
+    gate order); no inter-layer dropout. (B, T, n_in) → (B, T, 2H) float32.
+    """
+    recurrence = (gru_kernel.gru_bidir_recurrence if use_kernel
+                  else gru_scan_bidir)
+    gru, cd = rnn.gru, rnn.dtype
+    out = x.to(cd)
+    for layer in range(gru.num_layers):
+        xps, w_hh, b_hh = [], [], []
+        for suffix in ("", "_reverse"):
+            name = f"l{layer}{suffix}"
+            w_ih = getattr(gru, f"weight_ih_{name}").to(cd)
+            b_ih = getattr(gru, f"bias_ih_{name}").to(cd)
+            xps.append(out @ w_ih.T + b_ih)
+            w_hh.append(getattr(gru, f"weight_hh_{name}"))
+            b_hh.append(getattr(gru, f"bias_hh_{name}"))
+        xp2 = torch.stack([xps[0], xps[1].flip(1)])
+        ys2 = recurrence(xp2, torch.stack(w_hh), torch.stack(b_hh))
+        out = torch.cat([ys2[0], ys2[1].flip(1)], dim=-1)
+    return out.float()

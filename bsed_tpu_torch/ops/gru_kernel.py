@@ -1,0 +1,121 @@
+"""Kernel K4: the bidirectional GRU recurrence of one layer in one CUDA
+kernel.
+
+Replaces the TPU kernel ``bsed_tpu/ops/gru_kernel.py:gru_bidir_recurrence``
+(body ``_gru_kernel``). The CUDA source is ``csrc/gru_kernel.cu``.
+
+Contract (as the JAX kernel's): xp2 (2, B, T, 3H) holds the input
+projections plus b_ih of both directions, direction 1 already flipped in
+time; w_hh2 (2, 3H, H); b_hh2 (2, 3H). Per step, in torch's gate order and
+linear-before-reset form,
+
+    hp = round_dt(h) @ round_dt(W_hhᵀ) + b_hh     (float32 accumulation)
+    r = σ(xr + hr),  z = σ(xz + hz),  n = tanh(xn + r·hn)
+    h = (1 − z)·n + z·h                           (carried in float32)
+
+and the output (2, B, T, H) is h rounded to xp2's dtype, direction 1 still
+flipped. In float32 this is ``models/rnn.gru_scan_bidir``; in bfloat16 it
+is not, because the scan carries h in bfloat16.
+
+Bound on the H100: the products, 2·B·T·H·3H·2 FLOP per layer (3.9 GFLOP at
+B=64, T=313) against ~82 MB of traffic in float32, but the real floor is
+the chain of T dependent steps: each needs the previous h. Design: the
+recurrence is independent across (direction, batch row), so one thread
+block owns one direction and a few batch rows for all T steps and needs
+only ``__syncthreads`` between steps. W_hhᵀ (128 × 384) of its direction
+sits in shared memory (96 KB in bf16, 192 KB in f32) and h in shared
+memory in f32; each of 384 threads computes one column of hp for the
+block's rows, then 128 threads per row apply the gates, with the next
+step's inputs loaded ahead.
+
+The plain PyTorch version (``gru_bidir_recurrence_plain``) repeats the
+kernel's arithmetic step by step; the wrapper takes it only for CPU
+tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+H = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROWS = (1, 2, 4)      # batch rows per thread block (csrc/gru_kernel.cu)
+
+
+def gru_bidir_recurrence_plain(xp2: torch.Tensor, w_hh2: torch.Tensor,
+                               b_hh2: torch.Tensor) -> torch.Tensor:
+    """K4's plain version: the kernel's numerics (operands rounded to xp2's
+    dtype, float32 accumulation, gates and carried state) as a loop over
+    time."""
+    dt = xp2.dtype
+    w_t2 = w_hh2.transpose(1, 2).to(dt).float()          # (2, H, 3H)
+    b2 = b_hh2.float()[:, None, :]
+    h = torch.zeros(xp2.shape[:2] + (w_hh2.shape[2],), device=xp2.device)
+    ys = []
+    for t in range(xp2.shape[2]):
+        hp = torch.bmm(h.to(dt).float(), w_t2) + b2
+        xr, xz, xn = xp2[:, :, t].float().chunk(3, dim=-1)
+        hr, hz, hn = hp.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - z) * n + z * h
+        ys.append(h.to(dt))
+    return torch.stack(ys, dim=2)
+
+
+def _bind(lib):
+    fn = lib.bsed_gru_bidir
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    return fn
+
+
+def rows_per_block(batch: int, sms: int) -> int:
+    """Batch rows per thread block: the fewest that fit both directions'
+    blocks into one wave on ``sms`` multiprocessors, at most 4."""
+    for rows in _ROWS:
+        if 2 * -(-batch // rows) <= sms:
+            return rows
+    return _ROWS[-1]
+
+
+def gru_bidir_recurrence(xp2: torch.Tensor, w_hh2: torch.Tensor,
+                         b_hh2: torch.Tensor) -> torch.Tensor:
+    """(2, B, T, 3H) projections → (2, B, T, H) in xp2's dtype (see the
+    module docstring). CPU tensors take the plain version; CUDA tensors
+    launch kernel K4 (float32 or bfloat16, H = 128)."""
+    if xp2.device.type == "cpu":
+        return gru_bidir_recurrence_plain(xp2, w_hh2, b_hh2)
+    if xp2.device.type != "cuda":
+        raise ValueError(f"GRU kernel runs on CUDA, got {xp2.device}")
+    if xp2.dtype not in _DTYPES:
+        raise ValueError(f"GRU kernel takes float32/bfloat16, got "
+                         f"{xp2.dtype}")
+    _, bsz, t, g3 = xp2.shape
+    if (xp2.shape[0] != 2 or g3 != 3 * H or w_hh2.shape != (2, 3 * H, H)
+            or b_hh2.shape != (2, 3 * H)):
+        raise ValueError(f"GRU kernel is specialised to H={H}: xp2 (2, B, "
+                         f"T, {3 * H}), w_hh2 (2, {3 * H}, {H}), b_hh2 "
+                         f"(2, {3 * H}); got {tuple(xp2.shape)}, "
+                         f"{tuple(w_hh2.shape)}, {tuple(b_hh2.shape)}")
+    if w_hh2.device != xp2.device or b_hh2.device != xp2.device:
+        raise ValueError("GRU kernel inputs must share xp2's device")
+    xp2 = xp2.contiguous()
+    w_t2 = w_hh2.transpose(1, 2).to(xp2.dtype).contiguous()
+    b2 = b_hh2.float().contiguous()
+    out = torch.empty((2, bsz, t, H), device=xp2.device, dtype=xp2.dtype)
+    sms = torch.cuda.get_device_properties(xp2.device).multi_processor_count
+    from bsed_tpu_torch import kernels
+    fn = _bind(kernels.load("gru_kernel"))
+    stream = torch.cuda.current_stream(xp2.device).cuda_stream
+    err = fn(xp2.data_ptr(), w_t2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+             _DTYPES[xp2.dtype], bsz, t, rows_per_block(bsz, sms), H, stream)
+    kernels.check(err, "GRU kernel")
+    gru_bidir_recurrence.launches += 1
+    return out
+
+
+gru_bidir_recurrence.launches = 0

@@ -1,16 +1,18 @@
 """Kernels K2 and K3: the fused folded-stem epilogue, forward and backward.
 
 Replaces the TPU kernel ``bsed_tpu/ops/stem_epilogue.py:make_fused_epilogue``
-with the ``pool_w`` frequency pool: ``_run_fwd`` (body ``_fwd_kernel``) is
+in both of its frequency-pool forms: ``_run_fwd`` (body ``_fwd_kernel``) is
 K2, ``csrc/stem_epilogue.cu``; ``_run_bwd`` (body ``_bwd_kernel``) is K3,
 ``csrc/stem_epilogue_bwd.cu``; the ``custom_vjp`` is ``StemEpilogueFn``.
 
-For a conv output h (B, T, G=16, L=128) without bias it computes
+For a conv output h (B, T, G, L=128) without bias it computes
 
     y = h·inv + c;  GLU z = (y@w + b)·σ(y)  or  CG z = y·σ(y@w + b);
     dropout z = bits < k ? z·256/k : 0   (train form; bits uint8, h's layout);
     time avg-pool pt ∈ {1, 2} (VALID, the odd last row dropped);
-    frequency pool z @ pool_w  → (B, T//pt, G, L/2)
+    frequency pool, one of
+      folded blocks (G = 16):  z @ pool_w                → (B, T//pt, G, L/2)
+      group pool pg ∈ {1, 2}:  mean of pg adjacent groups → (B, T//pt, G//pg, L)
 
 with elementwise math in float32, matmul operands in the input dtype and
 float32 accumulation, and the output in the input dtype, as the TPU kernel
@@ -26,13 +28,16 @@ Bound on the H100: K2 reads h once and writes the output once (~0.74 GB
 per batch-64 bf16 forward over blocks 0-2), but both kernels run their
 128×128 products in float32 FMA, which costs more than the bytes (K3 does
 three per row). Design: persistent blocks hold w in shared memory and walk
-over contiguous panels of 4 time rows × 16 groups × 128 lanes; see the
-sources for the thread layout.
+over contiguous panels of 64 rows (t, g) × 128 lanes; see the sources for
+the thread layout.
 
 ``pool_w`` must be the folded stem's pair-averaging matrix
 (``ops/folded_stem._freq_pool_matrix(f, 2, c)``): the kernels compute that
-matmul as the pair average it is. The group-pool (``pg``) form of the TPU
-kernel is not ported.
+matmul as the pair average it is. The group-pool form (``pool_w=None``,
+the standard-layout blocks 3-6 with G = 16, 8, 4, 2) takes any G that
+divides 64 (with 64/G a multiple of pt and G of pg); ``bsed_tpu`` builds it
+but wires it into no path (``folded_stem.py:351-360``), and neither does
+the port.
 """
 from __future__ import annotations
 
@@ -45,17 +50,20 @@ import torch
 from bsed_tpu_torch.ops.dropout import _u8_threshold
 from bsed_tpu_torch.ops.pooling import fast_avg_pool
 
-L, G = 128, 16
+L = 128
+LANE_G = 16          # groups of the folded blocks (the pool_w form)
+PANEL_ROWS = 64      # rows (t, g) per kernel panel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"glu": 0, "cg": 1}
 
 
 def stem_epilogue_plain(h, inv, c, w, b, act: str, pt: int,
-                        pool_w: torch.Tensor, bits=None,
-                        keep_k: int = 0) -> torch.Tensor:
+                        pool_w: Optional[torch.Tensor], bits=None,
+                        keep_k: int = 0, pg: int = 1) -> torch.Tensor:
     """The plain PyTorch version: the unfused chain, every op in h's dtype
     (as the unfused folded stem composes it). ``bits`` (B, T·G, L) uint8
-    and ``keep_k`` give the train form's dropout."""
+    and ``keep_k`` give the train form's dropout; ``pool_w=None`` is the
+    group-pool form (``fast_avg_pool`` over (pt, pg))."""
     dt = h.dtype
     y = h * inv.to(dt) + c.to(dt)
     lin = y @ w.to(dt) + b.to(dt)
@@ -64,19 +72,22 @@ def stem_epilogue_plain(h, inv, c, w, b, act: str, pt: int,
         keep = bits.reshape(h.shape) < keep_k
         z = torch.where(keep, z * (256.0 / keep_k),
                         torch.zeros((), dtype=dt, device=h.device))
+    if pool_w is None:
+        return fast_avg_pool(z, (pt, pg))
     if pt > 1:
         z = fast_avg_pool(z, (pt, 1))
     return z @ pool_w.to(dt)
 
 
 def stem_epilogue_bwd_plain(gz, h, inv, c, w, b, act: str, pt: int,
-                            pool_w: torch.Tensor, bits=None,
-                            keep_k: int = 0):
+                            pool_w: Optional[torch.Tensor], bits=None,
+                            keep_k: int = 0, pg: int = 1):
     """K3's plain version: (dh, dinv, dc, dW, db) of the plain chain for
     the cotangent ``gz``, by autograd; dW in float32."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (h, inv, c, w, b)]
-        out = stem_epilogue_plain(*leaves, act, pt, pool_w, bits, keep_k)
+        out = stem_epilogue_plain(*leaves, act, pt, pool_w, bits, keep_k,
+                                  pg)
         dh, dinv, dc, dw, db = torch.autograd.grad(out, leaves, gz)
     return dh, dinv, dc, dw.float(), db
 
@@ -98,15 +109,40 @@ def pair_pool_channels(pool_w: np.ndarray) -> int:
                      "stem's (128, 64) pair-averaging pool_w")
 
 
-def _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k) -> None:
+def check_group_form(g: int, pt: int, pg: int) -> None:
+    """Raise ValueError unless the kernels take the group-pool form for G
+    groups: G divides the 64-row panel, which holds whole time pairs, and
+    pg ∈ {1, 2} divides G."""
+    if pg not in (1, 2):
+        raise ValueError(f"group pool supports pg 1/2, got {pg}")
+    if (g < 1 or PANEL_ROWS % g or (PANEL_ROWS // g) % pt or g % pg):
+        raise ValueError(f"group-pool kernels need G | {PANEL_ROWS} with "
+                         f"({PANEL_ROWS}/G) % pt == 0 and G % pg == 0; got "
+                         f"G={g}, pt={pt}, pg={pg}")
+
+
+def _out_shape(h, pt: int, lane_form: bool, pg: int):
+    bsz, t_in, g = h.shape[:3]
+    if lane_form:
+        return (bsz, t_in // pt, g, L // 2)
+    return (bsz, t_in // pt, g // pg, L)
+
+
+def _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k, lane_form,
+                  pg) -> None:
     if h.device.type != "cuda":
         raise ValueError(f"stem epilogue kernel runs on CUDA, got {h.device}")
     if h.dtype not in _DTYPES:
         raise ValueError(f"stem epilogue kernel takes float32/bfloat16, "
                          f"got {h.dtype}")
-    if h.ndim != 4 or h.shape[2:] != (G, L) or not h.is_contiguous():
+    if h.ndim != 4 or h.shape[3] != L or not h.is_contiguous():
         raise ValueError(f"stem epilogue kernel needs a contiguous "
-                         f"(B, T, {G}, {L}) h, got {tuple(h.shape)}")
+                         f"(B, T, G, {L}) h, got {tuple(h.shape)}")
+    if lane_form and h.shape[2] != LANE_G:
+        raise ValueError(f"the pool_w form needs G = {LANE_G}, got "
+                         f"{h.shape[2]}")
+    if not lane_form:
+        check_group_form(h.shape[2], pt, pg)
     if w.shape != (L, L) or w.dtype != h.dtype or not w.is_contiguous():
         raise ValueError("w must be a contiguous (128, 128) tensor in h's "
                          "dtype")
@@ -122,7 +158,7 @@ def _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k) -> None:
         if (bits.dtype != torch.uint8 or bits.numel() != h.numel()
                 or bits.shape[0] != h.shape[0] or not bits.is_contiguous()
                 or bits.device != h.device):
-            raise ValueError("bits must be contiguous uint8 (B, T·16, 128) "
+            raise ValueError("bits must be contiguous uint8 (B, T·G, 128) "
                              "on h's device")
         if not 1 <= keep_k <= 255:
             raise ValueError(f"keep_k must be in 1..255, got {keep_k}")
@@ -132,21 +168,23 @@ def _bind_fwd(lib):
     fn = lib.bsed_stem_epilogue
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     return fn
 
 
 def stem_epilogue_fwd(h, inv, c, w, b, act: str, pt: int,
-                      pool_w: torch.Tensor, pool_c: int, bits=None,
-                      keep_k: int = 0) -> torch.Tensor:
+                      pool_w: Optional[torch.Tensor], pool_c: int, bits=None,
+                      keep_k: int = 0, pg: int = 1) -> torch.Tensor:
     """K2's wrapper. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (``pool_c`` from ``pair_pool_channels(pool_w)``)."""
+    launch the kernel (``pool_c`` from ``pair_pool_channels(pool_w)``, or
+    ``pool_w=None`` and ``pg`` for the group-pool form)."""
     if h.device.type == "cpu":
         return stem_epilogue_plain(h, inv, c, w, b, act, pt, pool_w, bits,
-                                   keep_k)
-    _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k)
-    bsz, t_in = h.shape[:2]
-    out = torch.empty((bsz, t_in // pt, G, L // 2), device=h.device,
+                                   keep_k, pg)
+    lane_form = pool_w is not None
+    _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k, lane_form, pg)
+    bsz, t_in, g = h.shape[:3]
+    out = torch.empty(_out_shape(h, pt, lane_form, pg), device=h.device,
                       dtype=h.dtype)
     from bsed_tpu_torch import kernels
     fn = _bind_fwd(kernels.load("stem_epilogue"))
@@ -154,8 +192,8 @@ def stem_epilogue_fwd(h, inv, c, w, b, act: str, pt: int,
     err = fn(h.data_ptr(), inv.data_ptr(), c.data_ptr(), w.data_ptr(),
              b.data_ptr(), None if bits is None else bits.data_ptr(),
              keep_k if bits is not None else 0, out.data_ptr(),
-             _DTYPES[h.dtype], _ACTS[act], pt, bsz, t_in, t_in // pt, pool_c,
-             stream)
+             _DTYPES[h.dtype], _ACTS[act], pt, bsz, t_in, t_in // pt, g,
+             pool_c if lane_form else 0, pg, stream)
     kernels.check(err, "stem epilogue kernel")
     stem_epilogue_fwd.launches += 1
     return out
@@ -185,33 +223,36 @@ def _bind_bwd(lib):
     fn = lib.bsed_stem_epilogue_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     return fn
 
 
 def stem_epilogue_bwd(gz, h, inv, c, w, b, act: str, pt: int,
-                      pool_w: torch.Tensor, pool_c: int, bits=None,
-                      keep_k: int = 0):
+                      pool_w: Optional[torch.Tensor], pool_c: int, bits=None,
+                      keep_k: int = 0, pg: int = 1):
     """K3's wrapper: (dh in h's dtype, dinv, dc, dW, db in float32). CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     if h.device.type == "cpu":
         return stem_epilogue_bwd_plain(gz, h, inv, c, w, b, act, pt, pool_w,
-                                       bits, keep_k)
-    _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k)
-    bsz, t_in = h.shape[:2]
+                                       bits, keep_k, pg)
+    lane_form = pool_w is not None
+    _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k, lane_form, pg)
+    bsz, t_in, g = h.shape[:3]
     t_out = t_in // pt
     gz = gz.contiguous()
-    if gz.shape != (bsz, t_out, G, L // 2) or gz.dtype != h.dtype:
-        raise ValueError(f"gz must be ({bsz}, {t_out}, {G}, {L // 2}) in "
-                         f"h's dtype, got {tuple(gz.shape)} {gz.dtype}")
+    want = _out_shape(h, pt, lane_form, pg)
+    if gz.shape != want or gz.dtype != h.dtype:
+        raise ValueError(f"gz must be {want} in h's dtype, got "
+                         f"{tuple(gz.shape)} {gz.dtype}")
     from bsed_tpu_torch import kernels
     lib = kernels.load("stem_epilogue_bwd")
     fn = _bind_bwd(lib)
     ws = _workspace(lib, h.device)
     dh = torch.empty_like(h)
     # rows after the last panel (the dropped odd row when T//pt is even)
-    covered = -(-t_out // (4 // pt)) * 4
+    panel_t = PANEL_ROWS // g
+    covered = -(-t_out // (panel_t // pt)) * panel_t
     if covered < t_in:
         dh[:, covered:].zero_()
     f32 = dict(device=h.device, dtype=torch.float32)
@@ -224,7 +265,7 @@ def stem_epilogue_bwd(gz, h, inv, c, w, b, act: str, pt: int,
              keep_k if bits is not None else 0, dh.data_ptr(), dw.data_ptr(),
              dinv.data_ptr(), dc.data_ptr(), db.data_ptr(), ws.data_ptr(),
              ws.shape[0], _DTYPES[h.dtype], _ACTS[act], pt, bsz, t_in, t_out,
-             pool_c, stream)
+             g, pool_c if lane_form else 0, pg, stream)
     kernels.check(err, "stem epilogue backward kernel")
     stem_epilogue_bwd.launches += 1
     return dh, dinv, dc, dw, db
@@ -240,49 +281,58 @@ class StemEpilogueFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, inv, c, w, b, bits, act, pt, pool_w, pool_c,
-                keep_k):
+                keep_k, pg=1):
         ctx.save_for_backward(h, inv, c, w, b, bits)
-        ctx.cfg = (act, pt, pool_w, pool_c, keep_k)
+        ctx.cfg = (act, pt, pool_w, pool_c, keep_k, pg)
         return stem_epilogue_fwd(h, inv, c, w, b, act, pt, pool_w, pool_c,
-                                 bits, keep_k)
+                                 bits, keep_k, pg)
 
     @staticmethod
     def backward(ctx, gz):
         h, inv, c, w, b, bits = ctx.saved_tensors
-        act, pt, pool_w, pool_c, keep_k = ctx.cfg
+        act, pt, pool_w, pool_c, keep_k, pg = ctx.cfg
         dh, dinv, dc, dw, db = stem_epilogue_bwd(
             gz.to(h.dtype), h, inv, c, w, b, act, pt, pool_w, pool_c, bits,
-            keep_k)
+            keep_k, pg)
         return (dh, dinv, dc, dw.to(w.dtype), db, None, None, None, None,
-                None, None)
+                None, None, None)
 
 
-def make_fused_epilogue(act: str, pt: int, pool_w: torch.Tensor,
-                        use_kernel: bool = True,
-                        rate: float = 0.0) -> Callable:
-    """Build ``ep(h, inv, c, w, b, bits=None) -> out`` for one folded
-    conv-block epilogue, differentiable in (h, inv, c, w, b), with
-    ``pool_w`` on h's device. ``rate`` > 0 is the train form: ``bits``
-    (B, T·G, L) uint8 are then required, keep = bits < round(256·(1−rate)).
+def make_fused_epilogue(act: str, pt: int,
+                        pool_w: Optional[torch.Tensor] = None,
+                        use_kernel: bool = True, rate: float = 0.0,
+                        pg: int = 1) -> Callable:
+    """Build ``ep(h, inv, c, w, b, bits=None) -> out`` for one conv-block
+    epilogue, differentiable in (h, inv, c, w, b). The frequency pool is
+    ``pool_w`` (on h's device; folded blocks, output (B, T//pt, 16, 64))
+    or, with ``pool_w=None``, the mean of ``pg`` adjacent groups
+    (standard-layout blocks, output (B, T//pt, G//pg, 128)); the two are
+    exclusive. ``rate`` > 0 is the train form: ``bits`` (B, T·G, L) uint8
+    are then required, keep = bits < round(256·(1−rate)).
     ``use_kernel=False`` gives the plain version on any device."""
     if act not in _ACTS:
         raise ValueError(f"fused epilogue supports glu/cg, got {act}")
     if pt not in (1, 2):
         raise ValueError(f"fused epilogue supports time pool 1/2, got {pt}")
+    if pool_w is not None and pg != 1:
+        raise ValueError("pool_w (lane pooling) and pg (group pooling) are "
+                         "mutually exclusive")
+    if pg not in (1, 2):
+        raise ValueError(f"fused epilogue supports group pool 1/2, got {pg}")
     keep_k = 0
     if rate > 0:
         keep_k = _u8_threshold(1.0 - rate)
         if keep_k is None:
             raise ValueError(f"dropout rate {rate} not on the k/256 grid")
-    pool_c = pair_pool_channels(pool_w.cpu().numpy())
+    pool_c = 0 if pool_w is None else pair_pool_channels(pool_w.cpu().numpy())
 
     def ep(h, inv, c, w, b, bits: Optional[torch.Tensor] = None):
         if (bits is None) != (keep_k == 0):
             raise ValueError("bits are required exactly when rate > 0")
         if use_kernel:
             return StemEpilogueFn.apply(h, inv, c, w, b, bits, act, pt,
-                                        pool_w, pool_c, keep_k)
+                                        pool_w, pool_c, keep_k, pg)
         return stem_epilogue_plain(h, inv, c, w, b, act, pt, pool_w, bits,
-                                   keep_k)
+                                   keep_k, pg)
 
     return ep

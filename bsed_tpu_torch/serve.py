@@ -4,8 +4,9 @@ Port of ``bsed_tpu/serve.py`` (``make_fast_forward``,
 ``predict_long_recording``): mel front end → folded stem (blocks 0-2) →
 remaining conv blocks → BiGRU → predictor. On CUDA the front end is kernel
 K1 (``ops/mel_kernel.py``) and each folded block's epilogue is kernel K2
-(``ops/stem_epilogue.py``); everything else is ordinary PyTorch/cuDNN, as
-the JAX package leaves it to XLA.
+(``ops/stem_epilogue.py``); the opt-in fused stem (``use_fused_stem``)
+runs block 0 as kernel K5 (``ops/stem_kernel.py``). Everything else is
+ordinary PyTorch/cuDNN, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from bsed_tpu_torch.models.cnn import CNN
 from bsed_tpu_torch.models.crnn import CRNN, compute_dtype
 from bsed_tpu_torch.models.predictor import make_predictor_head
 from bsed_tpu_torch.models.rnn import BidirectionalGRU
-from bsed_tpu_torch.ops import mel_kernel
+from bsed_tpu_torch.ops import mel_kernel, stem_kernel
 from bsed_tpu_torch.ops.folded_stem import build_folded_stem
 from bsed_tpu_torch.ops.mel import PRECISIONS, MelFrontEnd
 from bsed_tpu_torch.utils import weights
@@ -57,6 +58,7 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
                       use_folded_stem: Optional[bool] = None,
                       use_fused_epilogue: Optional[bool] = None,
                       use_fused_stem: bool = False,
+                      stem_impl: str = "pallas",
                       use_kernels: bool = True) -> Callable:
     """Returns ``forward(audio (B, n_samples)) -> (strong (B, T', C),
     weak (B, C))`` on raw audio, float32 tensors on ``device``.
@@ -71,14 +73,20 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
     the mel kernel K1 runs when ``precision`` is 'high' or 'fast' and the
     audio geometry meets its constraints; the folded stem serves eligible
     topologies; its fused epilogue (kernel K2) is on by default on CUDA.
+
+    ``use_fused_stem`` selects the fused block-0 stem for the non-FPN GLU
+    CRNN on 128 mels (other encoders fall through to the standard branch,
+    as in the JAX package): ``stem_impl='pallas'`` runs kernel K5 (its
+    plain version under ``use_kernels=False``), ``'reference'`` runs
+    ``reference_stem_block``. That branch runs blocks 1-6 and the BiGRU in
+    float32 whatever ``compute_dtype`` says, as ``bsed_tpu`` builds them
+    without a dtype there.
     """
     dev = resolve_device(device)
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision}")
-    if use_fused_stem:
-        raise NotImplementedError(
-            "use_fused_stem needs kernel K5 (bsed_tpu/ops/stem_kernel.py:"
-            "fused_stem_block), which is not ported yet (ROADMAP.md)")
+    if stem_impl not in ("pallas", "reference"):
+        raise ValueError(f"unknown stem_impl {stem_impl}")
     a = cfg.audio
     if mel_algorithm is None:
         mel_algorithm = (
@@ -95,24 +103,38 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
     weights.load_predictor(predictor, params["predictor"])
     predictor.to(dev).eval()
 
-    folded = (use_folded_stem is not False
+    folded = (use_folded_stem is not False and not use_fused_stem
               and not m.use_fpn
               and m.kernel_size == 3
               and m.activation in ("glu", "cg", "relu", "leakyrelu")
               and a.n_mels % 8 == 0
               and m.predictor_head != "crnn"
               and _fold_divides(m.pooling))
-    if folded:
-        dtype = compute_dtype(m)
-        if use_fused_epilogue is None:
-            use_fused_epilogue = dev.type == "cuda"
-        stem, n_folded = build_folded_stem(
-            enc_params["cnn"], enc_stats["cnn"], m.nb_filters,
-            tuple(tuple(p) for p in m.pooling), activation=m.activation,
-            n_mels=a.n_mels, dtype=dtype,
-            fused_epilogue=use_fused_epilogue, device=dev,
-            use_kernels=use_kernels)
-        rest = _RestCNN(cfg, start=n_folded, dtype=dtype)
+    fused = (use_fused_stem and not folded and not m.use_fpn
+             and m.activation == "glu" and a.n_mels == 128)
+    if folded or fused:
+        if folded:
+            dtype = compute_dtype(m)
+            if use_fused_epilogue is None:
+                use_fused_epilogue = dev.type == "cuda"
+            stem, start = build_folded_stem(
+                enc_params["cnn"], enc_stats["cnn"], m.nb_filters,
+                tuple(tuple(p) for p in m.pooling), activation=m.activation,
+                n_mels=a.n_mels, dtype=dtype,
+                fused_epilogue=use_fused_epilogue, device=dev,
+                use_kernels=use_kernels)
+        else:
+            dtype, start = None, 1        # float32, as bsed_tpu builds them
+            fold = stem_kernel.fold_block0_params(
+                enc_params["cnn"]["block0"], enc_stats["cnn"]["block0"],
+                device=dev)
+            stem_fn = (stem_kernel.fused_stem_block
+                       if stem_impl == "pallas" and use_kernels
+                       else stem_kernel.reference_stem_block)
+
+            def stem(mel):
+                return stem_fn(mel, fold)
+        rest = _RestCNN(cfg, start=start, dtype=dtype)
         weights.load_cnn(rest, enc_params["cnn"], enc_stats["cnn"])
         rnn = BidirectionalGRU(m.nb_filters[-1], m.n_rnn_cell,
                                m.n_layers_rnn, m.dropout_recurrent,

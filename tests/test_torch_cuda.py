@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from bsed_tpu_torch.config import AudioConfig
-from bsed_tpu_torch.ops import mel, mel_kernel, stem_epilogue
+from bsed_tpu_torch.models.rnn import (BidirectionalGRU, bigru_hoisted,
+                                       gru_scan_bidir)
+from bsed_tpu_torch.ops import (gru_kernel, mel, mel_kernel, stem_epilogue,
+                                stem_kernel)
 from bsed_tpu_torch.ops.filterbank import mel_filterbank
 from bsed_tpu_torch.ops.folded_stem import _freq_pool_matrix
 
@@ -139,3 +142,102 @@ def test_stem_epilogue_train_bf16_and_deterministic(dev):
         assert torch.equal(a, a2), f"grad {name} differs between runs"
         rel = float((a.float() - e.float()).norm() / e.float().norm())
         assert rel < 5e-2, f"grad {name}: relative error {rel}"
+
+
+@pytest.mark.parametrize("t", [100, 37])
+def test_stem_kernel_matches_plain(dev, t):
+    """K5 against reference_stem_block, float32, 2e-5
+    (tests/test_stem_kernel.py); odd T drops the last row."""
+    rng = np.random.default_rng(7)
+    p0 = {"conv": {"kernel": rng.normal(0, 0.3, (3, 3, 1, 16)),
+                   "bias": rng.normal(0, 0.1, 16)},
+          "bn": {"scale": rng.uniform(0.5, 1.5, 16),
+                 "bias": rng.normal(0, 0.1, 16)},
+          "GLU_0": {"linear": {"kernel": rng.normal(0, 0.3, (16, 16)),
+                               "bias": rng.normal(0, 0.1, 16)}}}
+    s0 = {"bn": {"mean": rng.normal(0, 0.1, 16),
+                 "var": rng.uniform(0.5, 1.5, 16)}}
+    folded = stem_kernel.fold_block0_params(p0, s0, device=dev)
+    x = torch.from_numpy(rng.standard_normal((3, t, 128, 1)).astype(
+        np.float32)).to(dev)
+    before = stem_kernel.fused_stem_block.launches
+    got = stem_kernel.fused_stem_block(x, folded)
+    want = stem_kernel.reference_stem_block(x, folded)
+    torch.cuda.synchronize()
+    assert stem_kernel.fused_stem_block.launches == before + 1
+    assert got.shape == want.shape == (3, t // 2, 64, 16)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("t", [77, 32])
+def test_gru_kernel_matches_plain(dev, t):
+    """K4 against its plain version: 1e-5 in float32; in bfloat16 within
+    3e-2 of the float32 scan (tests/test_gru_kernel.py)."""
+    rng = np.random.default_rng(8)
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).to(dev)
+    xp2, w, bias = g(2, 5, t, 384), g(2, 384, 128) * 0.1, g(2, 384) * 0.1
+    before = gru_kernel.gru_bidir_recurrence.launches
+    got = gru_kernel.gru_bidir_recurrence(xp2, w, bias)
+    want = gru_kernel.gru_bidir_recurrence_plain(xp2, w, bias)
+    scan = gru_scan_bidir(xp2, w, bias)
+    got16 = gru_kernel.gru_bidir_recurrence(xp2.bfloat16(), w.bfloat16(),
+                                            bias.bfloat16())
+    torch.cuda.synchronize()
+    assert gru_kernel.gru_bidir_recurrence.launches == before + 2
+    assert got.shape == (2, 5, t, 128) and got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, scan, rtol=1e-5, atol=1e-5)
+    assert float((got16.float() - scan).abs().max()) <= 3e-2
+
+
+def test_hoisted_bigru_kernel_matches_nn_gru(dev):
+    """A 2-layer BiGRU through the hoisted form + K4 against the module's
+    own nn.GRU (cuDNN) on the same weights, float32, 1e-4."""
+    torch.manual_seed(0)
+    rnn = BidirectionalGRU(128, 128, 2).to(dev).eval()
+    x = torch.randn((4, 50, 128), device=dev)
+    with torch.no_grad():
+        got = bigru_hoisted(rnn, x)
+        want = rnn(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("g,pt,pg", [(16, 1, 2), (2, 1, 2), (8, 2, 2),
+                                     (4, 1, 1)])
+@pytest.mark.parametrize("with_bits", [False, True])
+def test_stem_epilogue_group_pool_matches_plain(dev, g, pt, pg, with_bits):
+    """K2-pg and K3-pg against the plain chain and its autograd, float32:
+    forward 1e-5, the five gradients 2e-4."""
+    rng = np.random.default_rng(9)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).to(dev)
+    h = f(2, 21, g, 128)
+    inv, c, b = f(128) * 0.2 + 1.0, f(128) * 0.3, f(128) * 0.1
+    w = f(128, 128) / np.sqrt(128)
+    bits = (torch.from_numpy(rng.integers(0, 256, (2, 21 * g, 128),
+                                          dtype=np.uint8)).to(dev)
+            if with_bits else None)
+    keep_k = 128 if with_bits else 0
+    ep = stem_epilogue.make_fused_epilogue(
+        "glu", pt, None, rate=0.5 if with_bits else 0.0, pg=pg)
+    leaves = [t.clone().requires_grad_(True) for t in (h, inv, c, w, b)]
+    n_fwd = stem_epilogue.stem_epilogue_fwd.launches
+    n_bwd = stem_epilogue.stem_epilogue_bwd.launches
+    got = ep(*leaves, bits)
+    gz = torch.randn(got.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(5))
+    grads = torch.autograd.grad(got, leaves, gz)
+    want = stem_epilogue.stem_epilogue_plain(h, inv, c, w, b, "glu", pt,
+                                             None, bits, keep_k, pg)
+    want_g = stem_epilogue.stem_epilogue_bwd_plain(
+        gz, h, inv, c, w, b, "glu", pt, None, bits, keep_k, pg)
+    torch.cuda.synchronize()
+    assert stem_epilogue.stem_epilogue_fwd.launches == n_fwd + 1
+    assert stem_epilogue.stem_epilogue_bwd.launches == n_bwd + 1
+    assert got.shape == (2, 21 // pt, g // pg, 128)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for name, a, e in zip("h inv c w b".split(), grads, want_g):
+        torch.testing.assert_close(a.float(), e.float(), rtol=2e-4,
+                                   atol=2e-4, msg=f"grad {name}")

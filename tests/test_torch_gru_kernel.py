@@ -1,0 +1,105 @@
+"""Kernel K4's module (bsed_tpu_torch/ops/gru_kernel.py) and the hoisted
+BiGRU form (models/rnn.bigru_hoisted) against bsed_tpu on the same numpy
+inputs and weights.
+
+The plain recurrence (which the K4 wrapper runs for CPU tensors) is held
+against the JAX Pallas kernel in interpret mode and against
+``_gru_scan_bidir`` at 1e-5 in float32; in bfloat16 within 3e-2 of the
+float32 scan (tests/test_gru_kernel.py). A whole 2-layer BiGRU in the
+hoisted form, through either recurrence, is held against bsed_tpu's
+BidirectionalGRU and against the port's cuDNN-form ``nn.GRU`` at 1e-4."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bsed_tpu.models.rnn import BidirectionalGRU as JBidirectionalGRU
+from bsed_tpu.models.rnn import _gru_scan_bidir
+from bsed_tpu.ops.gru_kernel import gru_bidir_recurrence as j_recurrence
+
+from bsed_tpu_torch.config import get_config
+from bsed_tpu_torch.models.rnn import (BidirectionalGRU, bigru_hoisted,
+                                       gru_scan_bidir)
+from bsed_tpu_torch.ops import gru_kernel
+from bsed_tpu_torch.utils import weights
+from bsed_tpu_torch.utils.weights import init_params
+
+B, H = 8, 128
+
+
+def _inputs(t, seed, bias_scale=0.1):
+    rng = np.random.default_rng(seed)
+    xp2 = rng.standard_normal((2, B, t, 3 * H)).astype(np.float32)
+    w = (rng.standard_normal((2, 3 * H, H)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal((2, 3 * H)) * bias_scale).astype(np.float32)
+    return xp2, w, bias
+
+
+def _port(xp2, w, bias, dtype=torch.float32):
+    before = gru_kernel.gru_bidir_recurrence.launches
+    out = gru_kernel.gru_bidir_recurrence(
+        torch.from_numpy(xp2).to(dtype), torch.from_numpy(w).to(dtype),
+        torch.from_numpy(bias).to(dtype))
+    assert gru_kernel.gru_bidir_recurrence.launches == before   # CPU: plain
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("t", [77, 313, 32])
+def test_plain_matches_jax_f32(t):
+    xp2, w, bias = _inputs(t, 0)
+    got = _port(xp2, w, bias)
+    scan = np.asarray(_gru_scan_bidir(jnp.asarray(xp2), jnp.asarray(w),
+                                      jnp.asarray(bias)))
+    assert got.shape == scan.shape == (2, B, t, H)
+    np.testing.assert_allclose(got, scan, rtol=1e-5, atol=1e-5)
+    kern = np.asarray(j_recurrence(jnp.asarray(xp2), jnp.asarray(w),
+                                   jnp.asarray(bias)))       # interpret mode
+    np.testing.assert_allclose(got, kern, rtol=1e-5, atol=1e-5)
+    # the port's scan is the same recurrence in float32
+    np.testing.assert_array_equal(gru_scan_bidir(
+        *map(torch.from_numpy, (xp2, w, bias))).numpy(), got)
+
+
+def test_plain_bf16_close_to_f32_scan():
+    xp2, w, _ = _inputs(64, 1)
+    bias = np.zeros((2, 3 * H), np.float32)
+    got = _port(xp2, w, bias, torch.bfloat16)
+    ref = np.asarray(_gru_scan_bidir(jnp.asarray(xp2), jnp.asarray(w),
+                                     jnp.asarray(bias)))
+    np.testing.assert_allclose(got, ref, atol=3e-2)
+    # the JAX kernel's bf16 numerics (bf16 operands, f32 state): within a
+    # few bf16 ulps of the port's plain version
+    kern = np.asarray(j_recurrence(jnp.asarray(xp2, jnp.bfloat16),
+                                   jnp.asarray(w, jnp.bfloat16),
+                                   jnp.asarray(bias, jnp.bfloat16)),
+                      np.float32)
+    np.testing.assert_allclose(got, kern, atol=1e-2)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_hoisted_bigru_matches_jax_and_nn_gru(use_kernel):
+    params, _ = init_params(get_config("baseline"), 5)
+    rnn_params = params["encoder"]["rnn"]
+    x = np.random.default_rng(6).standard_normal((3, 40, 128)).astype(
+        np.float32)
+    with jax.default_matmul_precision("float32"):
+        want = np.asarray(JBidirectionalGRU(128, 2).apply(
+            {"params": rnn_params}, jnp.asarray(x)))
+    rnn = BidirectionalGRU(128, 128, 2).eval()
+    weights.load_gru(rnn, rnn_params)
+    with torch.no_grad():
+        got = bigru_hoisted(rnn, torch.from_numpy(x), use_kernel=use_kernel)
+        cudnn_form = rnn(torch.from_numpy(x))
+    assert got.shape == (3, 40, 256) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), cudnn_form.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_rows_per_block_fills_one_wave():
+    assert gru_kernel.rows_per_block(64, 132) == 1
+    assert gru_kernel.rows_per_block(72, 132) == 2
+    assert gru_kernel.rows_per_block(8, 132) == 1
+    assert gru_kernel.rows_per_block(1000, 132) == 4

@@ -8,6 +8,8 @@ interpret mode, the port's on its plain version). One case runs the parity
 geometry at 1 s so the mel kernel's plain path runs end to end. Gate 1e-4
 on strong and weak; the JAX side runs at float32 matmul precision
 (conftest.py's note on XLA:CPU's bf16 conv fastpath)."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -26,9 +28,14 @@ from bsed_tpu_torch.utils.weights import init_params
 SMALL = dict(sr=3200, hop_size=160, max_len_seconds=2.0)
 
 
-def _pair(audio_kw, seed=0):
+def _pair(audio_kw, seed=0, activation="glu"):
     jcfg = j_get_config("baseline").replace(audio=JAudioConfig(**audio_kw))
     cfg = get_config("baseline").replace(audio=AudioConfig(**audio_kw))
+    if activation != "glu":
+        jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model,
+                                                      activation=activation))
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    activation=activation))
     params, stats = init_params(cfg, seed)
     # widen the heads' N(0, 0.01) init so posteriors move away from 0.5
     # and the gate sees encoder differences
@@ -101,8 +108,17 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
         make_fast_forward(cfg, params, stats)          # device="cuda"
 
 
-def test_fused_stem_names_its_missing_kernel():
-    _, cfg, params, stats = _pair(SMALL)
-    with pytest.raises(NotImplementedError, match="K5"):
-        make_fast_forward(cfg, params, stats, device="cpu",
-                          use_fused_stem=True)
+def test_fused_stem_with_cg_falls_through_to_standard():
+    """The fused stem exists only for GLU: with context gating
+    ``use_fused_stem=True`` runs the standard CRNN branch, as in JAX."""
+    jcfg, cfg, params, stats = _pair(SMALL, seed=4, activation="cg")
+    audio = np.random.default_rng(6).standard_normal(
+        (2, cfg.audio.n_samples)).astype(np.float32)
+    want = _jax_forward(jcfg, params, stats, use_fused_stem=True)(audio)
+    got = make_fast_forward(cfg, params, stats, device="cpu",
+                            use_fused_stem=True)(audio)
+    _close(got, want)
+    std = make_fast_forward(cfg, params, stats, device="cpu",
+                            use_folded_stem=False)(audio)
+    for g, s in zip(got, std):
+        torch.testing.assert_close(g, s, rtol=0, atol=0)
