@@ -1,203 +1,284 @@
-// Kernel K1: raw audio -> linear mel, one pass (sm_90a, float32 FMA).
+// Kernel K1: raw audio -> linear mel, one pass (sm_90a, float32).
 //
 // Replaces the TPU kernel bsed_tpu/ops/mel_kernel.py:fused_block_mel
 // (body _mel_kernel). Wrapper and plain version:
 // bsed_tpu_torch/ops/mel_kernel.py.
 //
-// Math (bsed_tpu_torch/ops/mel.py block_dft_bases): with hop blocks
-// x_m[r] = sig[m*H + r],
-//   Y[m, pl, k] = sum_r x_m[r] * e[r, pl, k]              (pl = 2p + c)
-//   Re X[t, k]  = tail_re + sum_{j<8} sum_pl d_re[j, pl, k] * Y[t+j, pl, k]
-//   Im X[t, k]  = tail_im + sum_{j<8} sum_pl d_im[j, pl, k] * Y[t+j, pl, k]
-//   tail[t, c, k] = sum_{r<rem} x_{t+8}[r] * e_tail[r, c, k]
-//   mel[t, m]   = sum_k |X[t, k]| * fb[k, m]
+// Math (librosa semantics): frame t of the centre reflect-padded signal p is
+// x_t[n] = p[t*H + n] * w[n], n < N (symmetric Hamming w). Its real N-point
+// DFT is one complex M-point FFT (M = N/2) of the even/odd packed frame
+// z[n] = x[2n] + i x[2n+1], then the split step
+//   X[k] = (Z[k] + conj Z[M-k]) / 2 - i/2 * W_N^k * (Z[k] - conj Z[M-k]),
+//   X[M] = Re Z[0] - Im Z[0],
+// then |X| and the Slaney projection as a banded sum: mel m reads bins
+// start_m .. start_m + len_m - 1 with its own weights (2016 nonzeros of the
+// 1025 x 128 parity filterbank, 3-58 bins a band).
 //
-// Bound on the H100: operations (~4.5 GFLOP per 10 s clip against ~2 MB
-// of device-memory traffic). Design: one thread block owns TT frames of
-// one clip and loops over KC-bin chunks of the live spectrum. Per chunk:
-//   1. stage-1 product for the MW = TT + 8 hop blocks the frames touch:
-//      a (MW x 256) @ (256 x 6*KC) product through shared-memory tiles of
-//      RC basis rows, each thread holding a 4-row x 6-plane x 2-bin tile;
-//   2. the 8-tap recombination and the tail term, read from shared memory;
-//   3. |X| into shared memory, then the mel projection of the chunk,
-//      accumulated for all TT x 128 outputs in registers.
-// Only the mel is written back; the stage-1 tensor never leaves the SM.
+// Bound on the H100: ~5.1 GFLOP and ~123 MB of device memory per B=64 batch
+// of 10 s clips (0.076 ms at the H100 SXM data sheet's 67 TFLOP/s f32, 700
+// W), so the floor is the f32 rate;
+// in practice the kernel is bound by shared-memory traffic and the latency
+// of its in-register butterflies. Tensor cores are not needed. Design:
+//   * a persistent block walks tiles of F = 8 consecutive frames of one
+//     clip; it stages the tile's (F-1)*H + N samples once in shared memory,
+//     reflect-padding in the index (frames overlap N/H ~ 8x, so each sample
+//     crosses device memory about once per tile);
+//   * one warp owns one frame. The M-point FFT is a four-step FFT,
+//     M = P x Q (1024 = 32 x 32): each lane runs a P-point FFT in registers
+//     over its stride-Q column, multiplies by W_M^{j k1}, and the warp
+//     transposes through a padded (Q x P+1) shared tile (conflict-free both
+//     ways); each lane then runs a Q-point FFT in registers;
+//   * the split step pairs Z[k] with Z[M-k] by warp shuffles, and |X| goes
+//     to shared memory in f32;
+//   * 256 threads compute the F x n_mels banded sums (weights read through
+//     L1) and store them coalesced into (B, T, n_mels).
+// Twiddles and the window are tables built in float64 on the host and
+// stored as float32: W_N^q for q < M, then W_M^{j k1} at M + k1*Q + j.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TT = 56;        // output frames per block (TILE_T in Python)
-constexpr int J = 8;          // full-block taps (N // H)
-constexpr int MW = TT + J;    // hop blocks a block transforms (64)
-constexpr int KC = 32;        // bins per chunk (BIN_CHUNK in Python)
-constexpr int RC = 16;        // basis rows per stage-1 step
-constexpr int ROWS = 256;     // basis rows (a hop block padded to 256)
-constexpr int NPL = 6;        // planes: 3 rank terms x (re, im)
-constexpr int MAXM = 128;     // mels
-constexpr int NT = 256;       // threads per block
-constexpr int FPT = TT / 8;   // frames per thread in the mel tile (7)
+constexpr int F = 8;            // frames per tile, one warp each
+constexpr int NT = 32 * F;      // threads per block
+constexpr int MAXM = 128;       // mels
+constexpr int FPT = F / (NT / MAXM);   // frames per thread in the mel sums
+constexpr int MAX_HOP = 255;
+constexpr unsigned FULL = 0xffffffffu;
 
-struct Smem {
-  float a[RC][MW + 4];        // hop-block samples, transposed (padded rows)
-  float e[RC][NPL][KC];       // stage-1 basis rows of this step
-  float y[MW][NPL][KC];       // stage-1 result of this chunk
-  float d[2][J][NPL][KC];     // recombination coefficients (re, im)
-  float mag[TT][KC];          // |X| of this chunk
-  float fb[KC][MAXM];         // filterbank rows of this chunk
-};
+__host__ __device__ constexpr int ilog2(int v) {
+  return v <= 1 ? 0 : 1 + ilog2(v / 2);
+}
+__host__ __device__ constexpr int bitrev(int i, int bits) {
+  return bits == 0 ? 0 : ((i & 1) << (bits - 1)) | bitrev(i >> 1, bits - 1);
+}
 
-__global__ void __launch_bounds__(NT, 2)
-mel_kernel(const float* __restrict__ sig, const float* __restrict__ e,
-           const float* __restrict__ d_re, const float* __restrict__ d_im,
-           const float* __restrict__ e_tail, const float* __restrict__ fb,
-           float* __restrict__ out, int sig_len, int T, int bins,
-           int n_mels, int hop, int rem) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  // hop block t0 of clip b; every read below stays inside sig_len
-  const float* x = sig + (size_t)b * sig_len + (size_t)t0 * hop;
+__device__ __forceinline__ void cmul(float& xr, float& xi, float wr,
+                                     float wi) {
+  const float r = xr * wr - xi * wi;
+  xi = fmaf(xr, wi, xi * wr);
+  xr = r;
+}
 
-  const int rg = tid / 16, cg = tid % 16;   // stage-1: rows rg*4.., bins cg*2..
-  const int tg = tid / 32, mc = tid % 32;   // mel: frames tg*FPT.., mels mc*4..
-  const int kr = tid % KC;                  // recombination: bin kr
-  float acc_mel[FPT][4] = {};
-
-  for (int k0 = 0; k0 < bins; k0 += KC) {
-    float acc[4][NPL][2] = {};
-    for (int r0 = 0; r0 < ROWS; r0 += RC) {
-      for (int i = tid; i < RC * MW; i += NT) {
-        const int rr = i % RC, m = i / RC;
-        s.a[rr][m] = x[(size_t)m * hop + r0 + rr];
-      }
-      for (int i = tid; i < RC * NPL * (KC / 4); i += NT) {
-        const int k4 = i % (KC / 4);
-        const int pl = (i / (KC / 4)) % NPL;
-        const int rr = i / ((KC / 4) * NPL);
-        const float4 v = *reinterpret_cast<const float4*>(
-            e + ((size_t)(r0 + rr) * NPL + pl) * bins + k0 + k4 * 4);
-        *reinterpret_cast<float4*>(&s.e[rr][pl][k4 * 4]) = v;
-      }
-      __syncthreads();
+// In-place radix-2 FFT of S points held in registers, natural order in and
+// out; W_S^m = tw[m * stride] (tw[q] = e^{-2 pi i q / N}).
+template <int S>
+__device__ __forceinline__ void fft_reg(float (&re)[S], float (&im)[S],
+                                        const float2* tw, int stride) {
+  constexpr int LOG = ilog2(S);
 #pragma unroll
-      for (int rr = 0; rr < RC; ++rr) {
-        const float4 av = *reinterpret_cast<const float4*>(&s.a[rr][rg * 4]);
-        const float a4[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int pl = 0; pl < NPL; ++pl) {
-          const float2 ev =
-              *reinterpret_cast<const float2*>(&s.e[rr][pl][cg * 2]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][pl][0] = fmaf(a4[i], ev.x, acc[i][pl][0]);
-            acc[i][pl][1] = fmaf(a4[i], ev.y, acc[i][pl][1]);
-          }
-        }
-      }
-      __syncthreads();
+  for (int i = 0; i < S; ++i) {
+    const int j = bitrev(i, LOG);
+    if (i < j) {
+      const float tr = re[i], ti = im[i];
+      re[i] = re[j];
+      im[i] = im[j];
+      re[j] = tr;
+      im[j] = ti;
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int pl = 0; pl < NPL; ++pl)
-        *reinterpret_cast<float2*>(&s.y[rg * 4 + i][pl][cg * 2]) =
-            make_float2(acc[i][pl][0], acc[i][pl][1]);
-    for (int i = tid; i < 2 * J * NPL * (KC / 4); i += NT) {
-      const int k4 = i % (KC / 4);
-      const int jp = (i / (KC / 4)) % (J * NPL);
-      const int part = i / ((KC / 4) * J * NPL);
-      const float* src = part == 0 ? d_re : d_im;
-      *reinterpret_cast<float4*>(&s.d[part][jp / NPL][jp % NPL][k4 * 4]) =
-          *reinterpret_cast<const float4*>(src + (size_t)jp * bins + k0 +
-                                           k4 * 4);
-    }
-    for (int i = tid; i < KC * (MAXM / 4); i += NT) {
-      const int m4 = i % (MAXM / 4), kk = i / (MAXM / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m4 * 4 < n_mels)
-        v = *reinterpret_cast<const float4*>(fb + (size_t)(k0 + kk) * n_mels +
-                                             m4 * 4);
-      *reinterpret_cast<float4*>(&s.fb[kk][m4 * 4]) = v;
-    }
-    __syncthreads();
-
-    // recombination + tail + magnitude: bin kr, frames tid/KC + 8*i
-    for (int i = 0; i < TT / 8; ++i) {
-      const int t = tid / KC + 8 * i;
-      float xr = 0.f, xi = 0.f;
-      const float* xt = x + (size_t)(t + J) * hop;
-      for (int r = 0; r < rem; ++r) {
-        const float sv = xt[r];
-        xr = fmaf(sv, e_tail[(size_t)(r * 2) * bins + k0 + kr], xr);
-        xi = fmaf(sv, e_tail[(size_t)(r * 2 + 1) * bins + k0 + kr], xi);
-      }
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-#pragma unroll
-        for (int pl = 0; pl < NPL; ++pl) {
-          const float yv = s.y[t + j][pl][kr];
-          xr = fmaf(s.d[0][j][pl][kr], yv, xr);
-          xi = fmaf(s.d[1][j][pl][kr], yv, xi);
-        }
-      s.mag[t][kr] = sqrtf(xr * xr + xi * xi);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      const float4 f = *reinterpret_cast<const float4*>(&s.fb[kk][mc * 4]);
-#pragma unroll
-      for (int i = 0; i < FPT; ++i) {
-        const float mg = s.mag[tg * FPT + i][kk];
-        acc_mel[i][0] = fmaf(mg, f.x, acc_mel[i][0]);
-        acc_mel[i][1] = fmaf(mg, f.y, acc_mel[i][1]);
-        acc_mel[i][2] = fmaf(mg, f.z, acc_mel[i][2]);
-        acc_mel[i][3] = fmaf(mg, f.w, acc_mel[i][3]);
-      }
-    }
-    __syncthreads();
   }
-
-  if (mc * 4 < n_mels) {
 #pragma unroll
-    for (int i = 0; i < FPT; ++i) {
-      const int t = t0 + tg * FPT + i;
-      if (t < T)
-        *reinterpret_cast<float4*>(out + ((size_t)b * T + t) * n_mels +
-                                   mc * 4) =
-            make_float4(acc_mel[i][0], acc_mel[i][1], acc_mel[i][2],
-                        acc_mel[i][3]);
+  for (int s = 0; s < LOG; ++s) {
+    const int half = 1 << s;
+#pragma unroll
+    for (int k = 0; k < half; ++k) {
+      float2 w = make_float2(1.f, 0.f);
+      if (k > 0) w = tw[k * (S / (2 * half)) * stride];
+#pragma unroll
+      for (int i = 0; i < S; i += 2 * half) {
+        float br = re[i + k + half], bi = im[i + k + half];
+        if (k > 0) cmul(br, bi, w.x, w.y);
+        re[i + k + half] = re[i + k] - br;
+        im[i + k + half] = im[i + k] - bi;
+        re[i + k] += br;
+        im[i + k] += bi;
+      }
     }
   }
 }
 
-}  // namespace
+template <int P, int Q>
+__host__ __device__ constexpr int work_floats() { return 2 * Q * (P + 1); }   // >= M + 1
 
-// sig: (B, sig_len) padded signal, sig_len >= (n_tiles*TT + 9)*hop + 256;
-// e: (256, 6, bins); d_re, d_im: (8, 6, bins); e_tail: (rem, 2, bins);
-// fb: (bins, n_mels); out: (B, T, n_mels). All float32, contiguous.
-// Returns cudaGetLastError() after the launch.
-extern "C" int bsed_mel_forward(const float* sig, const float* e,
-                                const float* d_re, const float* d_im,
-                                const float* e_tail, const float* fb,
-                                float* out, int B, int sig_len, int T,
-                                int n_tiles, int bins, int n_mels, int hop,
-                                int rem, void* stream) {
+template <int P, int Q>
+constexpr size_t smem_bytes(int hop) {
+  return (size_t)(2 * 2 * P * Q + F * work_floats<P, Q>() +
+                  (F - 1) * hop + 2 * P * Q) * sizeof(float);
+}
+
+template <int P, int Q>
+__global__ void __launch_bounds__(NT, 2)
+mel_fft_kernel(const float* __restrict__ audio,
+               const float* __restrict__ window,
+               const float2* __restrict__ twiddle,
+               const int* __restrict__ bands,
+               const float* __restrict__ weights, float* __restrict__ out,
+               int n, int T, int tiles_per_clip, int total_tiles, int hop,
+               int n_mels) {
+  constexpr int M = P * Q, N = 2 * M, LD = P + 1;
+  constexpr int WORK = work_floats<P, Q>();
+  extern __shared__ __align__(16) float smem[];
+  float2* tw = reinterpret_cast<float2*>(smem);          // [2M]
+  float* work = smem + 4 * M;                             // [F][WORK]
+  float* sig = work + F * WORK;                           // the tile's span
+  const int span = (F - 1) * hop + N;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int i = tid; i < 2 * M; i += NT) tw[i] = twiddle[i];
+  float* are = work + warp * WORK;         // transpose tile, then |X|
+  float* aim = are + Q * LD;
+  const int j = lane % Q;                  // step-1 column
+  const int k1 = lane % P;                 // step-2 column
+  const int mel = tid % MAXM, fg = tid / MAXM;
+  int b_start = 0, b_len = 0, b_off = 0;
+  if (mel < n_mels) {
+    b_start = bands[3 * mel];
+    b_len = bands[3 * mel + 1];
+    b_off = bands[3 * mel + 2];
+  }
+
+  for (int tile = blockIdx.x; tile < total_tiles; tile += gridDim.x) {
+    const int b = tile / tiles_per_clip;
+    const int t0 = (tile - b * tiles_per_clip) * F;
+    const float* x = audio + (size_t)b * n;
+    __syncthreads();           // the last tile's sums have read |X|
+    const int q0 = t0 * hop - N / 2;
+    for (int i = tid; i < span; i += NT) {
+      int s = q0 + i;                           // centre reflect pad
+      s = s < 0 ? -s : s;
+      s = s >= n ? 2 * (n - 1) - s : s;
+      sig[i] = (s >= 0 && s < n) ? x[s] : 0.f;  // past the end: frames >= T
+    }
+    __syncthreads();
+
+    // step 1: lane j, P-point FFT over z[j + Q*n1], then W_M^{j k1}
+    const float* fs = sig + warp * hop;
+    float re[P], im[P];
+#pragma unroll
+    for (int n1 = 0; n1 < P; ++n1) {
+      const int nn = j + Q * n1;
+      const float2 w = __ldg(reinterpret_cast<const float2*>(window) + nn);
+      re[n1] = fs[2 * nn] * w.x;
+      im[n1] = fs[2 * nn + 1] * w.y;
+    }
+    fft_reg<P>(re, im, tw, N / P);
+#pragma unroll
+    for (int kk = 1; kk < P; ++kk) {
+      const float2 w = tw[M + kk * Q + j];
+      cmul(re[kk], im[kk], w.x, w.y);
+    }
+    if (lane < Q) {
+#pragma unroll
+      for (int kk = 0; kk < P; ++kk) {
+        are[j * LD + kk] = re[kk];
+        aim[j * LD + kk] = im[kk];
+      }
+    }
+    __syncwarp();
+
+    // step 2: lane k1, Q-point FFT over the column -> Z[k1 + P*k2]
+    float zr[Q], zi[Q];
+#pragma unroll
+    for (int jj = 0; jj < Q; ++jj) {
+      zr[jj] = are[jj * LD + k1];
+      zi[jj] = aim[jj * LD + k1];
+    }
+    fft_reg<Q>(zr, zi, tw, N / Q);
+    __syncwarp();              // the tile is read; |X| overwrites it
+
+    // split step: Z[M-k] sits in lane (P - k1) % P, register Q-1-k2 (or,
+    // for k1 = 0, in this lane's register (Q - k2) % Q)
+    const int partner = (P - k1) & (P - 1);
+#pragma unroll
+    for (int k2 = 0; k2 < Q; ++k2) {
+      const float sr = __shfl_sync(FULL, zr[Q - 1 - k2], partner);
+      const float si = __shfl_sync(FULL, zi[Q - 1 - k2], partner);
+      const float cr = k1 == 0 ? zr[(Q - k2) & (Q - 1)] : sr;
+      const float ci = k1 == 0 ? zi[(Q - k2) & (Q - 1)] : si;
+      const int k = k1 + P * k2;
+      const float2 w = tw[k];
+      const float er = 0.5f * (zr[k2] + cr), ei = 0.5f * (zi[k2] - ci);
+      const float orr = 0.5f * (zi[k2] + ci), oi = 0.5f * (cr - zr[k2]);
+      const float xr = er + w.x * orr - w.y * oi;
+      const float xi = ei + w.x * oi + w.y * orr;
+      if (lane < P) are[k] = sqrtf(xr * xr + xi * xi);
+    }
+    if (lane == 0) are[M] = fabsf(zr[0] - zi[0]);
+    __syncthreads();
+
+    // banded mel: thread (mel, fg) sums frames fg*FPT .. fg*FPT + FPT - 1
+    if (mel < n_mels) {
+      float acc[FPT] = {};
+      const float* mg = work + fg * FPT * WORK + b_start;
+      for (int i = 0; i < b_len; ++i) {
+        const float w = __ldg(weights + b_off + i);
+#pragma unroll
+        for (int ff = 0; ff < FPT; ++ff)
+          acc[ff] = fmaf(w, mg[ff * WORK + i], acc[ff]);
+      }
+#pragma unroll
+      for (int ff = 0; ff < FPT; ++ff) {
+        const int t = t0 + fg * FPT + ff;
+        if (t < T) out[((size_t)b * T + t) * n_mels + mel] = acc[ff];
+      }
+    }
+  }
+}
+
+template <int P, int Q>
+int launch(const float* audio, const float* window, const float* twiddle,
+           const int* bands, const float* weights, float* out, int B, int n,
+           int T, int hop, int n_mels, int grid_max, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    cudaFuncSetAttribute(mel_kernel,
+    cudaFuncSetAttribute(mel_fft_kernel<P, Q>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)sizeof(Smem));
+                         (int)smem_bytes<P, Q>(MAX_HOP));
     configured = true;
   }
-  if (bins % KC != 0 || n_mels > MAXM || n_mels % 4 != 0 || hop >= ROWS ||
-      n_tiles * TT < T)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(n_tiles, B);
-  mel_kernel<<<grid, NT, sizeof(Smem), (cudaStream_t)stream>>>(
-      sig, e, d_re, d_im, e_tail, fb, out, sig_len, T, bins, n_mels, hop,
-      rem);
+  const int tiles = (T + F - 1) / F;
+  const int total = tiles * B;
+  const int grid = total < grid_max ? total : grid_max;
+  mel_fft_kernel<P, Q><<<grid, NT, smem_bytes<P, Q>(hop), stream>>>(
+      audio, window, reinterpret_cast<const float2*>(twiddle), bands,
+      weights, out, n, T, tiles, total, hop, n_mels);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// audio: (B, n) raw samples; window: (N,) symmetric Hamming; twiddle:
+// (N, 2) = W_N^q for q < N/2, then W_M^{j k1} at N/2 + k1*Q + j; bands:
+// (n_mels, 3) int32 (start bin, length, offset into weights); weights:
+// the bands' filterbank values; out: (B, T, n_mels). All float32 but bands,
+// contiguous. N = 2 * P * Q with (P, Q) as in ops/mel_kernel.fft_split;
+// grid_max caps the persistent grid (2 blocks per SM). Returns
+// cudaGetLastError() after the launch.
+extern "C" int bsed_mel_forward(const float* audio, const float* window,
+                                const float* twiddle, const int* bands,
+                                const float* weights, float* out, int B,
+                                int n, int T, int n_window, int hop,
+                                int n_mels, int grid_max, void* stream) {
+  if (B < 1 || T < 1 || n_mels < 1 || n_mels > MAXM || hop < 1 ||
+      hop > MAX_HOP || n <= n_window / 2 || grid_max < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (n_window) {
+    case 128:
+      return launch<8, 8>(audio, window, twiddle, bands, weights, out, B, n,
+                          T, hop, n_mels, grid_max, st);
+    case 256:
+      return launch<16, 8>(audio, window, twiddle, bands, weights, out, B, n,
+                           T, hop, n_mels, grid_max, st);
+    case 512:
+      return launch<16, 16>(audio, window, twiddle, bands, weights, out, B,
+                            n, T, hop, n_mels, grid_max, st);
+    case 1024:
+      return launch<32, 16>(audio, window, twiddle, bands, weights, out, B,
+                            n, T, hop, n_mels, grid_max, st);
+    case 2048:
+      return launch<32, 32>(audio, window, twiddle, bands, weights, out, B,
+                            n, T, hop, n_mels, grid_max, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -19,14 +19,20 @@ is not, because the scan carries h in bfloat16.
 
 Bound on the H100: the products, 2·B·T·H·3H·2 FLOP per layer (3.9 GFLOP at
 B=64, T=313) against ~82 MB of traffic in float32, but the real floor is
-the chain of T dependent steps: each needs the previous h. Design: the
-recurrence is independent across (direction, batch row), so one thread
-block owns one direction and a few batch rows for all T steps and needs
-only ``__syncthreads`` between steps. W_hhᵀ (128 × 384) of its direction
-sits in shared memory (96 KB in bf16, 192 KB in f32) and h in shared
-memory in f32; each of 384 threads computes one column of hp for the
-block's rows, then 128 threads per row apply the gates, with the next
-step's inputs loaded ahead.
+the chain of T dependent steps: each needs the previous h, so what counts
+is one step's latency. Design: a cluster of 2 thread blocks serves one
+(direction, group of RB batch rows) for all T steps. Each block owns 64
+hidden units and their r, z, n columns of W_hhᵀ, held in registers for the
+whole run (24,576 weights a block), so no step re-reads the weights. Per
+step a block starts the product on its own half of h while the peer's
+half arrives, applies the gates to its units and writes the new h into
+both blocks through distributed shared memory; each block waits only on
+its own mbarrier, which the peer's writers arrive on (h is
+double-buffered; no cluster-wide barrier inside the loop).
+``cluster_shape`` picks RB
+so that both directions' 2·⌈B/RB⌉ clusters run in one wave; the card's
+count of resident clusters comes from ``cudaOccupancyMaxActiveClusters``
+(66 clusters of 2 on an NVIDIA H100 80GB HBM3, 700 W).
 
 The plain PyTorch version (``gru_bidir_recurrence_plain``) repeats the
 kernel's arithmetic step by step; the wrapper takes it only for CPU
@@ -35,12 +41,14 @@ tensors.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
 H = 128
+CLUSTER = 2            # thread blocks per cluster (csrc/gru_kernel.cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS = (1, 2, 4)      # batch rows per thread block (csrc/gru_kernel.cu)
+_ROWS = (1, 2, 4, 8)   # batch rows per cluster (csrc/gru_kernel.cu)
 
 
 def gru_bidir_recurrence_plain(xp2: torch.Tensor, w_hh2: torch.Tensor,
@@ -68,18 +76,53 @@ def gru_bidir_recurrence_plain(xp2: torch.Tensor, w_hh2: torch.Tensor,
 def _bind(lib):
     fn = lib.bsed_gru_bidir
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     return fn
 
 
-def rows_per_block(batch: int, sms: int) -> int:
-    """Batch rows per thread block: the fewest that fit both directions'
-    blocks into one wave on ``sms`` multiprocessors, at most 4."""
+def cluster_shape(batch: int, sms: int,
+                  clusters: Optional[int] = None) -> Tuple[int, int]:
+    """(RB, C): batch rows per cluster and blocks per cluster. RB is the
+    fewest rows whose 2·⌈B/RB⌉ clusters (both directions) run at once;
+    ``clusters`` is how many the card runs at once (one block per SM:
+    ``sms // C`` unless the caller knows better), at most 8 rows."""
+    if clusters is None:
+        clusters = sms // CLUSTER
     for rows in _ROWS:
-        if 2 * -(-batch // rows) <= sms:
-            return rows
-    return _ROWS[-1]
+        if 2 * -(-batch // rows) <= clusters:
+            return rows, CLUSTER
+    return _ROWS[-1], CLUSTER
+
+
+def _attribute(dtype: torch.dtype, rows: int, which: int) -> int:
+    from bsed_tpu_torch import kernels
+    fn = kernels.load("gru_kernel").bsed_gru_attribute
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    n = fn(_DTYPES[dtype], rows, which)
+    kernels.check(min(n, 0), "GRU kernel attributes")
+    return n
+
+
+def registers_per_thread(dtype: torch.dtype, rows: int) -> int:
+    """Registers per thread of K4's instantiation for (dtype, RB), as the
+    CUDA runtime reports them (builds the library if needed)."""
+    return _attribute(dtype, rows, 0)
+
+
+_resident: Dict[int, int] = {}
+
+
+def resident_clusters(device: torch.device) -> int:
+    """How many of K4's clusters the card runs at once
+    (``cudaOccupancyMaxActiveClusters``; the same for every RB: one block
+    per SM)."""
+    index = torch.device(device).index or 0
+    if index not in _resident:
+        with torch.cuda.device(index):
+            _resident[index] = _attribute(torch.float32, 1, 1)
+    return _resident[index]
 
 
 def gru_bidir_recurrence(xp2: torch.Tensor, w_hh2: torch.Tensor,
@@ -108,11 +151,12 @@ def gru_bidir_recurrence(xp2: torch.Tensor, w_hh2: torch.Tensor,
     b2 = b_hh2.float().contiguous()
     out = torch.empty((2, bsz, t, H), device=xp2.device, dtype=xp2.dtype)
     sms = torch.cuda.get_device_properties(xp2.device).multi_processor_count
+    rows, cluster = cluster_shape(bsz, sms, resident_clusters(xp2.device))
     from bsed_tpu_torch import kernels
     fn = _bind(kernels.load("gru_kernel"))
     stream = torch.cuda.current_stream(xp2.device).cuda_stream
     err = fn(xp2.data_ptr(), w_t2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-             _DTYPES[xp2.dtype], bsz, t, rows_per_block(bsz, sms), H, stream)
+             _DTYPES[xp2.dtype], bsz, t, rows, cluster, H, stream)
     kernels.check(err, "GRU kernel")
     gru_bidir_recurrence.launches += 1
     return out

@@ -9,10 +9,10 @@ algorithms compute the same linear mel:
   * ``block``        — the overlap-reusing block STFT (``block_dft_bases``):
                        each hop block is transformed once and an 8-tap
                        stencil recombines frames;
-  * ``block_kernel`` — the same block STFT over the filterbank's live bins
-                       in one hand-written CUDA kernel
-                       (``ops/mel_kernel.fused_block_mel``), the counterpart
-                       of the JAX package's ``block_pallas``.
+  * ``block_kernel`` — one hand-written CUDA kernel from audio to mel
+                       (``ops/mel_kernel.fused_block_mel``: an FFT and a
+                       banded mel on the H100), the counterpart of the JAX
+                       package's ``block_pallas``.
 
 Every path computes in float32 (TF32 is the caller's to switch off on the
 card). The JAX package's precision tiers ('highest', 'high', 'fast') set

@@ -3,67 +3,61 @@
 Replaces the TPU kernel ``bsed_tpu/ops/mel_kernel.py:fused_block_mel``
 (body ``_mel_kernel``). The CUDA source is ``csrc/mel_kernel.cu``.
 
-What it computes (see ``ops/mel.block_dft_bases``): the padded signal is
-cut into non-overlapping H-sample hop blocks; each block goes once through
-the three complex stage-1 bases of the Hamming rank-3 split
-w[jH+r] = Σ_p u_p[j]·v_p[r]; frame t is recombined from blocks t..t+7 by
-the k-dependent 8-tap coefficients d_re/d_im, plus the transform of the
-8-sample tail (the head of block t+8); then |·| and the Slaney projection
-over the filterbank's live bins. Only the (B, T, n_mels) mel is written:
-the (B, M, 6, bins) stage-1 tensor never leaves the chip.
+What it computes (librosa semantics, as the JAX kernel): frame t of the
+centre reflect-padded signal, times the symmetric Hamming window, goes
+through a real N-point DFT; |·| of the bins; the Slaney projection. The
+TPU kernel's block DFT suits a systolic matrix unit; on the H100 the kernel
+is an FFT instead: the real N-point DFT is one complex M-point FFT (M =
+N/2) of the even/odd packed frame z[n] = x[2n] + i·x[2n+1], followed by
+the split step
 
-Bound on the H100: operations. Per 10 s clip the stage-1 transform is
-~4.0 GFLOP, the mel projection ~0.33 and the recombination ~0.16, against
-1.28 MB of audio in and 0.64 MB of mel out. The kernel computes in float32
-FMA (no tensor cores yet), so its floor is the card's f32 rate. Design:
-one block owns 56 frames of one clip and loops over 32-bin chunks of the
-live spectrum; per chunk it runs the stage-1 product for the 64 hop blocks
-the 56 frames touch through shared-memory tiles (4×2×6 register tile per
-thread), recombines the taps from shared memory, takes the magnitude and
-accumulates the 128 mels in registers. The basis streams through shared
-memory 16 rows at a time; nothing but the mel goes back to device memory.
+    X[k] = (Z[k] + conj Z[M−k])/2 − i/2·W_N^k·(Z[k] − conj Z[M−k]),
+    X[M] = Re Z[0] − Im Z[0],
 
-The constants are built in float64 on the host and stored as float32.
-The plain PyTorch version (``fused_block_mel_plain``) is
-``_padded_signal`` → ``block_stft_magnitude`` → the mel matmul on the very
-same constants; the wrapper takes it only for CPU tensors.
+and the mel is a banded sum over each band's nonzero bins (2016 of the
+1025 × 128 parity filterbank's entries), not a dense product. Only the
+(B, T, n_mels) mel is written to device memory.
+
+Bound on the H100: per B=64 batch of 10 s clips ≈5.1 GFLOP (2.5·N·log₂N
+per frame for the real FFT, 3 per live bin for |·|, 2 per filterbank
+nonzero) against 82 MB of audio in and 41 MB of mel out, so the f32 rate
+sets the floor (≈0.076 ms at the H100 SXM data sheet's 67 TFLOP/s, 700
+W). The kernel is bound by shared-memory traffic
+and the latency of its butterflies: a warp owns a frame and runs a
+four-step FFT, M = P × Q (1024 = 32 × 32), with both passes in registers
+and one padded shared-memory transpose between them (see the source's
+header).
+
+The constants are built in float64 on the host and stored as float32
+(the band table as int32). The plain PyTorch version
+(``fused_block_mel_plain``) is the kernel's decomposition: frames, window,
+even/odd packing, an M-point complex FFT, the split step, |·| and the
+banded sum by gather; the wrapper takes it only for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from bsed_tpu_torch.ops.mel import (_padded_signal, block_dft_bases,
-                                    block_stft_magnitude)
+from bsed_tpu_torch.ops.mel import frame_signal, num_frames
 from bsed_tpu_torch.utils.device import resolve_device
 
-TILE_T = 56          # output frames per thread block (csrc/mel_kernel.cu)
-BIN_CHUNK = 32       # live bins per chunk; the bin count is padded to it
 MAX_MELS = 128
-_J = 8               # full-block taps (N // H)
+MAX_WINDOW = 4096
+_J = 8               # N // H, the JAX kernel's envelope
+_BLOCKS_PER_SM = 2   # the persistent grid (csrc/mel_kernel.cu)
 
 
 class MelKernelBases(NamedTuple):
-    """The kernel's constants, float32 on one device. ``bins`` is the
-    filterbank's live support rounded up to BIN_CHUNK (1024 for the
-    parity config); rows and bins past the real ones are zero."""
-    e: torch.Tensor      # (256, 3, 2, bins) stage-1 basis v_p[r]·e^{-2πirk/N}
-    d_re: torch.Tensor   # (8, 3, 2, bins)   recombination → Re X
-    d_im: torch.Tensor   # (8, 3, 2, bins)   recombination → Im X
-    e_tail: torch.Tensor  # (rem, 2, bins) w[8H+r]·e^{-2πi(8H+r)k/N}
-    fb: torch.Tensor     # (bins, n_mels)    Slaney filterbank rows
-
-
-def live_bins(mel_fb: np.ndarray) -> int:
-    """Bins the filterbank reads: one past its last nonzero row. For the
-    parity config (N=2048, f_max=Nyquist) the Slaney triangles end before
-    the Nyquist bin, so 1024 of the 1025 bins are live."""
-    used = np.nonzero(np.abs(mel_fb).sum(axis=1))[0]
-    return int(used[-1]) + 1 if used.size else mel_fb.shape[0]
+    """The kernel's constants on one device."""
+    window: torch.Tensor   # (N,) float32, symmetric Hamming
+    twiddle: torch.Tensor  # (N, 2) float32: W_N^q, q < N/2; then W_M^{j·k1}
+    #                        at N/2 + k1·Q + j (the four-step twiddles)
+    bands: torch.Tensor    # (n_mels, 3) int32: start bin, length, offset
+    weights: torch.Tensor  # (nnz,) float32, the bands' filterbank values
 
 
 def check_geometry(n_window: int, hop_size: int, n_mels: int) -> None:
@@ -75,11 +69,14 @@ def check_geometry(n_window: int, hop_size: int, n_mels: int) -> None:
             "mel kernel needs a non-empty tail block (n_window % hop_size "
             "!= 0); use the dense front end for exact-multiple hops")
     if hop_size >= 256:
-        raise ValueError("mel kernel holds a hop block in 256 basis rows; "
+        raise ValueError("mel kernel keeps the JAX kernel's envelope: "
                          "hop_size must be < 256")
     if n_mels > MAX_MELS or n_mels % 4:
         raise ValueError(f"mel kernel needs n_mels <= {MAX_MELS} and a "
                          "multiple of 4")
+    if n_window & (n_window - 1) or n_window > MAX_WINDOW:
+        raise ValueError("mel kernel's FFT needs n_window a power of two "
+                         f"<= {MAX_WINDOW}")
 
 
 def supports(n_window: int, hop_size: int, n_mels: int) -> bool:
@@ -90,51 +87,84 @@ def supports(n_window: int, hop_size: int, n_mels: int) -> bool:
     return True
 
 
+def fft_split(n_window: int) -> Tuple[int, int]:
+    """(P, Q) of the four-step FFT of M = n_window / 2 = P·Q points, P ≥ Q:
+    a lane's first pass is P points, its second Q."""
+    m = n_window // 2
+    p = 1 << (m.bit_length() // 2)         # m = 2^L: P = 2^ceil(L/2)
+    return p, m // p
+
+
+def band_table(mel_fb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The filterbank (bins, n_mels) as bands: (n_mels, 3) int32 rows of
+    (first nonzero bin, length through the last nonzero, offset into the
+    weights) and the float32 weights of every band, band after band."""
+    rows, weights, off = [], [], 0
+    for col in mel_fb.T:
+        nz = np.nonzero(col)[0]
+        if nz.size == 0:
+            rows.append((0, 0, off))
+            continue
+        start, length = int(nz[0]), int(nz[-1] - nz[0] + 1)
+        rows.append((start, length, off))
+        weights.append(col[start:start + length])
+        off += length
+    w = np.concatenate(weights) if weights else np.zeros(0)
+    return np.asarray(rows, np.int32), w.astype(np.float32)
+
+
 def build_mel_kernel_bases(n_window: int, hop_size: int, mel_fb: np.ndarray,
                            device="cuda") -> MelKernelBases:
-    """Build the kernel's constants in float64 over the live bins and pack
-    them at the kernel's padded layouts. The rank-3 coefficients u_p[j]
-    enter through d_re/d_im (``block_dft_bases``): the kernel uses the
-    k-dependent tap form, so it needs no separate phase-twist planes."""
+    """The kernel's constants: window and twiddles from float64, the
+    filterbank (1 + N/2, n_mels) as its band table."""
     check_geometry(n_window, hop_size, mel_fb.shape[1])
+    if mel_fb.shape[0] != n_window // 2 + 1:
+        raise ValueError(f"filterbank has {mel_fb.shape[0]} bins, the FFT "
+                         f"{n_window // 2 + 1}")
     device = resolve_device(device)
-    nf = live_bins(mel_fb)
-    bins = -(-nf // BIN_CHUNK) * BIN_CHUNK
-    e_basis, d_re, d_im, e_tail = block_dft_bases(
-        n_window, hop_size, dtype=np.float64, n_bins=nf)
-
-    def pad(a, rows=None):
-        widths = [(0, 0)] * a.ndim
-        widths[-1] = (0, bins - nf)
-        if rows is not None:
-            widths[0] = (0, rows - a.shape[0])
-        return torch.as_tensor(np.pad(a, widths).astype(np.float32),
-                               device=device).contiguous()
-
-    fb = np.zeros((bins, mel_fb.shape[1]))
-    fb[:nf] = mel_fb[:nf]
+    m = n_window // 2
+    p, q = fft_split(n_window)
+    k1, j = np.meshgrid(np.arange(p), np.arange(q), indexing="ij")
+    ang = np.concatenate([2 * np.pi * np.arange(m) / n_window,
+                          (2 * np.pi * k1 * j / m).ravel()])
+    twiddle = np.stack([np.cos(ang), -np.sin(ang)], axis=1)
+    bands, weights = band_table(mel_fb)
+    as_t = lambda a: torch.as_tensor(a, device=device).contiguous()  # noqa
     return MelKernelBases(
-        e=pad(e_basis, rows=256), d_re=pad(d_re), d_im=pad(d_im),
-        e_tail=pad(e_tail),
-        fb=torch.as_tensor(fb.astype(np.float32), device=device).contiguous())
+        window=as_t(np.hamming(n_window).astype(np.float32)),
+        twiddle=as_t(twiddle.astype(np.float32)),
+        bands=as_t(bands), weights=as_t(weights))
 
 
 def fused_block_mel_plain(audio: torch.Tensor, bases: MelKernelBases,
                           n_window: int, hop_size: int,
                           n_mels: int) -> torch.Tensor:
-    """The plain PyTorch version of K1 on the same constants:
-    ``_padded_signal`` → ``block_stft_magnitude`` → mel matmul."""
-    mag = block_stft_magnitude(
-        audio, (bases.e, bases.d_re, bases.d_im, bases.e_tail),
-        n_window, hop_size)
-    return mag @ bases.fb[:, :n_mels]
+    """The plain PyTorch version of K1 on the same constants: frames,
+    window, even/odd packing, M-point FFT, split step, |·|, banded sum."""
+    m = n_window // 2
+    frames = frame_signal(audio.float(), n_window, hop_size) * bases.window
+    z = torch.fft.fft(torch.complex(frames[..., 0::2], frames[..., 1::2]))
+    zc = torch.roll(z.flip(-1), 1, dims=-1).conj()       # conj Z[(M−k) % M]
+    w = torch.complex(bases.twiddle[:m, 0], bases.twiddle[:m, 1])
+    x = 0.5 * (z + zc) - 0.5j * w * (z - zc)
+    nyquist = (z[..., :1].real - z[..., :1].imag).abs()
+    mag = torch.cat([x.abs(), nyquist], dim=-1)           # (..., T, M + 1)
+    # each nonzero's bin and band, from the band table
+    start, length, offset = bases.bands.long().unbind(1)
+    band = torch.repeat_interleave(
+        torch.arange(n_mels, device=mag.device), length)
+    bins = start[band] + torch.arange(band.numel(), device=mag.device) \
+        - offset[band]
+    prod = mag[..., bins] * bases.weights
+    out = mag.new_zeros(mag.shape[:-1] + (n_mels,))
+    return out.index_add_(-1, band, prod)
 
 
 def _bind(lib):
     fn = lib.bsed_mel_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     return fn
 
 
@@ -149,33 +179,34 @@ def fused_block_mel(audio: torch.Tensor, bases: MelKernelBases,
     if audio.device.type != "cuda":
         raise ValueError(f"mel kernel runs on CUDA, got {audio.device}")
     check_geometry(n_window, hop_size, n_mels)
+    dtypes = {"bands": torch.int32}
     for name, c in bases._asdict().items():
-        if (c.device != audio.device or c.dtype != torch.float32
-                or not c.is_contiguous()):
+        want = dtypes.get(name, torch.float32)
+        if c.device != audio.device or c.dtype != want \
+                or not c.is_contiguous():
             raise ValueError(f"mel kernel constant {name} must be a "
-                             f"contiguous float32 tensor on {audio.device}")
-    bins = bases.fb.shape[0]
-    if (bases.e.shape != (256, 3, 2, bins) or bases.fb.shape[1] != n_mels
-            or bins % BIN_CHUNK):
+                             f"contiguous {want} tensor on {audio.device}")
+    if (bases.window.shape != (n_window,)
+            or bases.twiddle.shape != (n_window, 2)
+            or bases.bands.shape != (n_mels, 3)):
         raise ValueError("mel kernel constants do not match the geometry")
-    rem = n_window - _J * hop_size
-
-    p, t, lead = _padded_signal(audio.float(), n_window, hop_size)
-    b = p.shape[0]
-    n_tiles = -(-t // TILE_T)
-    # every hop block a tile reads, plus one block of slack for the
-    # 256-row basis reading past a 255-sample hop
-    sig_len = (n_tiles * TILE_T + _J + 1) * hop_size + 256
-    p = F.pad(p, (0, sig_len - p.shape[1])).contiguous()
-    out = torch.empty((b, t, n_mels), device=audio.device,
+    n_samples = audio.shape[-1]
+    if n_samples <= n_window // 2:
+        raise ValueError("mel kernel's reflect pad needs more than "
+                         f"{n_window // 2} samples, got {n_samples}")
+    lead = tuple(audio.shape[:-1])
+    x = audio.float().reshape(-1, n_samples).contiguous()
+    t = num_frames(n_samples, hop_size)
+    out = torch.empty((x.shape[0], t, n_mels), device=audio.device,
                       dtype=torch.float32)
+    sms = torch.cuda.get_device_properties(audio.device).multi_processor_count
     from bsed_tpu_torch import kernels
     fn = _bind(kernels.load("mel_kernel"))
     stream = torch.cuda.current_stream(audio.device).cuda_stream
-    err = fn(p.data_ptr(), bases.e.data_ptr(), bases.d_re.data_ptr(),
-             bases.d_im.data_ptr(), bases.e_tail.data_ptr(),
-             bases.fb.data_ptr(), out.data_ptr(),
-             b, sig_len, t, n_tiles, bins, n_mels, hop_size, rem, stream)
+    err = fn(x.data_ptr(), bases.window.data_ptr(), bases.twiddle.data_ptr(),
+             bases.bands.data_ptr(), bases.weights.data_ptr(), out.data_ptr(),
+             x.shape[0], n_samples, t, n_window, hop_size, n_mels,
+             _BLOCKS_PER_SM * sms, stream)
     kernels.check(err, "mel kernel")
     fused_block_mel.launches += 1
     return out.reshape(lead + (t, n_mels))

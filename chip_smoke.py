@@ -5,8 +5,11 @@
 Builds the port's CUDA kernels from ``bsed_tpu_torch/csrc`` (nvcc, at first
 use, all sources in parallel) and drives every slice of the port:
 
-  * serving: K1 (mel) and K2's eval form against their plain PyTorch
-    versions at the serving shapes, then the serving path
+  * serving: K1 (mel, an FFT kernel) and K2's eval form against their
+    plain PyTorch versions at the serving shapes, K1 also against a
+    float64 ``torch.stft`` golden on a few clips, with K1's bound counted
+    from the function's work (real FFT, |·|, banded mel); then the serving
+    path
     (``make_fast_forward`` on preset ``baseline``, bf16, precision 'high',
     B=64 full 10 s clips, random weights from seed 0), which must launch K1
     once and K2 three times per batch, and the float32 kernel path against
@@ -15,10 +18,12 @@ use, all sources in parallel) and drives every slice of the port:
     B=64, then ``make_fast_forward(use_fused_stem=True)`` at B=64, which
     must launch K1 and K5 once per batch and K2 never, held at B=8 against
     the same path on the plain versions and against the standard CRNN path;
-  * K4 (the BiGRU recurrence, on no path of either package) against its
-    plain version at the serving shape in float32 and bfloat16, a 2-layer
-    BiGRU through the hoisted form + K4 against cuDNN's ``nn.GRU``, and
-    their times beside cuDNN's;
+  * K4 (the BiGRU recurrence, a 2-block cluster kernel, on no path of
+    either package) against its plain version at the serving shape in
+    float32 and bfloat16, a 2-layer BiGRU through the hoisted form + K4
+    against cuDNN's ``nn.GRU``, and their times beside cuDNN's: µs a step,
+    the cluster shape (RB, C), registers per thread and the hoisted
+    layer's glue on its own;
   * training: K2's train form (dropout bits) and K3 (its backward) against
     their plain versions at the student shapes (B=72), then the flagship
     train step (``train.steps.make_train_step`` on ``baseline_mt_isp`` with
@@ -52,6 +57,7 @@ H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_FLOPS = {"float32": 67e12,   # CUDA-core float32
               "bfloat16": 989e12}  # dense tensor-core bf16
 B_SERVE = 64
+GOLDEN_CLIPS = 4                  # clips held against the float64 golden
 N_TIMED = 5
 B_TRAIN = 12                      # SYN clips per step; the real stream too
 B_STUDENT = 6 * B_TRAIN           # the fused student forward's batch
@@ -90,7 +96,12 @@ def time_ms(fn, reps: int, warmup: int = 2):
 
 
 def check_mel_kernel(torch, dev):
-    """K1 against its plain version at the serving shape (B=64, 10 s)."""
+    """K1 against its plain version at the serving shape (B=64, 10 s) and
+    against a float64 torch.stft golden on a few clips, both within 1e-3
+    dB. The bound counts the function's work, whatever computes it: a real
+    FFT (2.5·N·log2 N per frame), |·| over the live bins (3 FLOP each) and
+    the mel over the filterbank's nonzeros (2 FLOP each); audio in, mel
+    out."""
     import numpy as np
     from bsed_tpu_torch.config import AudioConfig
     from bsed_tpu_torch.ops import mel, mel_kernel
@@ -106,50 +117,69 @@ def check_mel_kernel(torch, dev):
     args = (kb, a.n_window, a.hop_size, a.n_mels)
     got = mel_kernel.fused_block_mel(audio, *args)
     want = mel_kernel.fused_block_mel_plain(audio, *args)
+    win = torch.hamming_window(a.n_window, periodic=False, device=dev,
+                               dtype=torch.float64)
+    fb_gold = torch.as_tensor(fb64, device=dev)
+    spec = torch.stft(audio[:GOLDEN_CLIPS].double(), a.n_window, a.hop_size,
+                      window=win, center=True, pad_mode="reflect",
+                      return_complex=True)
+    gold = spec.abs().transpose(1, 2) @ fb_gold
     torch.cuda.synchronize()
     t = mel.num_frames(a.n_samples, a.hop_size)
     assert got.shape == want.shape == (B_SERVE, t, a.n_mels), got.shape
     assert torch.isfinite(got).all()
     err_lin = float((got - want).abs().max())
-    err_db = float((mel.amplitude_to_db(got)
-                    - mel.amplitude_to_db(want)).abs().max())
+    db = mel.amplitude_to_db
+    err_db = float((db(got) - db(want)).abs().max())
+    err_gold_db = float((db(got[:GOLDEN_CLIPS].double()) - db(gold))
+                        .abs().max())
+    plain_gold_db = float((db(want[:GOLDEN_CLIPS].double()) - db(gold))
+                          .abs().max())
+    del spec, gold, want
     emit(phase="mel_kernel_check", shape=list(got.shape),
-         max_abs_err=err_lin, rel_err=err_lin / float(want.abs().max()),
-         max_abs_err_db=err_db, gate_db=1e-3)
+         max_abs_err=err_lin, max_abs_err_db=err_db,
+         golden_clips=GOLDEN_CLIPS, max_abs_err_db_vs_f64=err_gold_db,
+         plain_max_abs_err_db_vs_f64=plain_gold_db, gate_db=1e-3)
     assert err_db <= 1e-3, f"K1 log-mel differs by {err_db} dB"
+    assert err_gold_db <= 1e-3, f"K1 vs float64 golden: {err_gold_db} dB"
 
     ms = time_ms(lambda: mel_kernel.fused_block_mel(audio, *args), 10)
     plain_ms = time_ms(lambda: mel_kernel.fused_block_mel_plain(audio, *args),
                        3, warmup=1)
     # yardstick only (the port never calls it): torch.stft → |·| → mel
-    win = torch.hamming_window(a.n_window, periodic=False, device=dev)
-    fb_full = torch.as_tensor(fb64.astype(np.float32), device=dev)
+    win32 = win.float()
+    fb_full = fb_gold.float()
 
     def library():
-        spec = torch.stft(audio, a.n_window, a.hop_size, window=win,
+        spec = torch.stft(audio, a.n_window, a.hop_size, window=win32,
                           center=True, pad_mode="reflect",
                           return_complex=True)
         return spec.abs().transpose(1, 2) @ fb_full
     library_ms = time_ms(library, 10)
 
-    bins = kb.fb.shape[0]
-    rem = a.n_window - 8 * a.hop_size
-    flops = B_SERVE * ((t + 8) * a.hop_size * 6 * bins * 2   # stage 1
-                       + t * bins * 8 * 6 * 2 * 2            # recombination
-                       + t * rem * 2 * bins * 2              # tail
-                       + t * bins * 4                        # |·|
-                       + t * bins * a.n_mels * 2)            # mel
-    consts = sum(c.numel() * 4 for c in kb)
-    nbytes = audio.numel() * 4 + got.numel() * 4 + consts
+    live = int((kb.bands[:, 0] + kb.bands[:, 1]).max())
+    nnz = kb.weights.numel()
+    frames = B_SERVE * t
+    flops = frames * (2.5 * a.n_window * math.log2(a.n_window)
+                      + 3 * live + 2 * nnz)
+    nbytes = audio.numel() * 4 + got.numel() * 4
     b_ms, b_by = bound(nbytes, {"float32": flops})
+    # the work of the block DFT the TPU kernel uses, kept for comparison
+    rem = a.n_window - 8 * a.hop_size
+    block_flops = B_SERVE * ((t + 8) * a.hop_size * 6 * live * 2
+                             + t * live * 8 * 6 * 2 * 2 + t * rem * 2 * live
+                             * 2 + t * live * 4 + t * live * a.n_mels * 2)
     return {"name": "mel_kernel", "route": "cuda",
             "source": "bsed_tpu_torch/csrc/mel_kernel.cu",
             "replaces": "bsed_tpu/ops/mel_kernel.py:304",
             "max_abs_err": err_lin, "max_abs_err_db": err_db,
+            "max_abs_err_db_vs_f64": err_gold_db,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms,
             "library_call": "torch.stft -> abs -> mel matmul",
-            "gflop_per_call": flops / 1e9, "mb_per_call": nbytes / 1e6}
+            "gflop_per_call": flops / 1e9, "mb_per_call": nbytes / 1e6,
+            "block_dft_gflop": block_flops / 1e9,
+            "filterbank_nnz": nnz, "live_bins": live}
 
 
 STEM_BLOCKS = ((0, 1255, 2, 16), (1, 627, 2, 32), (2, 313, 1, 64))
@@ -433,14 +463,33 @@ def fused_stem_path(torch, dev, card, profile_dir):
 GRU_T = 313                       # serving frames after the CNN
 
 
+def hoisted_glue(torch, rnn, x):
+    """The hoisted layer's work outside K4, as ``bigru_hoisted`` does it
+    for one layer: two projection matmuls + b_ih, flip, stack, then flip
+    and cat of an output of K4's shape."""
+    gru, cd = rnn.gru, rnn.dtype
+    x = x.to(cd)
+    ys2 = torch.zeros((2,) + x.shape[:2] + (gru.hidden_size,), device=x.device,
+                      dtype=cd)
+
+    def glue():
+        xps = [x @ getattr(gru, f"weight_ih_l0{s}").to(cd).T
+               + getattr(gru, f"bias_ih_l0{s}").to(cd)
+               for s in ("", "_reverse")]
+        torch.stack([xps[0], xps[1].flip(1)])
+        return torch.cat([ys2[0], ys2[1].flip(1)], dim=-1)
+    return glue
+
+
 def check_gru_kernel(torch, dev):
     """K4 at the serving shape (B=64, T=313, H=128): against its plain
     version (float32 1e-5; bfloat16 within 3e-2 of the float32 plain
     recurrence), a 2-layer BiGRU in the hoisted form + K4 against cuDNN's
-    nn.GRU on the same weights (float32, 1e-4); times of K4 per layer, of
-    one hoisted layer (projection matmul + K4) and of cuDNN's one-layer
-    bidirectional nn.GRU, in both dtypes. Launches are counted over the
-    timed K4 calls."""
+    nn.GRU on the same weights (float32, 1e-4); times of K4 per layer (and
+    per step), of one hoisted layer (projection matmul + K4), of that
+    layer's glue alone and of cuDNN's one-layer bidirectional nn.GRU, in
+    both dtypes, with the cluster shape (RB, C) and registers per thread.
+    Launches are counted over the timed K4 calls."""
     from bsed_tpu_torch.models.rnn import BidirectionalGRU, bigru_hoisted
     from bsed_tpu_torch.ops import gru_kernel as gk
 
@@ -463,10 +512,19 @@ def check_gru_kernel(torch, dev):
     with torch.no_grad():
         err_net = float((bigru_hoisted(rnn, x) - rnn(x)).abs().max())
     torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = gk.resident_clusters(dev)
+    rows, cluster = gk.cluster_shape(B_SERVE, sms, resident)
+    regs = {str(dt).split(".")[1]: gk.registers_per_thread(dt, rows)
+            for dt in (torch.float32, torch.bfloat16)}
     emit(phase="check_gru_kernel", shape=list(xp2.shape),
          max_abs_err_f32=err32, gate_f32=1e-5,
          max_abs_err_bf16_vs_f32=err16, gate_bf16=3e-2,
-         max_abs_err_2layer_vs_cudnn=err_net, gate_2layer=1e-4)
+         max_abs_err_2layer_vs_cudnn=err_net, gate_2layer=1e-4,
+         rows_per_cluster=rows, cluster=cluster,
+         blocks=2 * -(-B_SERVE // rows) * cluster, sms=sms,
+         resident_clusters=resident,
+         registers_per_thread=regs)
     assert err32 <= 1e-5, f"K4 float32 differs by {err32}"
     assert err16 <= 3e-2, f"K4 bfloat16 differs by {err16}"
     assert err_net <= 1e-4, f"hoisted BiGRU + K4 vs nn.GRU: {err_net}"
@@ -481,6 +539,7 @@ def check_gru_kernel(torch, dev):
             k = time_ms(lambda: gk.gru_bidir_recurrence(*a), 10)
             launches += gk.gru_bidir_recurrence.launches - n0
             hoisted = time_ms(lambda: bigru_hoisted(one, x), 10)
+            glue = time_ms(hoisted_glue(torch, one, x), 10)
             lib = time_ms(lambda: one(x), 10)
         plain = time_ms(lambda: gk.gru_bidir_recurrence_plain(*a), 3,
                         warmup=1)
@@ -492,25 +551,32 @@ def check_gru_kernel(torch, dev):
         ops = ({"float32": mm + ew} if dt is torch.float32
                else {"bfloat16": mm, "float32": ew})
         b_ms, b_by = bound(nbytes, ops)
-        res[name] = {"ms": k, "plain_ms": plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "hoisted_layer_ms": hoisted,
+        res[name] = {"ms": k, "us_per_step": k * 1e3 / GRU_T,
+                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                     "hoisted_layer_ms": hoisted, "glue_ms": glue,
                      "library_ms": lib}
     emit(phase="gru_kernel_times", batch=B_SERVE, frames=GRU_T,
-         per_layer=res, library_call="nn.GRU(128, 128, 1, "
-         "bidirectional=True) (cuDNN), projection included")
+         rows_per_cluster=rows, cluster=cluster, per_layer=res,
+         library_call="nn.GRU(128, 128, 1, bidirectional=True) (cuDNN), "
+         "projection included; like for like with hoisted_layer_ms")
     f32 = res["float32"]
     return {"name": "gru_kernel", "route": "cuda",
             "source": "bsed_tpu_torch/csrc/gru_kernel.cu",
             "replaces": "bsed_tpu/ops/gru_kernel.py:108",
             "max_abs_err": err32, "max_abs_err_bf16_vs_f32": err16,
-            "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+            "ms": f32["ms"], "us_per_step": f32["us_per_step"],
+            "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-            "library_ms": f32["library_ms"], "bf16": res["bfloat16"],
-            "launches": launches,
+            "library_ms": f32["library_ms"],
+            "hoisted_layer_ms": f32["hoisted_layer_ms"],
+            "glue_ms": f32["glue_ms"], "rows_per_cluster": rows,
+            "cluster": cluster, "registers_per_thread": regs,
+            "bf16": res["bfloat16"], "launches": launches,
             "times_are": "one layer, both directions, B=64, T=313, float32; "
                          "library_ms is cuDNN's one-layer bidirectional GRU "
-                         "with its input projection; the floor is 313 "
-                         "dependent steps, not the bound"}
+                         "with its input projection, to be set against "
+                         "hoisted_layer_ms; the floor is 313 dependent "
+                         "steps, not the bound"}
 
 
 PG_BLOCKS = ((3, 16), (4, 8), (5, 4), (6, 2))   # blocks 3-6: (block, G)

@@ -30,22 +30,35 @@ def dev():
     return torch.device("cuda")
 
 
-def test_mel_kernel_matches_plain(dev):
+@pytest.mark.parametrize("batch", [1, 3, 64])
+def test_mel_kernel_matches_plain(dev, batch):
+    """K1 against its plain version and a float64 torch.stft golden, 1e-3
+    dB; 2 s clips give T = 251 frames, not a multiple of the 8-frame
+    tile."""
     cfg = AudioConfig(max_len_seconds=2.0)
     fb = mel_filterbank(cfg.sr, cfg.n_window, cfg.n_mels, dtype=np.float64)
     kb = mel_kernel.build_mel_kernel_bases(cfg.n_window, cfg.hop_size, fb,
                                            device=dev)
     audio = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (3, cfg.n_samples)).astype(np.float32)).to(dev)
+        (batch, cfg.n_samples)).astype(np.float32)).to(dev)
     before = mel_kernel.fused_block_mel.launches
     got = mel_kernel.fused_block_mel(audio, kb, cfg.n_window, cfg.hop_size,
                                      cfg.n_mels)
     want = mel_kernel.fused_block_mel_plain(audio, kb, cfg.n_window,
                                             cfg.hop_size, cfg.n_mels)
+    spec = torch.stft(audio.double(), cfg.n_window, cfg.hop_size,
+                      window=torch.hamming_window(cfg.n_window,
+                                                  periodic=False,
+                                                  dtype=torch.float64,
+                                                  device=dev),
+                      center=True, pad_mode="reflect", return_complex=True)
+    gold = spec.abs().transpose(1, 2) @ torch.from_numpy(fb).to(dev)
     torch.cuda.synchronize()
     assert mel_kernel.fused_block_mel.launches == before + 1
-    diff = (mel.amplitude_to_db(got) - mel.amplitude_to_db(want)).abs()
-    assert float(diff.max()) < 1e-3                       # dB
+    assert got.shape == (batch, 251, cfg.n_mels)
+    db = mel.amplitude_to_db
+    assert float((db(got) - db(want)).abs().max()) < 1e-3          # dB
+    assert float((db(got.double()) - db(gold)).abs().max()) < 1e-3  # dB
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -169,14 +182,15 @@ def test_stem_kernel_matches_plain(dev, t):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("t", [77, 32])
-def test_gru_kernel_matches_plain(dev, t):
+@pytest.mark.parametrize("t", [1, 32, 313])
+@pytest.mark.parametrize("batch", [1, 5, 64])
+def test_gru_kernel_matches_plain(dev, batch, t):
     """K4 against its plain version: 1e-5 in float32; in bfloat16 within
     3e-2 of the float32 scan (tests/test_gru_kernel.py)."""
     rng = np.random.default_rng(8)
     g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
         np.float32)).to(dev)
-    xp2, w, bias = g(2, 5, t, 384), g(2, 384, 128) * 0.1, g(2, 384) * 0.1
+    xp2, w, bias = g(2, batch, t, 384), g(2, 384, 128) * 0.1, g(2, 384) * 0.1
     before = gru_kernel.gru_bidir_recurrence.launches
     got = gru_kernel.gru_bidir_recurrence(xp2, w, bias)
     want = gru_kernel.gru_bidir_recurrence_plain(xp2, w, bias)
@@ -185,7 +199,7 @@ def test_gru_kernel_matches_plain(dev, t):
                                             bias.bfloat16())
     torch.cuda.synchronize()
     assert gru_kernel.gru_bidir_recurrence.launches == before + 2
-    assert got.shape == (2, 5, t, 128) and got16.dtype == torch.bfloat16
+    assert got.shape == (2, batch, t, 128) and got16.dtype == torch.bfloat16
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got, scan, rtol=1e-5, atol=1e-5)
     assert float((got16.float() - scan).abs().max()) <= 3e-2

@@ -99,7 +99,25 @@ def test_hoisted_bigru_matches_jax_and_nn_gru(use_kernel):
 
 
 def test_rows_per_block_fills_one_wave():
-    assert gru_kernel.rows_per_block(64, 132) == 1
-    assert gru_kernel.rows_per_block(72, 132) == 2
-    assert gru_kernel.rows_per_block(8, 132) == 1
-    assert gru_kernel.rows_per_block(1000, 132) == 4
+    """K4's (RB, C) helper: the fewest batch rows per cluster of 2 blocks
+    that run both directions in one wave of 132 SMs (66 clusters); past 8
+    rows the launch takes several waves."""
+    assert gru_kernel.cluster_shape(1, 132) == (1, 2)
+    assert gru_kernel.cluster_shape(5, 132) == (1, 2)
+    assert gru_kernel.cluster_shape(8, 132) == (1, 2)
+    assert gru_kernel.cluster_shape(64, 132) == (2, 2)
+    assert gru_kernel.cluster_shape(72, 132) == (4, 2)
+    assert gru_kernel.cluster_shape(128, 132) == (4, 2)
+    assert gru_kernel.cluster_shape(1000, 132) == (8, 2)
+    # a card whose GPCs hold fewer clusters than sms // C
+    assert gru_kernel.cluster_shape(64, 132, clusters=60) == (4, 2)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 64, 128])
+def test_cluster_shape_fills_one_wave(batch):
+    rows, cluster = gru_kernel.cluster_shape(batch, 132)
+    clusters = 2 * -(-batch // rows)
+    assert cluster == gru_kernel.CLUSTER and rows in (1, 2, 4, 8)
+    assert clusters * cluster <= 132
+    if rows > 1:                     # no fewer rows would fit
+        assert 2 * -(-batch // (rows // 2)) * cluster > 132

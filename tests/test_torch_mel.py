@@ -64,7 +64,9 @@ def test_block_kernel_linear_mel_matches_dense(audio):
     fb = mel_filterbank(CFG.sr, CFG.n_window, CFG.n_mels, dtype=np.float64)
     kb = mel_kernel.build_mel_kernel_bases(CFG.n_window, CFG.hop_size, fb,
                                            device="cpu")
-    assert kb.fb.shape[0] == 1024          # live bins, a multiple of 32
+    # the bands end at bin 1023: the Nyquist bin is never read
+    assert int((kb.bands[:, 0] + kb.bands[:, 1]).max()) == 1024
+    assert kb.weights.numel() == 2016 == int(np.count_nonzero(fb))
     x = torch.from_numpy(audio)
     before = mel_kernel.fused_block_mel.launches
     got = mel_kernel.fused_block_mel(x, kb, CFG.n_window, CFG.hop_size,
@@ -108,3 +110,79 @@ def test_kernel_geometry_guards():
         mel_kernel.build_mel_kernel_bases(2048, 160, fb, device="cpu")
     assert mel_kernel.supports(2048, 255, 128)
     assert not mel_kernel.supports(2048, 255, 130)
+
+
+def test_kernel_refuses_non_power_of_two_window():
+    """The FFT needs N a power of two; N=2000, H=230 passes the rest of the
+    JAX kernel's envelope (N//H == 8, N % H != 0, H < 256), so only the FFT
+    condition refuses it."""
+    assert 2000 // 230 == 8 and 2000 % 230
+    with pytest.raises(ValueError, match="power of two"):
+        mel_kernel.check_geometry(2000, 230, 128)
+    assert not mel_kernel.supports(2000, 230, 128)
+    fb = mel_filterbank(n_fft=2000)
+    with pytest.raises(ValueError, match="power of two"):
+        mel_kernel.build_mel_kernel_bases(2000, 230, fb, device="cpu")
+
+
+GEOMETRIES = [(2048, 255, 128), (1024, 127, 128), (512, 63, 64),
+              (256, 31, 32)]
+
+
+@pytest.mark.parametrize("n_window,hop,n_mels", GEOMETRIES)
+def test_band_table_rebuilds_dense_filterbank(n_window, hop, n_mels):
+    """Scattering the band weights back gives the float32 dense filterbank
+    bit for bit."""
+    fb = mel_filterbank(CFG.sr, n_window, n_mels, dtype=np.float64)
+    kb = mel_kernel.build_mel_kernel_bases(n_window, hop, fb, device="cpu")
+    assert kb.bands.dtype == torch.int32 and kb.bands.shape == (n_mels, 3)
+    dense = np.zeros(fb.shape, np.float32)
+    w = kb.weights.numpy()
+    for m, (start, length, off) in enumerate(kb.bands.numpy()):
+        dense[start:start + length, m] = w[off:off + length]
+    np.testing.assert_array_equal(dense, fb.astype(np.float32))
+    assert int(kb.bands[-1, 2] + kb.bands[-1, 1]) == w.size
+
+
+@pytest.mark.parametrize("n_window,hop,n_mels", GEOMETRIES)
+def test_twiddle_and_window_tables_match_float64(n_window, hop, n_mels):
+    """W_N^q for q < M, then the four-step W_M^{j·k1} at M + k1·Q + j, and
+    the symmetric Hamming window: float64 numpy rounded once to float32."""
+    fb = mel_filterbank(CFG.sr, n_window, n_mels, dtype=np.float64)
+    kb = mel_kernel.build_mel_kernel_bases(n_window, hop, fb, device="cpu")
+    m = n_window // 2
+    p, q = mel_kernel.fft_split(n_window)
+    assert p * q == m and q <= p <= 2 * q
+    want = np.exp(-2j * np.pi * np.arange(m) / n_window)
+    k1, j = np.arange(p)[:, None], np.arange(q)[None, :]
+    want = np.concatenate([want, np.exp(-2j * np.pi * k1 * j / m).ravel()])
+    tw = kb.twiddle.numpy()
+    assert tw.shape == (n_window, 2) and tw.dtype == np.float32
+    np.testing.assert_array_equal(tw[:, 0], want.real.astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], want.imag.astype(np.float32))
+    np.testing.assert_array_equal(kb.window.numpy(),
+                                  np.hamming(n_window).astype(np.float32))
+
+
+@pytest.mark.parametrize("n_window,hop,n_mels", GEOMETRIES)
+def test_kernel_plain_matches_float64_stft(n_window, hop, n_mels):
+    """K1's plain version (packing, M-point FFT, split step, bands) against
+    torch.stft in float64 and the float64 filterbank, with a clip length
+    whose frame count is not a multiple of the kernel's 8-frame tile."""
+    rng = np.random.default_rng(3)
+    n = 13 * hop + 5                       # T = 14 frames
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    fb = mel_filterbank(CFG.sr, n_window, n_mels, dtype=np.float64)
+    kb = mel_kernel.build_mel_kernel_bases(n_window, hop, fb, device="cpu")
+    got = mel_kernel.fused_block_mel(torch.from_numpy(x), kb, n_window, hop,
+                                     n_mels)
+    spec = torch.stft(torch.from_numpy(x).double(), n_window, hop,
+                      window=torch.hamming_window(n_window, periodic=False,
+                                                  dtype=torch.float64),
+                      center=True, pad_mode="reflect", return_complex=True)
+    want = spec.abs().transpose(1, 2) @ torch.from_numpy(fb)
+    assert got.shape == want.shape == (2, 14, n_mels)
+    db = lambda a: mel.amplitude_to_db(a.double())        # noqa: E731
+    assert float((db(got) - db(want)).abs().max()) < 1e-3
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-6 * float(want.max()))
