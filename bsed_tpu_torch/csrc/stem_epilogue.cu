@@ -1,12 +1,14 @@
-// Kernel K2: folded-stem epilogue, forward (sm_90a, float32 FMA).
+// Kernel K2: folded-stem epilogue, forward (sm_90a). The bfloat16 lane-pool
+// form runs on the tensor cores (wgmma), the rest in float32 FMA.
 //
 // Replaces the TPU kernel bsed_tpu/ops/stem_epilogue.py:make_fused_epilogue
 // (_run_fwd, body _fwd_kernel) in both frequency-pool forms, each in its
 // serving form (no dropout) and its train form (uint8 dropout bits): the
-// pool_w lane pool of the folded blocks (epilogue_kernel) and the group
-// pool pg of standard-layout blocks (epilogue_pg_kernel, below). Wrapper
-// and plain version: bsed_tpu_torch/ops/stem_epilogue.py; the backward is
-// kernel K3, csrc/stem_epilogue_bwd.cu.
+// pool_w lane pool of the folded blocks (epilogue_mma_kernel,
+// epilogue_kernel) and the group pool pg of standard-layout blocks
+// (epilogue_pg_kernel, below). Wrapper and plain version:
+// bsed_tpu_torch/ops/stem_epilogue.py; the backward is kernel K3,
+// csrc/stem_epilogue_bwd.cu.
 //
 // Per row (t, g) of h (B, T, 16, 128) and lane l:
 //   y   = h * inv[l] + c[l]                          (f32)
@@ -19,17 +21,38 @@
 // Elementwise math in f32; matmul operands rounded to the input dtype, as
 // the TPU kernel feeds its MXU; output in the input dtype.
 //
-// Bound on the H100: device memory for the work itself (h read once, the
-// pooled output written once: ~0.74 GB per batch-64 forward in bf16), but
-// this first kernel does its 128x128 product in f32 FMA, which costs more
-// than the bytes. Design: persistent blocks (two per SM) load w once into
-// shared memory, then walk over panels of 4 time rows x 16 groups x 128
-// lanes; the panel is one contiguous stretch of h, loaded coalesced. Each
-// thread owns 4 time rows of one group and the 8 lanes that pool into 4
-// output lanes, so both pools happen in registers and the output is written
-// once. Panel rows past the valid time range are zero-filled and never
-// stored. The train form reads the dropout bits of a thread's 8 lanes as
-// two 4-byte words (bits has h's layout, one byte per element).
+// Bound on the H100: device memory (h and the bits read once, the pooled
+// output written once: ~0.74 GB per batch-64 forward in bf16). All bodies
+// are persistent blocks, two per SM, that hold w in shared memory and walk
+// over panels of 64 contiguous rows (4 time rows x 16 groups) x 128 lanes.
+//
+// bfloat16 body (epilogue_mma_kernel; the lane pool with pc >= 8, which
+// is every folded block of the model), 8 warps = two warpgroups:
+//   * h and the bits arrive raw through a 2-deep cp.async ring, 16 bytes a
+//     thread, so h is read once and the next panel loads while this one
+//     computes; w sits in shared memory as bf16 in the core-matrix layout
+//     (stem_common.cuh), its columns permuted in blocks of 8 so that the
+//     64 contiguous columns of warpgroup nh are the four 8-lane blocks
+//     that pool into output lanes 32 nh .. 32 nh + 31 and then their
+//     partners pc lanes further.
+//   * Warp mb of a warpgroup owns m16 tile mb of the panel (fragment rows,
+//     see panel_row in stem_common.cuh). It forms the A fragments of
+//     bf16(y) in registers from the staged h, and lin = bf16(y) @ w is one
+//     chain of eight wgmma.m64n64k16 a warpgroup, each k-block issued as
+//     soon as its fragments exist; the gate runs at the accumulator
+//     positions with y recomputed in f32 there.
+//   * Both pools happen in registers: a thread's two fragment rows are the
+//     time pair (t, g), (t + 1, g) when pt = 2, and a lane and its partner
+//     are two n-blocks of the same thread. The output panel leaves
+//     through shared memory as 16-byte stores.
+//   Shared memory 96,768 bytes (MMA_SMEM), 128 registers a thread: two
+//   blocks an SM.
+// float32 body (epilogue_kernel; also bf16 with pc = 4, where a lane pair
+// falls inside one 8-column block): FMA products. Each thread owns 4 time
+// rows of one group and the 8 lanes that pool into 4 output lanes; the
+// panel's round_dt(y) sits in shared memory in f32, h is read a second
+// time for the gate, and the bits of a thread's 8 lanes come as two
+// 4-byte words.
 #include "stem_common.cuh"
 
 namespace {
@@ -154,6 +177,203 @@ epilogue_kernel(const T* __restrict__ h, const float* __restrict__ inv,
         o[j] = 0.5f * round_dt<T>(za) + 0.5f * round_dt<T>(zb);
       }
       store4(out + (((size_t)bi * Tout + to) * G + g) * L2 + cg * 4, o);
+    }
+  }
+}
+
+// Shared memory of the bf16 body: w, inv / c / b, two stages of (h, bits)
+// and the output panel (64-lane rows, 144-byte stride).
+constexpr int M_VEC = W_BYTES;
+constexpr int M_STAGE = M_VEC + 3 * L * 4;
+constexpr int STAGE_BYTES = STAGE_H + STAGE_BITS;
+constexpr int M_OUT = M_STAGE + 2 * STAGE_BYTES;
+constexpr int MMA_SMEM = M_OUT + ROWS * BSB;
+
+template <bool GLU, int PT, bool DROP>
+__global__ void __launch_bounds__(NT, 2)
+epilogue_mma_kernel(const __nv_bfloat16* __restrict__ h,
+                    const float* __restrict__ inv,
+                    const float* __restrict__ cvec,
+                    const __nv_bfloat16* __restrict__ w,
+                    const float* __restrict__ bvec,
+                    const unsigned char* __restrict__ bits, int keep_k,
+                    __nv_bfloat16* __restrict__ out, int B, int Tin, int Tout,
+                    int pc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // warpgroup nh owns output lanes 32 nh .. + 31; its warp mb the m16
+  // tile mb
+  const int mb = warp % 4, nh = warp / 4;
+  const int pcs = log2i(pc);
+
+  // first input lane of the 8-lane block that pools into output lanes
+  // o0 .. o0 + 7 (its partner block is pc lanes further)
+  auto in_col = [&](int o0) {
+    return ((o0 >> pcs) << (pcs + 1)) + (o0 & (pc - 1));
+  };
+  // w with its columns permuted in blocks of 8: shared column block
+  // 8 nh' + v holds, for v < 4, the block that pools into output lanes
+  // (4 nh' + v) * 8 .., and for v >= 4 the partner of block v - 4, so a
+  // warpgroup's 64 contiguous columns are its eight n-blocks
+  for (int c = tid; c < L * 16; c += NT) {
+    const int k = c >> 4, sb = c & 15, v = sb & 7;
+    const int src = in_col((4 * (sb >> 3) + (v & 3)) * 8) + (v >= 4 ? pc : 0);
+    *reinterpret_cast<uint4*>(smem + blocked(k, sb * 8)) =
+        *reinterpret_cast<const uint4*>(w + k * L + src);
+  }
+  float* vec = reinterpret_cast<float*>(smem + M_VEC);
+  for (int i = tid; i < L; i += NT) {
+    vec[i] = inv[i];
+    vec[L + i] = cvec[i];
+    vec[2 * L + i] = bvec[i];
+  }
+  fence_async_proxy();           // w is read by wgmma after the first barrier
+  const float2* inv2 = reinterpret_cast<const float2*>(vec);
+  const float2* c2 = inv2 + L / 2;
+  const float2* b2 = inv2 + L;
+
+  constexpr int TRO = TRI / PT;                  // output rows per panel
+  const int tiles_t = (Tout + TRO - 1) / TRO;
+  const int ntiles = B * tiles_t;
+  const float keep_scale = DROP ? 256.f / (float)keep_k : 1.f;
+
+  int prow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) prow[r] = panel_row(mb * 16 + g + 8 * r, PT, G);
+  const uint32_t w_s = smem_addr(smem);
+  unsigned char* outp = smem + M_OUT;
+
+  auto load_panel = [&](int tile, int stage) {
+    unsigned char* st = smem + M_STAGE + stage * STAGE_BYTES;
+    const int bi = tile / tiles_t;
+    const int ti0 = (tile % tiles_t) * TRI;
+    const size_t base = ((size_t)bi * Tin + ti0) * G * L;
+    for (int c = tid; c < ROWS * 16; c += NT) {
+      const int row = c >> 4, ch = c & 15;
+      if (ti0 + row / G < Tin)
+        cp_async16(st + row * TSB + ch * 16, h + base + row * L + ch * 8);
+    }
+    if constexpr (DROP) {
+      for (int c = tid; c < ROWS * 8; c += NT) {
+        const int row = c >> 3, ch = c & 7;
+        if (ti0 + row / G < Tin)
+          cp_async16(st + STAGE_H + row * BSB + ch * 16,
+                     bits + base + row * L + ch * 16);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (blockIdx.x < ntiles) load_panel(blockIdx.x, 0);
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, stage ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();             // this panel landed; the last one is out
+    if (tile + gridDim.x < ntiles) load_panel(tile + gridDim.x, stage ^ 1);
+
+    const unsigned char* st = smem + M_STAGE + stage * STAGE_BYTES;
+    const int bi = tile / tiles_t;
+    const int to0 = (tile % tiles_t) * TRO;
+    const uint32_t* hrow[2] = {
+        reinterpret_cast<const uint32_t*>(st + prow[0] * TSB),
+        reinterpret_cast<const uint32_t*>(st + prow[1] * TSB)};
+
+    // lin = bf16(y) @ w: A fragments formed from the staged h, B = the
+    // permuted w as an MN-major operand (K along its rows); accumulator
+    // n-block v < 4 is the warpgroup's output block v, v >= 4 its partner
+    // each k-block's wgmma is issued as soon as its fragments exist, so
+    // the tensor cores run under the forming of the next ones
+    uint32_t a[8][4];
+    float acc[8][4] = {};
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int cp = kb * 8 + half * 4 + t;    // column pair index
+        const float2 iv = inv2[cp], cv = c2[cp];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 hv = unpack_bf16(hrow[r][cp]);
+          a[kb][half * 2 + r] = pack_bf16(fmaf(hv.x, iv.x, cv.x),
+                                          fmaf(hv.y, iv.y, cv.y));
+        }
+      }
+      wgmma_n64_reg_mn(acc, a[kb], desc_mn_major(w_s + 2 * kb * BLK_ROW +
+                                                 8 * nh * BLK_COL));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // gate and dropout at the accumulator positions in f32, then both
+    // pools in registers: n-block ob and its partner ob + 4, rows r = 0, 1
+#pragma unroll
+    for (int ob = 0; ob < 4; ++ob) {
+      const int o0 = (4 * nh + ob) * 8;          // first output lane
+      float z[2][2][2];                          // [partner][row][lane]
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int col = in_col(o0) + p * pc + 2 * t;
+        const int cp = col / 2;
+        const float2 iv = inv2[cp], cv = c2[cp], bv = b2[cp];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 hv = unpack_bf16(hrow[r][cp]);
+          const float y[2] = {fmaf(hv.x, iv.x, cv.x),
+                              fmaf(hv.y, iv.y, cv.y)};
+          const float lin[2] = {acc[ob + 4 * p][2 * r] + bv.x,
+                                acc[ob + 4 * p][2 * r + 1] + bv.y};
+          unsigned int kb2 = 0;
+          if constexpr (DROP)
+            kb2 = *reinterpret_cast<const unsigned short*>(
+                st + STAGE_H + prow[r] * BSB + col);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float zz = GLU ? lin[e] * sigmoid_fast(y[e])
+                           : y[e] * sigmoid_fast(lin[e]);
+            if constexpr (DROP)
+              zz = (int)((kb2 >> (8 * e)) & 0xffu) < keep_k ? zz * keep_scale
+                                                            : 0.f;
+            z[p][r][e] = zz;
+          }
+        }
+      }
+      if constexpr (PT == 2) {
+        // rows r = 0, 1 are (2 tp, gi), (2 tp + 1, gi): output row tp
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float za = (z[0][0][e] + z[0][1][e]) * 0.5f;
+          const float zb = (z[1][0][e] + z[1][1][e]) * 0.5f;
+          o[e] = 0.5f * round_dt<__nv_bfloat16>(za) +
+                 0.5f * round_dt<__nv_bfloat16>(zb);
+        }
+        const int orow = (prow[0] / (2 * G)) * G + prow[0] % G;
+        *reinterpret_cast<uint32_t*>(outp + orow * BSB + (o0 + 2 * t) * 2) =
+            pack_bf16(o[0], o[1]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float o[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            o[e] = 0.5f * round_dt<__nv_bfloat16>(z[0][r][e]) +
+                   0.5f * round_dt<__nv_bfloat16>(z[1][r][e]);
+          *reinterpret_cast<uint32_t*>(outp + prow[r] * BSB +
+                                       (o0 + 2 * t) * 2) =
+              pack_bf16(o[0], o[1]);
+        }
+      }
+    }
+    __syncthreads();             // the output panel is whole
+
+    __nv_bfloat16* dst = out + ((size_t)bi * Tout + to0) * G * L2;
+    for (int c = tid; c < TRO * G * 8; c += NT) {
+      const int row = c >> 3, ch = c & 7;
+      if (to0 + row / G < Tout)
+        *reinterpret_cast<uint4*>(dst + row * L2 + ch * 8) =
+            *reinterpret_cast<const uint4*>(outp + row * BSB + ch * 16);
     }
   }
 }
@@ -330,6 +550,26 @@ int launch(const FwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The bfloat16 lane pool with pc >= 8: the tensor-core body.
+template <bool GLU, int PT, bool DROP>
+int launch_mma(const FwdArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaFuncSetAttribute(epilogue_mma_kernel<GLU, PT, DROP>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         MMA_SMEM);
+    configured = true;
+  }
+  constexpr int TRO = TRI / PT;
+  const int grid = grid_size((long)a.B * ((a.Tout + TRO - 1) / TRO));
+  if (grid > 0)
+    epilogue_mma_kernel<GLU, PT, DROP><<<grid, NT, MMA_SMEM, stream>>>(
+        static_cast<const __nv_bfloat16*>(a.h), a.inv, a.c,
+        static_cast<const __nv_bfloat16*>(a.w), a.b, a.bits, a.keep_k,
+        static_cast<__nv_bfloat16*>(a.out), a.B, a.Tin, a.Tout, a.pc);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool GLU, int PT, int PG, bool DROP>
 int launch_pg(const FwdArgs& a, cudaStream_t stream) {
   static bool configured = false;
@@ -353,6 +593,8 @@ int launch_pg(const FwdArgs& a, cudaStream_t stream) {
 // runtime form -> template instance
 template <typename T, bool GLU, int PT, bool DROP>
 int run_form(const FwdArgs& a, cudaStream_t st) {
+  if constexpr (sizeof(T) == 2)
+    if (a.pc >= 8) return launch_mma<GLU, PT, DROP>(a, st);
   if (a.pc > 0) return launch<T, GLU, PT, DROP>(a, st);
   if (a.pg == 2) return launch_pg<T, GLU, PT, 2, DROP>(a, st);
   return launch_pg<T, GLU, PT, 1, DROP>(a, st);
@@ -372,6 +614,12 @@ int run_act(const FwdArgs& a, int act, int pt, cudaStream_t st) {
 }
 
 }  // namespace
+
+// Dynamic shared memory of one block of the lane-pool form, by dtype
+// (0 = float32, 1 = bfloat16).
+extern "C" int bsed_stem_epilogue_smem_bytes(int dtype) {
+  return dtype == 1 ? MMA_SMEM : (int)sizeof(Smem);
+}
 
 // h: (B, Tin, G, 128); w: (128, 128), both in the input dtype
 // (0 = float32, 1 = bfloat16); inv, c, b: (128,) float32. act: 0 = GLU,

@@ -1,4 +1,5 @@
-// Kernel K3: folded-stem epilogue, backward (sm_90a, float32 FMA).
+// Kernel K3: folded-stem epilogue, backward (sm_90a). bfloat16 runs on the
+// tensor cores (wgmma), float32 in FMA.
 //
 // Replaces the TPU kernel bsed_tpu/ops/stem_epilogue.py:make_fused_epilogue
 // (_run_bwd, body _bwd_kernel) for both frequency pools, the pool_w lane
@@ -25,16 +26,60 @@
 // writes them to a workspace, and a second kernel adds the partials in
 // block order. No float atomics, so two runs give the same bits.
 //
-// Bound on the H100: the three 128 x 128 products per row (lin, dlin @ w^T,
-// y^T dlin), which this first kernel runs in f32 FMA; the bytes (gz, h, bits
-// read once, dh written once) take less. Design: persistent blocks, one per
-// SM (132 KB of shared memory: w with a padded row stride so both w and
-// w^T reads are conflict-free, and the panel's y and dlin in f32). A panel
-// is 64 contiguous rows (t, g), g fastest: 4 time rows of the folded
-// blocks' 16 groups, 64 / G time rows in the group-pool form, which takes
-// every G | 64; each row reads its own cotangent, so a panel need not hold
-// whole pooling groups. A thread owns 4 panel rows x 8 lanes for the row
-// products and an 8 x 8 tile of dW.
+// Bound on the H100: the bytes (gz, h and bits read once, dh written once),
+// once the three 128 x 128 products per row run on the tensor cores. Both
+// bodies are persistent blocks, one per SM, over panels of 64 contiguous
+// rows (t, g), g fastest: 4 time rows of the folded blocks' 16 groups,
+// 64 / G time rows in the group-pool form, which takes every G | 64; each
+// row reads its own cotangent, so a panel need not hold whole pooling
+// groups.
+//
+// bfloat16 body (epilogue_bwd_mma_kernel; every bf16 form), 8 warps = two
+// warpgroups; warpgroup nh owns columns 64 nh .. + 63 of the row products,
+// its warp mb the m16 tile mb of the panel (fragment rows, see panel_row):
+//   * w sits in shared memory once per block as bf16 in the core-matrix
+//     layout (stem_common.cuh): lin reads it as an MN-major operand, w^T
+//     is the same tile read K-major. No second copy.
+//   * h, bits and gz panels arrive through a 2-deep cp.async ring, 16
+//     bytes a thread: the next panel loads while this one computes. h rows
+//     that do not count are zero-filled as they are staged, so a NaN
+//     there never reaches a product, and their cotangent is masked.
+//   * lin = bf16(y) @ w is one chain of eight wgmma.m64n64k16 a warpgroup,
+//     its A fragments formed in registers from the staged h and each
+//     k-block issued as soon as it exists. The gate runs at the
+//     accumulator positions with y recomputed in f32 there; the
+//     accumulators then hold the elementwise part of dy, and the second
+//     chain dy += bf16(dlin) @ w^T accumulates onto them (A = the dlin hi
+//     tile, written by both warpgroups, so one barrier stands between).
+//   * dW keeps float32-grade operands on the tensor cores without a y
+//     tile: y = h inv + c per lane, so y^T dlin = inv (h^T dlin) + c db^T,
+//     and h is exact in bf16. The staged h panel (a core-matrix tile in
+//     fragment-row order, its rows that do not count zero-filled) is the
+//     A operand as it lies; dlin is split as hi = bf16(x), lo =
+//     bf16(x - hi) into two shared tiles, and h^T dl + h^T dh runs as two
+//     wgmma.m64n128k16 a 16-row step, both operands transposed by their
+//     descriptors, f32 accumulation; warpgroup nh keeps rows 64 nh .. + 63
+//     in registers (64 a thread) over all its panels, and the second
+//     kernel applies inv and c db^T after the sum over blocks. The chain
+//     runs asynchronously under the threads' dh and reduction work. Error
+//     budget: bf16 keeps 8 significant bits, so |x - hi| <= 2^-8 |x| and
+//     |x - hi - lo| <= 2^-16 |x|: every term of h^T dlin is within 2^-16
+//     relative (1.5e-5) of the f32-operand product, against 2^-8 for one
+//     pass on bf16(dlin); tests/test_torch_stem_epilogue_train.py holds
+//     the whole dW, f32 accumulation included, to 2^-15.
+//   * dinv, dc and db are per-thread partials, reduced over the fragment's
+//     row lanes by shuffles in a fixed order, then over the four row warps
+//     in order.
+//   Measured and not kept (slower on the H100): mma.sync m16n8k16 fed by
+//   ldmatrix in 8 or 16 warps (shared-memory bandwidth of the fragment
+//   loads), dh staged for 16-byte stores (one more barrier), and a third
+//   warpgroup that loads the panels and keeps h^T dlin.
+//   Shared memory 153,088 bytes (MMA_SMEM), 255 registers a thread: one
+//   block an SM.
+// float32 body (epilogue_bwd_kernel; every f32 form): FMA products on
+// unrounded operands (TF32 would break the 2e-4 gradient gates); w with a
+// padded row stride and the panel's y and dlin in f32 in shared memory
+// (132 KB); a thread owns 4 panel rows x 8 lanes and an 8 x 8 tile of dW.
 #include "stem_common.cuh"
 
 namespace {
@@ -237,8 +282,312 @@ epilogue_bwd_kernel(const T* __restrict__ gz, const T* __restrict__ h,
       out[(rg + 16 * i) * L + cg + 16 * j] = dw[i][j];
 }
 
-// Second stage: add the per-block partials in block order.
+// Shared memory of the bf16 body: w and the dlin hi / lo tiles in the
+// core-matrix layout, inv / c / b, and two stages of (h as a core-matrix
+// tile in fragment-row order, raw gz, raw bits).
+constexpr int M_TILES = W_BYTES;                       // dlin hi, dlin lo
+constexpr int M_VEC = M_TILES + 2 * TILE_BYTES;        // inv, c, b (f32)
+constexpr int M_STAGE = M_VEC + 3 * L * 4;
+constexpr int S_GZ = TILE_BYTES;                       // within a stage
+constexpr int S_BITS = TILE_BYTES + STAGE_H;
+constexpr int STAGE_BYTES = TILE_BYTES + STAGE_H + STAGE_BITS;
+constexpr int MMA_SMEM = M_STAGE + 2 * STAGE_BYTES;
+
+template <bool GLU, int PT, bool DROP, bool LANE>
+__global__ void __launch_bounds__(NT, 1)
+epilogue_bwd_mma_kernel(const __nv_bfloat16* __restrict__ gz,
+                        const __nv_bfloat16* __restrict__ h,
+                        const float* __restrict__ inv,
+                        const float* __restrict__ cvec,
+                        const __nv_bfloat16* __restrict__ w,
+                        const float* __restrict__ bvec,
+                        const unsigned char* __restrict__ bits, int keep_k,
+                        __nv_bfloat16* __restrict__ dh,
+                        float* __restrict__ part, int B, int Tin, int Tout,
+                        int pc, int Gn, int pg) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // warpgroup nh owns columns 64 nh .. + 63 of the row products and rows
+  // 64 nh .. + 63 of dW; its warp mb owns the m16 tile mb
+  const int mb = warp % 4, nh = warp / 4;
+
+  for (int c = tid; c < L * 16; c += NT)
+    *reinterpret_cast<uint4*>(smem + blocked(c >> 4, (c & 15) * 8)) =
+        *reinterpret_cast<const uint4*>(w + (c >> 4) * L + (c & 15) * 8);
+  float* vec = reinterpret_cast<float*>(smem + M_VEC);
+  for (int i = tid; i < L; i += NT) {
+    vec[i] = inv[i];
+    vec[L + i] = cvec[i];
+    vec[2 * L + i] = bvec[i];
+  }
+  fence_async_proxy();           // w is read by wgmma after the first barrier
+  const float2* inv2 = reinterpret_cast<const float2*>(vec);
+  const float2* c2 = inv2 + L / 2;
+  const float2* b2 = inv2 + L;
+
+  const int gr = LANE ? G : Gn;                  // groups
+  const int grs = log2i(gr);
+  const int tp = ROWS >> grs;                    // time rows per panel
+  const int tro = tp / PT;                       // output rows per panel
+  const int gout = LANE ? G : gr / pg;           // gz: (B, Tout, gout, lout)
+  const int gos = log2i(gout);
+  const int lout = LANE ? L2 : L;
+  const int gzsb = LANE ? BSB : TSB;             // staged gz row stride
+  const int cprs = LANE ? 3 : 4;                 // log2(16-byte chunks a row)
+  const int pcs = LANE ? log2i(pc) : 0;
+  const int tiles_t = (Tout + tro - 1) / tro;
+  const int ntiles = B * tiles_t;
+  const int tv = Tout * PT;                      // input rows that count
+  // the pools' weight times the dropout scale 256 / k
+  const float gscale = (LANE ? 0.5f / (float)PT : 1.f / (float)(PT * pg)) *
+                       (DROP ? 256.f / (float)keep_k : 1.f);
+
+  // this thread's two fragment rows: panel row, its time row, staged gz
+  // row and the row's offset in the staged h tile
+  int prow[2], tl[2], gzoff[2], hoff[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    prow[r] = panel_row(mb * 16 + g + 8 * r, PT, gr);
+    tl[r] = prow[r] >> grs;
+    const int gi = prow[r] & (gr - 1);
+    gzoff[r] = ((tl[r] / PT) * gout + (LANE ? gi : gi / pg)) * gzsb;
+    hoff[r] = blocked(mb * 16 + g + 8 * r, 0);
+  }
+  unsigned char* tiles = smem + M_TILES;
+  const uint32_t w_s = smem_addr(smem);
+  const uint32_t tiles_s = smem_addr(tiles);
+
+  auto load_panel = [&](int tile, int stage) {
+    unsigned char* st = smem + M_STAGE + stage * STAGE_BYTES;
+    const int bi = tile / tiles_t;
+    const int ti0 = (tile % tiles_t) * tp;
+    const size_t base = ((size_t)bi * Tin + ti0) * gr * L;
+    // h lands as a core-matrix tile in fragment-row order; rows that do
+    // not count (the dropped odd row, the ragged end) are zero-filled
+    for (int c = tid; c < ROWS * 16; c += NT) {
+      const int row = c >> 4, ch = c & 15;
+      unsigned char* dst = st + blocked(fragment_row(row, PT, gr), ch * 8);
+      if (ti0 + (row >> grs) < tv)
+        cp_async16(dst, h + base + row * L + ch * 8);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if constexpr (DROP) {
+      for (int c = tid; c < ROWS * 8; c += NT) {
+        const int row = c >> 3, ch = c & 7;
+        if (ti0 + (row >> grs) < Tin)
+          cp_async16(st + S_BITS + row * BSB + ch * 16,
+                     bits + base + row * L + ch * 16);
+      }
+    }
+    const int to0 = ti0 / PT;
+    const size_t gzbase = ((size_t)bi * Tout + to0) * gout * lout;
+    for (int c = tid; c < ((tro * gout) << cprs); c += NT) {
+      const int row = c >> cprs, ch = c & ((1 << cprs) - 1);
+      if (to0 + (row >> gos) < Tout)
+        cp_async16(st + S_GZ + row * gzsb + ch * 16,
+                   gz + gzbase + (size_t)row * lout + ch * 8);
+    }
+    cp_async_commit();
+  };
+
+  float dw[16][4] = {};                          // rows of h^T dlin
+  float dinv_acc[8][2] = {}, dc_acc[8][2] = {}, db_acc[8][2] = {};
+
+  if (blockIdx.x < ntiles) load_panel(blockIdx.x, 0);
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, stage ^= 1) {
+    cp_async_wait_all();
+    wgmma_wait<0>();             // the last panel's dW has read its tiles
+    __syncthreads();             // this panel landed; the last one is done
+    if (tile + gridDim.x < ntiles) load_panel(tile + gridDim.x, stage ^ 1);
+
+    const unsigned char* st = smem + M_STAGE + stage * STAGE_BYTES;
+    const int bi = tile / tiles_t;
+    const int ti0 = (tile % tiles_t) * tp;
+    const size_t base = ((size_t)bi * Tin + ti0) * gr * L;
+    const bool valid[2] = {ti0 + tl[0] < tv, ti0 + tl[1] < tv};
+    const uint32_t st_s = smem_addr(st);
+    // staged h of this thread's rows: column pair cp is bf16 pair
+    // hpair(r, cp)
+    auto hpair = [&](int r, int cp) {
+      return unpack_bf16(*reinterpret_cast<const uint32_t*>(
+          st + hoff[r] + (cp >> 2) * BLK_COL + (cp & 3) * 4));
+    };
+
+    // lin = bf16(y) @ w: A fragments formed from the staged h, B = w as
+    // an MN-major operand (K along its rows)
+    // each k-block's wgmma is issued as soon as its fragments exist, so
+    // the tensor cores run under the forming of the next ones
+    uint32_t a[8][4];
+    float acc[8][4] = {};
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int cp = kb * 8 + half * 4 + t;    // column pair index
+        const float2 iv = inv2[cp], cv = c2[cp];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 hv = hpair(r, cp);
+          a[kb][half * 2 + r] = pack_bf16(fmaf(hv.x, iv.x, cv.x),
+                                          fmaf(hv.y, iv.y, cv.y));
+        }
+      }
+      wgmma_n64_reg_mn(acc, a[kb], desc_mn_major(w_s + 2 * kb * BLK_ROW +
+                                                 8 * nh * BLK_COL));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // pool, dropout and gate backward at the accumulator positions, in
+    // f32; acc becomes the elementwise part of dy, dlin goes to its hi/lo
+    // tiles
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int col = nh * 64 + nb * 8 + 2 * t;
+      const int cp = col / 2;
+      const float2 iv = inv2[cp], cv = c2[cp], bv = b2[cp];
+      const int ocol =
+          LANE ? ((col >> (pcs + 1)) << pcs) + (col & (pc - 1)) : col;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 hv = hpair(r, cp);
+        float2 gd = make_float2(0.f, 0.f);
+        if (valid[r]) {
+          gd = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              st + S_GZ + gzoff[r] + ocol * 2));
+          gd.x *= gscale;
+          gd.y *= gscale;
+          if constexpr (DROP) {
+            const unsigned int kb2 = *reinterpret_cast<const unsigned short*>(
+                st + S_BITS + prow[r] * BSB + col);
+            if ((int)(kb2 & 0xffu) >= keep_k) gd.x = 0.f;
+            if ((int)(kb2 >> 8) >= keep_k) gd.y = 0.f;
+          }
+        }
+        const float y[2] = {fmaf(hv.x, iv.x, cv.x), fmaf(hv.y, iv.y, cv.y)};
+        const float gdv[2] = {gd.x, gd.y};
+        const float bb[2] = {bv.x, bv.y};
+        float dl[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lin = acc[nb][2 * r + e] + bb[e];
+          float dy;
+          if constexpr (GLU) {
+            const float sy = sigmoid_fast(y[e]);
+            dl[e] = gdv[e] * sy;
+            dy = gdv[e] * lin * sy * (1.f - sy);
+          } else {
+            const float sl = sigmoid_fast(lin);
+            dl[e] = gdv[e] * y[e] * sl * (1.f - sl);
+            dy = gdv[e] * sl;
+          }
+          db_acc[nb][e] += dl[e];
+          acc[nb][2 * r + e] = dy;
+        }
+        uint32_t hi, lo;
+        const int off = hoff[r] + (cp >> 2) * BLK_COL + (cp & 3) * 4;
+        split_bf16(dl[0], dl[1], hi, lo);
+        *reinterpret_cast<uint32_t*>(tiles + off) = hi;
+        *reinterpret_cast<uint32_t*>(tiles + TILE_BYTES + off) = lo;
+      }
+    }
+    fence_async_proxy();
+    __syncthreads();             // the two tiles are whole
+
+    // dy += bf16(dlin) @ w^T: A = the dlin hi tile, B = w, both K-major
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb)
+      wgmma_n64_k_k(acc,
+                    desc_k_major(tiles_s + 2 * kb * BLK_COL),
+                    desc_k_major(w_s + 8 * nh * BLK_ROW + 2 * kb * BLK_COL));
+    wgmma_commit();
+
+    // (h^T dlin)[64 nh .. + 63][:] += h^T dl + h^T dh over the panel's 64
+    // rows, both operands MN-major (K along the tiles' rows); it runs on
+    // while the threads finish dy below
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t ha =
+          desc_mn_major(st_s + 2 * ks * BLK_ROW + 8 * nh * BLK_COL);
+      const uint32_t da = tiles_s + 2 * ks * BLK_ROW;
+      wgmma_n128_mn_mn(dw, ha, desc_mn_major(da + TILE_BYTES));
+      wgmma_n128_mn_mn(dw, ha, desc_mn_major(da));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();             // dy is whole; dW may still run
+
+    // dh, 4 bytes a thread (a warp fills 128 contiguous bytes of a row
+    // over its eight n-blocks; staging it for 16-byte stores costs a
+    // barrier and measured slower), and the per-lane reductions
+    __nv_bfloat16* dhrow[2] = {dh + base + prow[0] * L,
+                               dh + base + prow[1] * L};
+    const bool inside[2] = {ti0 + tl[0] < Tin, ti0 + tl[1] < Tin};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int cp = nh * 32 + nb * 4 + t;
+      const float2 iv = inv2[cp];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 hv = hpair(r, cp);
+        float dy0 = acc[nb][2 * r], dy1 = acc[nb][2 * r + 1];
+        if (!valid[r]) dy0 = dy1 = 0.f;
+        dc_acc[nb][0] += dy0;
+        dc_acc[nb][1] += dy1;
+        dinv_acc[nb][0] = fmaf(dy0, hv.x, dinv_acc[nb][0]);
+        dinv_acc[nb][1] = fmaf(dy1, hv.y, dinv_acc[nb][1]);
+        if (inside[r])
+          reinterpret_cast<uint32_t*>(dhrow[r])[cp] =
+              pack_bf16(dy0 * iv.x, dy1 * iv.y);
+      }
+    }
+  }
+
+  // per-block partials. dinv, dc, db: over the 8 row lanes by shuffles in
+  // a fixed order, then over the 4 row warps in order.
+  wgmma_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(tiles);  // [3][4][128]
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v[3] = {dinv_acc[nb][e], dc_acc[nb][e], db_acc[nb][e]};
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        v[q] += __shfl_xor_sync(0xffffffffu, v[q], 4);
+        v[q] += __shfl_xor_sync(0xffffffffu, v[q], 8);
+        v[q] += __shfl_xor_sync(0xffffffffu, v[q], 16);
+        if (g == 0)
+          red[(q * 4 + mb) * L + nh * 64 + nb * 8 + 2 * t + e] = v[q];
+      }
+    }
+  __syncthreads();
+  float* out = part + (size_t)blockIdx.x * NRED;
+  for (int q = tid; q < 3 * L; q += NT) {
+    const int which = q / L, col = q % L;
+    float a = 0.f;
+    for (int r = 0; r < 4; ++r) a += red[(which * 4 + r) * L + col];
+    out[L * L + q] = a;
+  }
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(out + (nh * 64 + mb * 16 + g + 8 * r) * L +
+                                 nb * 8 + 2 * t) =
+          make_float2(dw[nb][2 * r], dw[nb][2 * r + 1]);
+}
+
+// Second stage: add the per-block partials in block order. The bf16 body
+// leaves h^T dlin in the dW slots (affine): dW = inv (h^T dlin) + c db^T.
 __global__ void reduce_partials(const float* __restrict__ part, int nblk,
+                                bool affine, const float* __restrict__ inv,
+                                const float* __restrict__ cvec,
                                 float* __restrict__ dw,
                                 float* __restrict__ dinv,
                                 float* __restrict__ dc,
@@ -247,8 +596,16 @@ __global__ void reduce_partials(const float* __restrict__ part, int nblk,
   if (q >= NRED) return;
   float acc = 0.f;
   for (int b = 0; b < nblk; ++b) acc += part[(size_t)b * NRED + q];
-  if (q < L * L) dw[q] = acc;
-  else if (q < L * L + L) dinv[q - L * L] = acc;
+  if (q < L * L) {
+    if (affine) {
+      const int m = q / L, n = q % L;
+      float dbn = 0.f;
+      for (int b = 0; b < nblk; ++b)
+        dbn += part[(size_t)b * NRED + L * L + 2 * L + n];
+      acc = fmaf(inv[m], acc, cvec[m] * dbn);
+    }
+    dw[q] = acc;
+  } else if (q < L * L + L) dinv[q - L * L] = acc;
   else if (q < L * L + 2 * L) dc[q - L * L - L] = acc;
   else db[q - L * L - 2 * L] = acc;
 }
@@ -268,22 +625,39 @@ struct BwdArgs {
   int nblk, B, Tin, Tout, G, pc, pg;
 };
 
+// float32 takes the FMA body, bfloat16 the tensor-core body.
 template <typename T, bool GLU, int PT, bool DROP, bool LANE>
 int launch(const BwdArgs& a, cudaStream_t stream) {
   static bool configured = false;
-  if (!configured) {
-    cudaFuncSetAttribute(epilogue_bwd_kernel<T, GLU, PT, DROP, LANE>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)sizeof(Smem));
-    configured = true;
+  if constexpr (sizeof(T) == 4) {
+    if (!configured) {
+      cudaFuncSetAttribute(epilogue_bwd_kernel<T, GLU, PT, DROP, LANE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)sizeof(Smem));
+      configured = true;
+    }
+    if (a.nblk > 0)
+      epilogue_bwd_kernel<T, GLU, PT, DROP, LANE>
+          <<<a.nblk, NT, sizeof(Smem), stream>>>(
+              static_cast<const T*>(a.gz), static_cast<const T*>(a.h), a.inv,
+              a.c, static_cast<const T*>(a.w), a.b, a.bits, a.keep_k,
+              static_cast<T*>(a.dh), a.part, a.B, a.Tin, a.Tout, a.pc, a.G,
+              a.pg);
+  } else {
+    if (!configured) {
+      cudaFuncSetAttribute(epilogue_bwd_mma_kernel<GLU, PT, DROP, LANE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           MMA_SMEM);
+      configured = true;
+    }
+    if (a.nblk > 0)
+      epilogue_bwd_mma_kernel<GLU, PT, DROP, LANE>
+          <<<a.nblk, NT, MMA_SMEM, stream>>>(
+              static_cast<const T*>(a.gz), static_cast<const T*>(a.h), a.inv,
+              a.c, static_cast<const T*>(a.w), a.b, a.bits, a.keep_k,
+              static_cast<T*>(a.dh), a.part, a.B, a.Tin, a.Tout, a.pc, a.G,
+              a.pg);
   }
-  if (a.nblk > 0)
-    epilogue_bwd_kernel<T, GLU, PT, DROP, LANE>
-        <<<a.nblk, NT, sizeof(Smem), stream>>>(
-            static_cast<const T*>(a.gz), static_cast<const T*>(a.h), a.inv,
-            a.c, static_cast<const T*>(a.w), a.b, a.bits, a.keep_k,
-            static_cast<T*>(a.dh), a.part, a.B, a.Tin, a.Tout, a.pc, a.G,
-            a.pg);
   return (int)cudaGetLastError();
 }
 
@@ -309,6 +683,11 @@ int run_act(const BwdArgs& a, int act, int pt, cudaStream_t st) {
 
 // The number of floats of workspace one block of the backward writes.
 extern "C" int bsed_stem_epilogue_bwd_partial_size() { return NRED; }
+
+// Dynamic shared memory of one block, by dtype (0 = float32, 1 = bfloat16).
+extern "C" int bsed_stem_epilogue_bwd_smem_bytes(int dtype) {
+  return dtype == 1 ? MMA_SMEM : (int)sizeof(Smem);
+}
 
 // h, dh: (B, Tin, G, 128) and gz: the forward's output shape, all in the
 // input dtype (0 = float32, 1 = bfloat16), as is w (128, 128); inv, c, b:
@@ -347,7 +726,7 @@ extern "C" int bsed_stem_epilogue_bwd(const void* gz, const void* h,
   const int err = dtype == 1 ? run_act<__nv_bfloat16>(a, act, pt, st)
                              : run_act<float>(a, act, pt, st);
   if (err != 0) return err;
-  reduce_partials<<<(NRED + 255) / 256, 256, 0, st>>>(part, nblk, dw, dinv,
-                                                       dc, db);
+  reduce_partials<<<(NRED + 255) / 256, 256, 0, st>>>(
+      part, nblk, dtype == 1, inv, c, dw, dinv, dc, db);
   return (int)cudaGetLastError();
 }

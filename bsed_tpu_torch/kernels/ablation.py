@@ -1,0 +1,238 @@
+"""Where the time of K2's and K3's tensor-core bodies goes: time copies of
+the two sources with one phase taken out.
+
+    python -m bsed_tpu_torch.kernels.ablation [--block 0|1|2]
+
+The card has no kernel profiler that attributes time inside a kernel, so
+each variant is the source with a few lines edited away (the products, the
+dW chain, the gate, the dh stores, ...), built beside the real library and
+timed at one folded block's student shape (B=72, bfloat16, GLU, dropout
+bits) through the same C entry points. A variant computes wrong numbers by
+design; only its time is read. What a phase costs is the base time minus
+the time without it; if the phases overlapped, the differences would sum to
+less than the base.
+
+Every edit names text that must be present in the source: ``variants()``
+raises if a source has moved on, and ``tests/test_torch_stem_epilogue.py``
+holds that on the CPU. One JSON line per variant, then the card's name and
+power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+from typing import Dict, List, Tuple
+
+from bsed_tpu_torch import kernels
+
+Edit = Tuple[str, str]
+
+FWD, BWD, COMMON = "stem_epilogue", "stem_epilogue_bwd", "stem_common"
+
+# the edits, by phase: (source, text in it, replacement)
+PHASES: Dict[str, List[Tuple[str, str, str]]] = {
+    # K3
+    "bwd_no_dw": [(BWD, "      wgmma_n128_mn_mn(dw, ha,",
+                   "      if (tid < 0) wgmma_n128_mn_mn(dw, ha,")],
+    "bwd_no_products": [
+        (BWD, "      wgmma_n64_reg_mn(acc,",
+         "      if (tid < 0) wgmma_n64_reg_mn(acc,"),
+        (BWD, "      wgmma_n64_k_k(acc,",
+         "      if (tid < 0) wgmma_n64_k_k(acc,")],
+    "bwd_no_gate": [
+        (BWD, "    for (int nb = 0; nb < 8; ++nb) {\n"
+              "      const int col = nh * 64 + nb * 8 + 2 * t;\n"
+              "      const int cp = col / 2;\n"
+              "      const float2 iv = inv2[cp], cv = c2[cp], bv = b2[cp];",
+         "    for (int nb = 0; nb < 0; ++nb) {\n"
+         "      const int col = nh * 64 + nb * 8 + 2 * t;\n"
+         "      const int cp = col / 2;\n"
+         "      const float2 iv = inv2[cp], cv = c2[cp], bv = b2[cp];")],
+    "bwd_no_split": [(BWD, "        split_bf16(dl[0], dl[1], hi, lo);",
+                      "        hi = pack_bf16(dl[0], dl[1]); lo = 0;")],
+    "bwd_no_dh_store": [
+        (BWD, "        if (inside[r])\n"
+              "          reinterpret_cast<uint32_t*>(dhrow[r])[cp] =",
+         "        if (inside[r] && tid < 0)\n"
+         "          reinterpret_cast<uint32_t*>(dhrow[r])[cp] =")],
+    "bwd_no_fragments": [
+        (BWD, "          const float2 hv = hpair(r, cp);\n"
+              "          a[kb][half * 2 + r] = pack_bf16("
+              "fmaf(hv.x, iv.x, cv.x),\n"
+              "                                          "
+              "fmaf(hv.y, iv.y, cv.y));",
+         "          a[kb][half * 2 + r] = kb + r + tid;")],
+    # K2
+    "fwd_no_product": [(FWD, "      wgmma_n64_reg_mn(acc,",
+                        "      if (tid < 0) wgmma_n64_reg_mn(acc,")],
+    # both
+    "cheap_sigmoid": [(COMMON, "  return __fdividef(1.f, 1.f + __expf(-v));",
+                       "  return 0.5f + 0.01f * v;")],
+}
+
+# variant -> (the kernel it times, the phases taken out)
+VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "k3_base": (BWD, ()),
+    "k3_no_dw": (BWD, ("bwd_no_dw",)),
+    "k3_no_products": (BWD, ("bwd_no_products",)),
+    "k3_no_tensor": (BWD, ("bwd_no_dw", "bwd_no_products")),
+    "k3_cheap_sigmoid": (BWD, ("cheap_sigmoid",)),
+    "k3_no_split": (BWD, ("bwd_no_split",)),
+    "k3_no_dh_store": (BWD, ("bwd_no_dh_store",)),
+    "k3_no_fragments": (BWD, ("bwd_no_fragments",)),
+    "k3_no_gate": (BWD, ("bwd_no_gate",)),
+    "k3_loads_fragments_dh_only": (
+        BWD, ("bwd_no_dw", "bwd_no_products", "bwd_no_gate")),
+    "k3_loads_only": (BWD, ("bwd_no_dw", "bwd_no_products", "bwd_no_gate",
+                            "bwd_no_fragments", "bwd_no_dh_store")),
+    "k2_base": (FWD, ()),
+    "k2_no_product": (FWD, ("fwd_no_product",)),
+    "k2_cheap_sigmoid": (FWD, ("cheap_sigmoid",)),
+}
+
+
+def variants() -> Dict[str, Tuple[str, Dict[str, str]]]:
+    """``{variant: (kernel source name, {file name: edited text})}`` for
+    every variant; raises ValueError if an edit's text is not in its
+    source."""
+    texts = {FWD: (kernels.SRC_DIR / f"{FWD}.cu").read_text(),
+             BWD: (kernels.SRC_DIR / f"{BWD}.cu").read_text(),
+             COMMON: (kernels.SRC_DIR / f"{COMMON}.cuh").read_text()}
+    out = {}
+    for name, (kernel, phases) in VARIANTS.items():
+        files = {f"{kernel}.cu": texts[kernel],
+                 f"{COMMON}.cuh": texts[COMMON]}
+        for phase in phases:
+            for src, old, new in PHASES[phase]:
+                fname = f"{src}.cuh" if src == COMMON else f"{src}.cu"
+                if src not in (kernel, COMMON):
+                    raise ValueError(f"{name}: {phase} edits {src}, not "
+                                     f"{kernel}")
+                if old not in files[fname]:
+                    raise ValueError(f"{name}: {phase} names text that "
+                                     f"csrc/{fname} no longer has")
+                files[fname] = files[fname].replace(old, new)
+        out[name] = (kernel, files)
+    return out
+
+
+def build_variants() -> Dict[str, Tuple[str, ctypes.CDLL]]:
+    """Compile every variant (all nvcc processes started together) under
+    the kernels' build directory; ``{variant: (kernel, library)}``."""
+    root = kernels.BUILD_DIR / "ablation"
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    jobs = {}
+    for name, (kernel, files) in variants().items():
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in files.items():
+            (d / fname).write_text(text)
+        so = d / "lib.so"
+        jobs[name] = (kernel, so, subprocess.Popen(
+            [kernels._nvcc(), *flags, "-o", str(so), str(d / f"{kernel}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    try:
+        for name, (kernel, so, proc) in jobs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+            libs[name] = (kernel, ctypes.CDLL(str(so)))
+    finally:
+        for _, _, proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return libs
+
+
+def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median per-call device time (CUDA events, ms) of ``fn()``."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+# the folded blocks 0-2 at the student batch: (T, pt, channels per fold copy)
+BLOCKS = ((1255, 2, 16), (627, 2, 32), (313, 1, 64))
+BATCH = 72
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--block", type=int, default=0, choices=(0, 1, 2))
+    args = parser.parse_args()
+    import torch
+    from bsed_tpu_torch.ops import stem_epilogue as se
+    if not torch.cuda.is_available():
+        raise SystemExit("ablation: no CUDA device")
+    dev = torch.device("cuda")
+    libs = build_variants()
+
+    t_in, pt, pc = BLOCKS[args.block]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randn((BATCH, t_in, 16, 128), generator=gen,
+                    device=dev).bfloat16()
+    w = (torch.randn((128, 128), generator=gen, device=dev)
+         / 128 ** 0.5).bfloat16()
+    inv = 1.0 + 0.2 * torch.randn(128, generator=gen, device=dev)
+    c = 0.3 * torch.randn(128, generator=gen, device=dev)
+    b = 0.1 * torch.randn(128, generator=gen, device=dev)
+    bits = torch.randint(0, 256, (BATCH, t_in * 16, 128), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    gz = torch.randn((BATCH, t_in // pt, 16, 64), generator=gen,
+                     device=dev).bfloat16()
+    out = torch.empty_like(gz)
+    dh = torch.empty_like(h)
+    f32 = dict(device=dev, dtype=torch.float32)
+    dw = torch.empty((128, 128), **f32)
+    dinv, dc, db = (torch.empty(128, **f32) for _ in range(3))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ws = torch.empty((sms, 128 * 128 + 3 * 128), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    for name, (kernel, lib) in libs.items():
+        if kernel == FWD:
+            fn = se._bind_fwd(lib)
+
+            def call(fn=fn):
+                return fn(h.data_ptr(), inv.data_ptr(), c.data_ptr(),
+                          w.data_ptr(), b.data_ptr(), bits.data_ptr(), 128,
+                          out.data_ptr(), 1, 0, pt, BATCH, t_in, t_in // pt,
+                          16, pc, 1, stream)
+        else:
+            fn = se._bind_bwd(lib)
+
+            def call(fn=fn):
+                return fn(gz.data_ptr(), h.data_ptr(), inv.data_ptr(),
+                          c.data_ptr(), w.data_ptr(), b.data_ptr(),
+                          bits.data_ptr(), 128, dh.data_ptr(), dw.data_ptr(),
+                          dinv.data_ptr(), dc.data_ptr(), db.data_ptr(),
+                          ws.data_ptr(), sms, 1, 0, pt, BATCH, t_in,
+                          t_in // pt, 16, pc, 1, stream)
+        kernels.check(call(), f"ablation variant {name}")
+        torch.cuda.synchronize()
+        print(json.dumps({"variant": name, "block": args.block,
+                          "batch": BATCH, "dtype": "bfloat16",
+                          "without": list(VARIANTS[name][1]),
+                          "ms": time_ms(torch, call)}), flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -24,12 +24,18 @@ from h (the forward saves only its inputs) and returns dh and the
 parameter reductions dinv = Σdy·h, dc = Σdy, dW = yᵀ·dlin (float32
 operands), db = Σdlin, summed deterministically.
 
-Bound on the H100: K2 reads h once and writes the output once (~0.74 GB
-per batch-64 bf16 forward over blocks 0-2), but both kernels run their
-128×128 products in float32 FMA, which costs more than the bytes (K3 does
-three per row). Design: persistent blocks hold w in shared memory and walk
-over contiguous panels of 64 rows (t, g) × 128 lanes; see the sources for
-the thread layout.
+Bound on the H100: bytes. K2 reads h (and the bits) once and writes the
+output once (~0.74 GB per batch-64 bf16 forward over blocks 0-2); K3 reads
+gz, h and the bits and writes dh. Design: persistent blocks hold w in
+shared memory and walk over contiguous panels of 64 rows (t, g) × 128
+lanes. Each kernel has two bodies, chosen by dtype (``kernel_body``):
+bfloat16 runs its 128×128 products on the tensor cores (``wgmma`` on
+core-matrix tiles, A fragments formed in registers, panels staged by
+``cp.async``; K3's dW keeps float32-grade operands as inv·(hᵀ·dlin) +
+c·dbᵀ with h exact in bf16 and dlin split into bf16 hi and lo parts,
+``split_product``); float32 keeps FMA products on unrounded operands. See
+the sources for the fragment layout (``fragment_panel_row``) and the
+shared-memory budget (``kernel_shared_memory``).
 
 ``pool_w`` must be the folded stem's pair-averaging matrix
 (``ops/folded_stem._freq_pool_matrix(f, 2, c)``): the kernels compute that
@@ -55,6 +61,115 @@ LANE_G = 16          # groups of the folded blocks (the pool_w form)
 PANEL_ROWS = 64      # rows (t, g) per kernel panel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"glu": 0, "cg": 1}
+
+
+SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
+_TSB, _BSB = 272, 144    # shared-memory row strides of csrc/stem_common.cuh
+
+
+def fragment_panel_row(f: int, pt: int, groups: int) -> int:
+    """The panel row (tl·groups + g) held by fragment row ``f`` of the
+    tensor-core bodies (``panel_row`` in ``csrc/stem_common.cuh``).
+    Fragment row f = 16·mb + i is row i of the panel's m16 tile mb (warp
+    mb of a warpgroup); a thread (lane) holds rows i = lane//4 and
+    lane//4 + 8. For pt = 2 these two are the time pair (2·tp, g),
+    (2·tp + 1, g), so the time pool stays inside the thread; for pt = 1
+    the map is the identity."""
+    if not 0 <= f < PANEL_ROWS:
+        raise ValueError(f"fragment row {f} outside the {PANEL_ROWS}-row "
+                         f"panel")
+    if pt == 1:
+        return f
+    q = (f // 16) * 8 + f % 8                 # pair index, < 32
+    return (2 * (q // groups) + (f % 16) // 8) * groups + q % groups
+
+
+def core_matrix_offset(row: int, col: int) -> int:
+    """Byte offset of element (row, col) of a 128-column bf16 tile in the
+    unswizzled core-matrix layout ``wgmma`` reads (``blocked`` in
+    ``csrc/stem_common.cuh``): 8 × 8 blocks of 128 contiguous bytes, column
+    blocks 128 bytes apart, row blocks 2048 bytes apart."""
+    return (row // 8) * 2048 + (col // 8) * 128 + (row % 8) * 16 \
+        + (col % 8) * 2
+
+
+def lane_pool_source(out_lane: int, pool_c: int) -> int:
+    """The first of the two input lanes that the pair-averaging ``pool_w``
+    of ``pool_c`` channels pools into ``out_lane``; the second is
+    ``pool_c`` lanes further (``in_col`` in ``csrc/stem_epilogue.cu``)."""
+    return (out_lane // pool_c) * 2 * pool_c + out_lane % pool_c
+
+
+def panel_fragment_row(p: int, pt: int, groups: int) -> int:
+    """The inverse of ``fragment_panel_row``: the fragment row that holds
+    panel row ``p`` (``fragment_row`` in ``csrc/stem_common.cuh``). K3
+    stages h in this order, so that the staged panel is the tensor-core
+    operand of dW as it lies."""
+    if not 0 <= p < PANEL_ROWS:
+        raise ValueError(f"panel row {p} outside the {PANEL_ROWS}-row panel")
+    if pt == 1:
+        return p
+    tl = p // groups                           # time row in the panel
+    q = (tl // 2) * groups + p % groups        # pair index
+    return (q // 8) * 16 + (tl % 2) * 8 + q % 8
+
+
+def split_product(h: torch.Tensor, inv: torch.Tensor, c: torch.Tensor,
+                  dlin: torch.Tensor) -> torch.Tensor:
+    """dW = yᵀ·dlin for y = h·inv + c as K3's bfloat16 body computes it,
+    with float32-grade operands on bf16 tensor cores: since inv and c are
+    per lane, yᵀ·dlin = inv·(hᵀ·dlin) + c·dbᵀ with db = Σ dlin, and h
+    (rows, L) is exact in bf16. dlin is split into hi = bf16(x) and lo =
+    bf16(x − hi); hᵀ·dl + hᵀ·dh is summed in float32 and the affine part
+    applied once at the end. bf16 keeps 8 significant bits, so
+    |x − hi − lo| ≤ 2⁻¹⁶·|x|, and the result is within
+    ``SPLIT_PRODUCT_RTOL``·(|h·inv|ᵀ·|dlin| + |c|·Σ|dlin|) of the exact
+    one, the float32 accumulation's own error included."""
+    if h.dtype != torch.bfloat16:
+        raise ValueError("split_product takes h in bfloat16, the dtype in "
+                         "which it is exact")
+    hi = dlin.float().bfloat16().float()
+    lo = (dlin.float() - hi).bfloat16().float()
+    hf = h.float()
+    hdl = hf.T @ lo + hf.T @ hi
+    db = dlin.float().sum(0)
+    return inv.float()[:, None] * hdl + c.float()[:, None] * db[None, :]
+
+
+SPLIT_PRODUCT_RTOL = 2.0 ** -15
+
+
+def kernel_body(dtype: torch.dtype, lane_form: bool = True,
+                pool_c: int = 16) -> Dict[str, str]:
+    """Which body of K2 and K3 serves a form: ``mma`` (bfloat16, tensor
+    cores) or ``fma`` (float32; K2 also for the group pool and for the
+    4-channel lane pool, whose lane pairs fall inside one 8-column
+    fragment block). Mirrors the dispatch in the two sources."""
+    bf16 = dtype == torch.bfloat16
+    return {"fwd": "mma" if bf16 and lane_form and pool_c >= 8 else "fma",
+            "bwd": "mma" if bf16 else "fma"}
+
+
+def kernel_shared_memory(kernel: str, dtype: torch.dtype) -> Dict[str, int]:
+    """Dynamic shared memory (bytes) of one block of ``kernel`` ('fwd' =
+    K2's lane-pool form, 'bwd' = K3) for ``dtype``, and the blocks per SM
+    the source claims for it; mirrors the layouts in the two sources
+    (the C entries ``bsed_stem_epilogue[_bwd]_smem_bytes`` report the same
+    numbers on the card)."""
+    stage_h, bits = PANEL_ROWS * _TSB, PANEL_ROWS * _BSB
+    tile, wbytes = PANEL_ROWS * L * 2, L * L * 2
+    if dtype == torch.bfloat16:
+        if kernel == "bwd":     # w, dlin hi/lo, inv/c/b, 2 × (h, gz, bits)
+            nbytes, blocks = wbytes + 2 * tile + 3 * L * 4 \
+                + 2 * (tile + stage_h + bits), 1
+        else:                   # w, inv/c/b, 2 × (h, bits), the output panel
+            nbytes, blocks = wbytes + 3 * L * 4 + 2 * (stage_h + bits) \
+                + bits, 2
+    elif kernel == "bwd":       # w (padded), y and dlin in float32
+        nbytes, blocks = (L * (L + 1) + 2 * PANEL_ROWS * L) * 4, 1
+    else:                       # w and round(y) in float32
+        nbytes, blocks = (L * L + PANEL_ROWS * L) * 4, 2
+    return {"bytes": nbytes, "blocks_per_sm": blocks}
 
 
 def stem_epilogue_plain(h, inv, c, w, b, act: str, pt: int,
@@ -150,6 +265,8 @@ def _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k, lane_form,
         if (v.shape != (L,) or v.dtype != torch.float32
                 or not v.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 (128,)")
+    if any(t.data_ptr() % 16 for t in (h, w) if t.numel()):
+        raise ValueError("h and w must be 16-byte aligned")
     if any(t.device != h.device for t in (inv, c, w, b)):
         raise ValueError("stem epilogue inputs must share h's device")
     if act not in _ACTS or pt not in (1, 2):
@@ -162,6 +279,8 @@ def _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k, lane_form,
                              "on h's device")
         if not 1 <= keep_k <= 255:
             raise ValueError(f"keep_k must be in 1..255, got {keep_k}")
+        if bits.data_ptr() % 16:
+            raise ValueError("bits must be 16-byte aligned")
 
 
 def _bind_fwd(lib):
@@ -242,9 +361,9 @@ def stem_epilogue_bwd(gz, h, inv, c, w, b, act: str, pt: int,
     t_out = t_in // pt
     gz = gz.contiguous()
     want = _out_shape(h, pt, lane_form, pg)
-    if gz.shape != want or gz.dtype != h.dtype:
-        raise ValueError(f"gz must be {want} in h's dtype, got "
-                         f"{tuple(gz.shape)} {gz.dtype}")
+    if gz.shape != want or gz.dtype != h.dtype or gz.data_ptr() % 16:
+        raise ValueError(f"gz must be {want} in h's dtype and 16-byte "
+                         f"aligned, got {tuple(gz.shape)} {gz.dtype}")
     from bsed_tpu_torch import kernels
     lib = kernels.load("stem_epilogue_bwd")
     fn = _bind_bwd(lib)

@@ -25,7 +25,11 @@ use, all sources in parallel) and drives every slice of the port:
     the cluster shape (RB, C), registers per thread and the hoisted
     layer's glue on its own;
   * training: K2's train form (dropout bits) and K3 (its backward) against
-    their plain versions at the student shapes (B=72), then the flagship
+    their plain versions at the student shapes (B=72), with the body that
+    served each dtype (bfloat16: wgmma, float32: FMA), its registers and
+    spills from the ptxas report, per-block times, and K3's bound counted
+    from the function's work (two bf16 passes for dW; the older count
+    with a float32 FMA dW stays as ``bound_ms_fma_dw``), then the flagship
     train step (``train.steps.make_train_step`` on ``baseline_mt_isp`` with
     ``perf_config``: bf16, folded train stem with fused epilogues, fused
     streams; 12 SYN + 12 real full-width clips, epoch 30, random weights
@@ -93,6 +97,65 @@ def time_ms(fn, reps: int, warmup: int = 2):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+PTXAS = {}                        # source name -> ptxas report of this run
+
+
+def kernel_resources(source: str, needle: str):
+    """Registers a thread and spill bytes of the kernels of ``source``
+    whose mangled name contains ``needle``, from this run's ptxas report:
+    the largest over the template instances, and how many there are. None
+    when the library was not built in this run."""
+    import re
+    log = PTXAS.get(source)
+    if log is None:
+        return None
+    regs, spills, name = [], [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.rsplit(" ", 1)[-1]
+        elif name and needle in name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills.append(int(m.group(1)) + int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs.append(int(m.group(1)))
+                name = None
+    if not regs:
+        return None
+    return {"instances": len(regs), "registers": max(regs),
+            "spill_bytes": max(spills, default=0)}
+
+
+def body_report(se, torch, fwd: bool, lane_form: bool = True):
+    """Which body served each dtype, with its resources."""
+    src = "stem_epilogue" if fwd else "stem_epilogue_bwd"
+    which = "fwd" if fwd else "bwd"
+    names = {("fwd", "mma"): "epilogue_mma_kernel",
+             ("fwd", "fma"): ("epilogue_kernel" if lane_form
+                              else "epilogue_pg_kernel"),
+             ("bwd", "mma"): "epilogue_bwd_mma_kernel",
+             ("bwd", "fma"): "epilogue_bwd_kernel"}
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        body = se.kernel_body(dt, lane_form)[which]
+        out[str(dt).split(".")[1]] = {
+            "body": body, "kernel": names[which, body],
+            "resources": kernel_resources(src, names[which, body])}
+    return out
+
+
+def own_blocks(per_block, fwd: bool):
+    """The per-block records of one kernel: its own times (``fwd_`` or
+    ``bwd_`` keys, prefix dropped) beside the block's identity."""
+    tag = "fwd_" if fwd else "bwd_"
+    other = "bwd_" if fwd else "fwd_"
+    return [{k[len(tag):] if k.startswith(tag) else k: v
+             for k, v in rec.items() if not k.startswith(other)}
+            for rec in per_block]
 
 
 def check_mel_kernel(torch, dev):
@@ -244,7 +307,8 @@ def check_stem_epilogue(torch, dev):
             "max_abs_err_f32": worst[torch.float32],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": "bytes" if byte_t >= flop_t else "operations",
-            "library_ms": None,
+            "library_ms": None, "body": body_report(se, torch, True),
+            "blocks": per_block,
             "times_are": "sum over the 3 launches of one B=64 bf16 forward"}
 
 
@@ -689,27 +753,33 @@ def check_stem_epilogue_pg(torch, dev):
             # K2-pg: h and bits read, output written; 1 product in bf16
             fb = n * 2 + n + got.numel() * 2 + w.numel() * 2 + 3 * 512
             f_ops = {"bfloat16": mm, "float32": n * 10}
-            # K3-pg: gz, h, bits read, dh written; 2 products in bf16 and dW
-            # with float32 operands
+            # K3-pg, the function's work: gz, h, bits read, dh written; the
+            # three products at the tensor-core rate, dW as two bf16
+            # passes (as check_stem_epilogue_train counts K3)
             bb = gz.numel() * 2 + n * 2 + n + n * 2 + w.numel() * 2 \
                 + 128 * 128 * 4 + 7 * 512
-            b_ops = {"bfloat16": 2 * mm, "float32": mm + n * 20}
-            for acc, k, pl, nbytes, ops in ((tot["fwd"], kf, pf, fb, f_ops),
-                                            (tot["bwd"], kb, pb, bb, b_ops)):
+            b_ops = {"bfloat16": 4 * mm, "float32": n * 20}
+            tot["bwd"]["bound_ms_fma_dw"] = \
+                tot["bwd"].get("bound_ms_fma_dw", 0.0) + bound(
+                    bb, {"bfloat16": 2 * mm, "float32": mm + n * 20})[0]
+            rec_b = {"block": blk, "G": g, "fwd_ms": kf, "fwd_plain_ms": pf,
+                     "bwd_ms": kb, "bwd_plain_ms": pb}
+            for acc, k, pl, nbytes, ops, tag in (
+                    (tot["fwd"], kf, pf, fb, f_ops, "fwd"),
+                    (tot["bwd"], kb, pb, bb, b_ops, "bwd")):
                 acc["ms"] += k
                 acc["plain_ms"] += pl
                 acc["bound_ms"] += bound(nbytes, ops)[0]
                 acc["t_bytes"] += nbytes / H100_BYTES_PER_S
                 acc["t_ops"] += sum(v / H100_FLOPS[t] for t, v in ops.items())
-            per_block.append({"block": blk, "G": g, "fwd_ms": kf,
-                              "fwd_plain_ms": pf, "bwd_ms": kb,
-                              "bwd_plain_ms": pb})
+                rec_b[tag + "_bound_ms"] = bound(nbytes, ops)[0]
+            per_block.append(rec_b)
         del h32, w32, bits, gz32, h, w, gz, got, want, g1, g2, gp
         torch.cuda.empty_cache()
     emit(phase="stem_epilogue_pg_times", dtype="bfloat16", batch=B_STUDENT,
          pt=1, pg=2, blocks=per_block)
 
-    def entry(name, src, replaces, t, err, n):
+    def entry(name, src, replaces, t, err, n, fwd):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "max_abs_err": err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -717,18 +787,21 @@ def check_stem_epilogue_pg(torch, dev):
                 "bound_by": ("bytes" if t["t_bytes"] >= t["t_ops"]
                              else "operations"),
                 "library_ms": None, "launches": n,
+                "body": body_report(se, torch, fwd, lane_form=False),
+                "blocks": own_blocks(per_block, fwd),
                 "times_are": "sum over blocks 3-6 (G=16/8/4/2) of one B=72 "
                              "bf16 forward/backward with dropout bits, "
                              "pt=1, pg=2"}
     return (entry("stem_epilogue_pg", "bsed_tpu_torch/csrc/stem_epilogue.cu",
                   "bsed_tpu/ops/stem_epilogue.py:307", tot["fwd"],
-                  worst["fwd_bf16"], launches["fwd"])
+                  worst["fwd_bf16"], launches["fwd"], True)
             | {"max_abs_err_f32": worst["fwd_f32"]},
             entry("stem_epilogue_pg_bwd",
                   "bsed_tpu_torch/csrc/stem_epilogue_bwd.cu",
                   "bsed_tpu/ops/stem_epilogue.py:325", tot["bwd"],
-                  worst["bwd_f32"], launches["bwd"])
-            | {"max_abs_err_is": "float32 dh",
+                  worst["bwd_f32"], launches["bwd"], False)
+            | {"bound_ms_fma_dw": tot["bwd"]["bound_ms_fma_dw"],
+               "max_abs_err_is": "float32 dh",
                "bf16_rel_fro_err": worst["bwd_bf16_rel"],
                "bf16_gate": BF16_GRAD_GATE})
 
@@ -839,43 +912,58 @@ def check_stem_epilogue_train(torch, dev):
             # K2: h and bits read, output written; 1 product in bf16
             fb = n * 2 + n + got.numel() * 2 + w.numel() * 2 + 3 * 512
             f_ops = {"bfloat16": mm, "float32": n * 10}
-            # K3: gz, h, bits read, dh written; 2 products in bf16 and dW
-            # with float32 operands
+            # K3, the function's work whatever implements it: gz, h, bits
+            # read, dh written; the three products at the tensor-core
+            # rate, dW as two bf16 passes (h is exact in bf16 and
+            # y^T dlin = inv (h^T dlin) + c db^T, so only dlin needs a
+            # hi/lo split: the cheapest form known that keeps
+            # float32-grade operands)
             bb = gz.numel() * 2 + n * 2 + n + n * 2 + w.numel() * 2 \
                 + 128 * 128 * 4 + 7 * 512
-            b_ops = {"bfloat16": 2 * mm, "float32": mm + n * 20}
-            for acc, k, pl, nbytes, ops in ((fwd_t, kf, pf, fb, f_ops),
-                                            (bwd_t, kb, pb, bb, b_ops)):
+            b_ops = {"bfloat16": 4 * mm, "float32": n * 20}
+            # the older count: dW as a float32 FMA product
+            bwd_t["bound_ms_fma_dw"] = bwd_t.get("bound_ms_fma_dw", 0.0) \
+                + bound(bb, {"bfloat16": 2 * mm, "float32": mm + n * 20})[0]
+            rec_b = {"block": blk, "fwd_ms": kf, "fwd_plain_ms": pf,
+                     "bwd_ms": kb, "bwd_plain_ms": pb}
+            for acc, k, pl, nbytes, ops, tag in (
+                    (fwd_t, kf, pf, fb, f_ops, "fwd"),
+                    (bwd_t, kb, pb, bb, b_ops, "bwd")):
                 bms, _ = bound(nbytes, ops)
                 acc["ms"] += k
                 acc["plain_ms"] += pl
                 acc["bound_ms"] += bms
                 acc["t_bytes"] += nbytes / H100_BYTES_PER_S
                 acc["t_ops"] += sum(v / H100_FLOPS[t] for t, v in ops.items())
-            per_block.append({"block": blk, "fwd_ms": kf, "fwd_plain_ms": pf,
-                              "bwd_ms": kb, "bwd_plain_ms": pb})
+                rec_b[tag + "_bound_ms"] = bms
+            per_block.append(rec_b)
         del h32, w32, bits, gz32, h, w, gz, got, want, g1, g2, gp
         torch.cuda.empty_cache()
     emit(phase="stem_epilogue_train_times", dtype="bfloat16",
          batch=B_STUDENT, blocks=per_block)
 
-    def entry(name, src, replaces, t, err):
+    def entry(name, src, replaces, t, err, fwd):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "max_abs_err": err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"],
                 "bound_by": ("bytes" if t["t_bytes"] >= t["t_ops"]
                              else "operations"),
-                "library_ms": None,
+                "bound_bytes_ms": t["t_bytes"] * 1e3,
+                "bound_operations_ms": t["t_ops"] * 1e3,
+                "library_ms": None, "body": body_report(se, torch, fwd),
+                "blocks": own_blocks(per_block, fwd),
                 "times_are": "sum over blocks 0-2 of one B=72 bf16 student "
                              "forward/backward"}
     return (entry("stem_epilogue_train", "bsed_tpu_torch/csrc/stem_epilogue.cu",
                   "bsed_tpu/ops/stem_epilogue.py:307", fwd_t,
-                  worst["fwd_bf16"]) | {"max_abs_err_f32": worst["fwd_f32"]},
+                  worst["fwd_bf16"], True)
+            | {"max_abs_err_f32": worst["fwd_f32"]},
             entry("stem_epilogue_bwd",
                   "bsed_tpu_torch/csrc/stem_epilogue_bwd.cu",
                   "bsed_tpu/ops/stem_epilogue.py:325", bwd_t,
-                  worst["bwd_f32"]) | {
+                  worst["bwd_f32"], False) | {
+                      "bound_ms_fma_dw": bwd_t["bound_ms_fma_dw"],
                       "max_abs_err_is": "float32 gradients",
                       "bf16_rel_fro_err": worst["bwd_bf16_rel"],
                       "bf16_gate": BF16_GRAD_GATE})
@@ -1080,6 +1168,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = kernels.build(kernels.SOURCES)
+    PTXAS.update(reports)
     for src, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:

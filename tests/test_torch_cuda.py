@@ -157,6 +157,132 @@ def test_stem_epilogue_train_bf16_and_deterministic(dev):
         assert rel < 5e-2, f"grad {name}: relative error {rel}"
 
 
+FORMS = [("glu", 2, 16), ("cg", 1, 64), ("glu", 1, 32), ("cg", 2, 32)]
+
+
+def _matrix_inputs(dev, dtype, batch, t_in, pt, pc, with_bits, seed=21):
+    rng = np.random.default_rng(seed)
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).to(dev)
+    h = g(batch, t_in, 16, 128).to(dtype)
+    inv, c, b = g(128) * 0.2 + 1.0, g(128) * 0.3, g(128) * 0.1
+    w = (g(128, 128) / np.sqrt(128)).to(dtype)
+    bits = (torch.from_numpy(rng.integers(0, 256, (batch, t_in * 16, 128),
+                                          dtype=np.uint8)).to(dev)
+            if with_bits else None)
+    gz = g(batch, t_in // pt, 16, 64).to(dtype)
+    pool_w = torch.from_numpy(_freq_pool_matrix(128 // pc, 2, pc)).to(dev)
+    return h, inv, c, w, b, bits, gz, pool_w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 3, 72])
+@pytest.mark.parametrize("t_in", [20, 21, 23])
+@pytest.mark.parametrize("act,pt,pc", FORMS)
+@pytest.mark.parametrize("with_bits", [False, True])
+def test_stem_epilogue_forms_match_plain(dev, dtype, batch, t_in, act, pt,
+                                         pc, with_bits):
+    """K2 and K3 against their plain versions over batch sizes, even and
+    odd T, a ragged last panel (T = 23: 11 pooled rows in panels of 2), the
+    lane pools of blocks 0-2, both gates, both time pools, with and
+    without dropout bits. float32 (FMA bodies): forward 1e-5, gradients
+    2e-4, the parameter reductions also passing when no farther from the
+    float64 chain than twice the plain version is; bfloat16 (tensor-core
+    bodies): forward 0.06, gradients 5e-2 relative Frobenius."""
+    h, inv, c, w, b, bits, gz, pool_w = _matrix_inputs(
+        dev, dtype, batch, t_in, pt, pc, with_bits)
+    keep_k = 128 if with_bits else 0
+    args = (h, inv, c, w, b, act, pt, pool_w)
+    n_fwd = stem_epilogue.stem_epilogue_fwd.launches
+    n_bwd = stem_epilogue.stem_epilogue_bwd.launches
+    got = stem_epilogue.stem_epilogue_fwd(*args, pc, bits, keep_k)
+    grads = stem_epilogue.stem_epilogue_bwd(gz, *args, pc, bits, keep_k)
+    want = stem_epilogue.stem_epilogue_plain(*args, bits, keep_k)
+    want_g = stem_epilogue.stem_epilogue_bwd_plain(gz, *args, bits, keep_k)
+    torch.cuda.synchronize()
+    assert stem_epilogue.stem_epilogue_fwd.launches == n_fwd + 1
+    assert stem_epilogue.stem_epilogue_bwd.launches == n_bwd + 1
+    assert got.shape == (batch, t_in // pt, 16, 64)
+    if t_in % pt:                                 # the dropped odd row
+        assert float(grads[0][:, -1].abs().max()) == 0.0
+    if dtype is torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=0.06,
+                                   atol=0.06)
+        for name, a, e in zip("h inv c w b".split(), grads, want_g):
+            rel = float((a.float() - e.float()).norm()
+                        / e.float().norm().clamp_min(1e-30))
+            assert rel < 5e-2, f"grad {name}: relative error {rel}"
+        return
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grads[0], want_g[0], rtol=2e-4, atol=2e-4)
+    g64 = stem_epilogue.stem_epilogue_bwd_plain(
+        gz.double(), h.double(), inv.double(), c.double(), w.double(),
+        b.double(), act, pt, pool_w.double(), bits, keep_k)
+    for name, a, e, e64 in zip("inv c w b".split(), grads[1:], want_g[1:],
+                               g64[1:]):
+        close = bool(((a - e).abs() <= 2e-4 + 2e-4 * e.abs()).all())
+        far_k = float((a.double() - e64).abs().max())
+        far_p = float((e.double() - e64).abs().max())
+        assert close or far_k <= 2 * far_p, (
+            f"grad {name}: {float((a - e).abs().max())} from the plain "
+            f"version, {far_k} from float64 (plain: {far_p})")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 72])
+def test_stem_epilogue_bwd_is_bit_identical(dev, dtype, batch):
+    """K3 twice on the same input: all five outputs have the same bits."""
+    h, inv, c, w, b, bits, gz, pool_w = _matrix_inputs(
+        dev, dtype, batch, 23, 2, 16, True, seed=22)
+    run = lambda: stem_epilogue.stem_epilogue_bwd(  # noqa: E731
+        gz, h, inv, c, w, b, "glu", 2, pool_w, 16, bits, 128)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for name, a, a2 in zip("h inv c w b".split(), first, second):
+        assert torch.equal(a, a2), f"grad {name} differs between runs"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bits", [False, True])
+def test_stem_epilogue_bwd_ignores_nan_in_dropped_rows(dev, dtype,
+                                                       with_bits):
+    """h rows past Tout·pt (the odd last row under pt = 2) set to NaN: the
+    rows never reach a product, so dW, dinv, dc and db stay finite and
+    equal the run with finite values there, and dh of those rows is 0."""
+    h, inv, c, w, b, bits, gz, pool_w = _matrix_inputs(
+        dev, dtype, 3, 23, 2, 32, with_bits, seed=23)
+    keep_k = 128 if with_bits else 0
+    run = lambda x: stem_epilogue.stem_epilogue_bwd(  # noqa: E731
+        gz, x, inv, c, w, b, "glu", 2, pool_w, 32, bits, keep_k)
+    clean = run(h)
+    poisoned = h.clone()
+    poisoned[:, -1] = float("nan")
+    got = run(poisoned)
+    torch.cuda.synchronize()
+    for name, a, e in zip("h inv c w b".split(), got, clean):
+        assert torch.isfinite(a).all(), f"grad {name} is not finite"
+        assert torch.equal(a, e), f"grad {name} moved with the NaN rows"
+    assert float(got[0][:, -1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.float32, "fma"),
+                                        (torch.bfloat16, "mma")])
+def test_stem_epilogue_shared_memory_matches_sources(dev, dtype, body):
+    """The shared-memory bytes the Python helper states are what the built
+    sources request, for K2 and K3."""
+    import ctypes
+    from bsed_tpu_torch import kernels
+    assert stem_epilogue.kernel_body(dtype) == {"fwd": body, "bwd": body}
+    for kernel, lib, fn in (("fwd", "stem_epilogue",
+                             "bsed_stem_epilogue_smem_bytes"),
+                            ("bwd", "stem_epilogue_bwd",
+                             "bsed_stem_epilogue_bwd_smem_bytes")):
+        entry = getattr(kernels.load(lib), fn)
+        entry.restype, entry.argtypes = ctypes.c_int, [ctypes.c_int]
+        want = stem_epilogue.kernel_shared_memory(kernel, dtype)["bytes"]
+        assert entry(int(dtype is torch.bfloat16)) == want
+
+
 @pytest.mark.parametrize("t", [100, 37])
 def test_stem_kernel_matches_plain(dev, t):
     """K5 against reference_stem_block, float32, 2e-5

@@ -137,3 +137,49 @@ def test_bwd_plain_is_the_chain_gradient():
     assert got[3].dtype == torch.float32
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows", [64, 10_000])
+@pytest.mark.parametrize("offset", [0.0, 3.0])
+def test_split_product_holds_float32_grade_operands(rows, offset):
+    """K3's dW on the tensor cores, inv·(hᵀ·dlin) + c·dbᵀ with h exact in
+    bf16 and dlin split into bf16 hi and lo parts (two passes, float32
+    sums), against the float64 yᵀ·dlin for y = h·inv + c at a panel-sized
+    and a 10⁴-row input, with and without a common offset in c. Every
+    element is within the budget the source states, 2⁻¹⁵·(|h·inv|ᵀ·|dlin|
+    + |c|·Σ|dlin|), and the split is at least 100 times closer than one
+    pass on bf16-rounded y and dlin."""
+    rng = np.random.default_rng(rows)
+    h = torch.from_numpy(rng.standard_normal((rows, L)).astype(
+        np.float32)).bfloat16()
+    inv = torch.from_numpy(rng.uniform(0.5, 1.5, L).astype(np.float32))
+    c = torch.from_numpy((rng.standard_normal(L) * 0.3 + offset).astype(
+        np.float32))
+    dlin = torch.from_numpy(rng.standard_normal((rows, L)).astype(np.float32))
+    y = h.double() * inv.double() + c.double()
+    exact = y.T @ dlin.double()
+    budget = se.SPLIT_PRODUCT_RTOL * (
+        (h.double() * inv.double()).abs().T @ dlin.double().abs()
+        + c.double().abs()[:, None] * dlin.double().abs().sum(0)[None, :])
+    got = se.split_product(h, inv, c, dlin)
+    assert got.dtype == torch.float32 and got.shape == (L, L)
+    err = (got.double() - exact).abs()
+    assert bool((err <= budget).all()), float((err / budget).max())
+    one_pass = (y.float().bfloat16().float().T
+                @ dlin.bfloat16().float()).double()
+    assert float(err.max()) * 100 < float((one_pass - exact).abs().max())
+    with pytest.raises(ValueError, match="bfloat16"):
+        se.split_product(h.float(), inv, c, dlin)
+
+
+def test_split_parts_rebuild_the_operand():
+    """hi + lo is within 2⁻¹⁶·|x| of x (two roundings to 8 significant
+    bits), and both parts are bf16 values."""
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        4096).astype(np.float32) * 37.0)
+    hi = x.bfloat16().float()
+    lo = (x - hi).bfloat16().float()
+    assert bool(((x - hi).abs() <= 2.0 ** -8 * x.abs()).all())
+    assert bool(((x - hi - lo).abs() <= 2.0 ** -16 * x.abs()).all())
+    assert torch.equal(hi.bfloat16().float(), hi)
+    assert torch.equal(lo.bfloat16().float(), lo)
