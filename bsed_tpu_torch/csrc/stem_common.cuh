@@ -68,24 +68,36 @@ __device__ __forceinline__ float sigmoidf(float v) {
 // t = lane % 4) holds rows i = g and g + 8 at columns 8 * n + 2 * t + {0, 1}
 // of every n-block of an accumulator, and the same rows and columns
 // 16 * kb + 2 * t + {0, 1, 8, 9} of a register A operand. panel_row maps a
-// fragment row to the panel row (tl, gi) = tl * groups + gi it holds: for
-// pt = 2 a thread's two rows are the time pair (2 * tp, gi) and
-// (2 * tp + 1, gi), so the time pool (K2) and the shared cotangent (K3)
-// stay inside the thread; for pt = 1 it is the identity. Mirrored by
-// bsed_tpu_torch/ops/stem_epilogue.py:fragment_panel_row, which the CPU
-// tests hold to be a bijection for every (pt, groups) the kernels take.
-__host__ __device__ constexpr int panel_row(int f, int pt, int groups) {
-  if (pt == 1) return f;
+// fragment row to the panel row (tl, gi) = tl * groups + gi it holds; a
+// thread's two rows (i, i + 8 of a tile) are pair q = 8 * mb + i:
+//   pt = 2: the time pair (2 * tp, gi), (2 * tp + 1, gi), q = tp * groups +
+//     gi, so the time pool (K2) and the shared cotangent (K3) stay inside
+//     the thread; with pg = 2 the pool's other pair (gi ^ 1) is pair q ^ 1,
+//     the thread 4 lanes away;
+//   pt = 1, pg = 2: the group pair (tl, 2 g'), (tl, 2 g' + 1), rows 2 q and
+//     2 q + 1, so the group pool (K2's group form) stays inside the thread;
+//   pt = 1, pg = 1: the identity.
+// Mirrored by bsed_tpu_torch/ops/stem_epilogue.py:fragment_panel_row, which
+// the CPU tests hold to be a bijection whose pairs are pool groups for
+// every (groups, pt, pg) the kernels take.
+__host__ __device__ constexpr int panel_row(int f, int pt, int groups,
+                                            int pg = 1) {
   const int q = (f / 16) * 8 + f % 8;           // pair index, < 32
-  return (2 * (q / groups) + (f % 16) / 8) * groups + q % groups;
+  if (pt == 2) return (2 * (q / groups) + (f % 16) / 8) * groups + q % groups;
+  if (pg == 2) return 2 * q + (f % 16) / 8;
+  return f;
 }
 
 // The inverse of panel_row: the fragment row that holds panel row p.
-__host__ __device__ constexpr int fragment_row(int p, int pt, int groups) {
-  if (pt == 1) return p;
-  const int tl = p / groups;                    // time row in the panel
-  const int q = (tl / 2) * groups + p % groups; // pair index
-  return (q / 8) * 16 + (tl % 2) * 8 + q % 8;
+__host__ __device__ constexpr int fragment_row(int p, int pt, int groups,
+                                               int pg = 1) {
+  if (pt == 2) {
+    const int tl = p / groups;                  // time row in the panel
+    const int q = (tl / 2) * groups + p % groups;
+    return (q / 8) * 16 + (tl % 2) * 8 + q % 8;
+  }
+  if (pg == 2) return (p / 16) * 16 + (p % 2) * 8 + (p / 2) % 8;
+  return p;
 }
 
 // Staged panels (raw h, gz, dropout bits) are row-major with padded row

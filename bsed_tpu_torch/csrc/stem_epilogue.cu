@@ -1,12 +1,13 @@
-// Kernel K2: folded-stem epilogue, forward (sm_90a). The bfloat16 lane-pool
-// form runs on the tensor cores (wgmma), the rest in float32 FMA.
+// Kernel K2: folded-stem epilogue, forward (sm_90a). The bfloat16 forms
+// run on the tensor cores (wgmma), the rest in float32 FMA.
 //
 // Replaces the TPU kernel bsed_tpu/ops/stem_epilogue.py:make_fused_epilogue
 // (_run_fwd, body _fwd_kernel) in both frequency-pool forms, each in its
 // serving form (no dropout) and its train form (uint8 dropout bits): the
 // pool_w lane pool of the folded blocks (epilogue_mma_kernel,
 // epilogue_kernel) and the group pool pg of standard-layout blocks
-// (epilogue_pg_kernel, below). Wrapper and plain version:
+// (epilogue_pg_mma_kernel, epilogue_pg_kernel, below). Wrapper and plain
+// version:
 // bsed_tpu_torch/ops/stem_epilogue.py; the backward is kernel K3,
 // csrc/stem_epilogue_bwd.cu.
 //
@@ -47,6 +48,10 @@
 //     through shared memory as 16-byte stores.
 //   Shared memory 96,768 bytes (MMA_SMEM), 128 registers a thread: two
 //   blocks an SM.
+// The bfloat16 group pool (epilogue_pg_mma_kernel) is the same body with w
+// unpermuted, the fragment-row map choosing a thread's two rows as the
+// pool pair (one shuffle when pt = pg = 2), and 128-lane output rows
+// (PG_MMA_SMEM = 104,960 bytes).
 // float32 body (epilogue_kernel; also bf16 with pc = 4, where a lane pair
 // falls inside one 8-column block): FMA products. Each thread owns 4 time
 // rows of one group and the 8 lanes that pool into 4 output lanes; the
@@ -181,13 +186,76 @@ epilogue_kernel(const T* __restrict__ h, const float* __restrict__ inv,
   }
 }
 
-// Shared memory of the bf16 body: w, inv / c / b, two stages of (h, bits)
-// and the output panel (64-lane rows, 144-byte stride).
+// Shared memory of the bf16 bodies: w, inv / c / b, two stages of (h, bits)
+// and the output panel: 64-lane rows at a 144-byte stride for the lane
+// pool, 128-lane rows at a 272-byte stride for the group pool.
 constexpr int M_VEC = W_BYTES;
 constexpr int M_STAGE = M_VEC + 3 * L * 4;
 constexpr int STAGE_BYTES = STAGE_H + STAGE_BITS;
 constexpr int M_OUT = M_STAGE + 2 * STAGE_BYTES;
 constexpr int MMA_SMEM = M_OUT + ROWS * BSB;
+constexpr int PG_MMA_SMEM = M_OUT + ROWS * TSB;
+
+// Start the cp.async copies of one panel into stage ``st``: rows ti0 ..
+// of clip bi, 64 rows of h (and of the bits when DROP) from ``base``;
+// rows at or past Tin are left as they are.
+template <bool DROP>
+__device__ __forceinline__ void load_panel(unsigned char* st,
+                                           const __nv_bfloat16* h,
+                                           const unsigned char* bits,
+                                           size_t base, int ti0, int Tin,
+                                           int groups, int tid) {
+  for (int c = tid; c < ROWS * 16; c += NT) {
+    const int row = c >> 4, ch = c & 15;
+    if (ti0 + row / groups < Tin)
+      cp_async16(st + row * TSB + ch * 16, h + base + row * L + ch * 8);
+  }
+  if constexpr (DROP) {
+    for (int c = tid; c < ROWS * 8; c += NT) {
+      const int row = c >> 3, ch = c & 7;
+      if (ti0 + row / groups < Tin)
+        cp_async16(st + STAGE_H + row * BSB + ch * 16,
+                   bits + base + row * L + ch * 16);
+    }
+  }
+  cp_async_commit();
+}
+
+// lin = bf16(y) @ w for the 64 columns of w at ``w_cols`` (a shared
+// address in the core-matrix layout), y = h * inv + c: the A fragments of
+// bf16(y) are formed from the thread's two staged h rows and each
+// k-block's wgmma starts as soon as its fragments exist, so the tensor
+// cores run under the forming of the next ones. B = w as an MN-major
+// operand (K along its rows).
+__device__ __forceinline__ void lin_product(float (&acc)[8][4],
+                                            const uint32_t* const (&hrow)[2],
+                                            const float2* inv2,
+                                            const float2* c2,
+                                            uint32_t w_cols, int t) {
+  uint32_t a[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kb = 0; kb < 8; ++kb) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int cp = kb * 8 + half * 4 + t;    // column pair index
+      const float2 iv = inv2[cp], cv = c2[cp];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 hv = unpack_bf16(hrow[r][cp]);
+        a[kb][half * 2 + r] = pack_bf16(fmaf(hv.x, iv.x, cv.x),
+                                        fmaf(hv.y, iv.y, cv.y));
+      }
+    }
+    wgmma_n64_reg_mn(acc, a[kb], desc_mn_major(w_cols + 2 * kb * BLK_ROW));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+}
 
 template <bool GLU, int PT, bool DROP>
 __global__ void __launch_bounds__(NT, 2)
@@ -244,67 +312,32 @@ epilogue_mma_kernel(const __nv_bfloat16* __restrict__ h,
   const uint32_t w_s = smem_addr(smem);
   unsigned char* outp = smem + M_OUT;
 
-  auto load_panel = [&](int tile, int stage) {
-    unsigned char* st = smem + M_STAGE + stage * STAGE_BYTES;
+  auto stage_panel = [&](int tile, int stage) {
     const int bi = tile / tiles_t;
     const int ti0 = (tile % tiles_t) * TRI;
-    const size_t base = ((size_t)bi * Tin + ti0) * G * L;
-    for (int c = tid; c < ROWS * 16; c += NT) {
-      const int row = c >> 4, ch = c & 15;
-      if (ti0 + row / G < Tin)
-        cp_async16(st + row * TSB + ch * 16, h + base + row * L + ch * 8);
-    }
-    if constexpr (DROP) {
-      for (int c = tid; c < ROWS * 8; c += NT) {
-        const int row = c >> 3, ch = c & 7;
-        if (ti0 + row / G < Tin)
-          cp_async16(st + STAGE_H + row * BSB + ch * 16,
-                     bits + base + row * L + ch * 16);
-      }
-    }
-    cp_async_commit();
+    load_panel<DROP>(smem + M_STAGE + stage * STAGE_BYTES, h, bits,
+                     ((size_t)bi * Tin + ti0) * G * L, ti0, Tin, G, tid);
   };
 
-  if (blockIdx.x < ntiles) load_panel(blockIdx.x, 0);
+  if (blockIdx.x < ntiles) stage_panel(blockIdx.x, 0);
   int stage = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, stage ^= 1) {
     cp_async_wait_all();
     __syncthreads();             // this panel landed; the last one is out
-    if (tile + gridDim.x < ntiles) load_panel(tile + gridDim.x, stage ^ 1);
+    if (tile + gridDim.x < ntiles) stage_panel(tile + gridDim.x, stage ^ 1);
 
     const unsigned char* st = smem + M_STAGE + stage * STAGE_BYTES;
     const int bi = tile / tiles_t;
     const int to0 = (tile % tiles_t) * TRO;
-    const uint32_t* hrow[2] = {
+
+    // lin = bf16(y) @ w on the warpgroup's 64 permuted columns:
+    // accumulator n-block v < 4 is the warpgroup's output block v, v >= 4
+    // its partner
+    const uint32_t* const hrow[2] = {
         reinterpret_cast<const uint32_t*>(st + prow[0] * TSB),
         reinterpret_cast<const uint32_t*>(st + prow[1] * TSB)};
-
-    // lin = bf16(y) @ w: A fragments formed from the staged h, B = the
-    // permuted w as an MN-major operand (K along its rows); accumulator
-    // n-block v < 4 is the warpgroup's output block v, v >= 4 its partner
-    // each k-block's wgmma is issued as soon as its fragments exist, so
-    // the tensor cores run under the forming of the next ones
-    uint32_t a[8][4];
-    float acc[8][4] = {};
-    wgmma_fence();
-#pragma unroll
-    for (int kb = 0; kb < 8; ++kb) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int cp = kb * 8 + half * 4 + t;    // column pair index
-        const float2 iv = inv2[cp], cv = c2[cp];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float2 hv = unpack_bf16(hrow[r][cp]);
-          a[kb][half * 2 + r] = pack_bf16(fmaf(hv.x, iv.x, cv.x),
-                                          fmaf(hv.y, iv.y, cv.y));
-        }
-      }
-      wgmma_n64_reg_mn(acc, a[kb], desc_mn_major(w_s + 2 * kb * BLK_ROW +
-                                                 8 * nh * BLK_COL));
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
+    float acc[8][4];
+    lin_product(acc, hrow, inv2, c2, w_s + 8 * nh * BLK_COL, t);
 
     // gate and dropout at the accumulator positions in f32, then both
     // pools in registers: n-block ob and its partner ob + 4, rows r = 0, 1
@@ -378,12 +411,156 @@ epilogue_mma_kernel(const __nv_bfloat16* __restrict__ h,
   }
 }
 
+// Group-pool form (pool_w = None), bfloat16, on the tensor cores: h (B, T,
+// G, 128) with G | 64, rows (t, g) with g fastest; per row the same y,
+// lin, gate and dropout as above, then the mean over pt time rows and PG
+// adjacent groups in f32, written once in bf16: (B, Tout, G / PG, 128).
+// The same persistent blocks, cp.async ring and product as the lane-pool
+// body, with w unpermuted: warpgroup nh owns lin columns 64 nh .. + 63.
+// The fragment-row map (panel_row) makes a thread's two rows the pool
+// pair: the group pair (t, 2 g'), (t, 2 g' + 1) when PG = 2 and pt = 1,
+// the time pair when pt = 2; when pt = PG = 2 the other time pair of the
+// pool is in the thread 4 lanes away (rows i and i ^ 1 of the m16 tile)
+// and one shuffle adds it. The pooled panel leaves through shared memory
+// (128-lane rows, 272-byte stride) as 16-byte stores.
+template <bool GLU, int PT, int PG, bool DROP>
+__global__ void __launch_bounds__(NT, 2)
+epilogue_pg_mma_kernel(const __nv_bfloat16* __restrict__ h,
+                       const float* __restrict__ inv,
+                       const float* __restrict__ cvec,
+                       const __nv_bfloat16* __restrict__ w,
+                       const float* __restrict__ bvec,
+                       const unsigned char* __restrict__ bits, int keep_k,
+                       __nv_bfloat16* __restrict__ out, int B, int Tin,
+                       int Tout, int Gn) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int mb = warp % 4, nh = warp / 4;
+  constexpr int RU = PT * PG;                    // input rows an output row
+
+  for (int c = tid; c < L * 16; c += NT) {
+    const int k = c >> 4, sb = c & 15;
+    *reinterpret_cast<uint4*>(smem + blocked(k, sb * 8)) =
+        *reinterpret_cast<const uint4*>(w + k * L + sb * 8);
+  }
+  float* vec = reinterpret_cast<float*>(smem + M_VEC);
+  for (int i = tid; i < L; i += NT) {
+    vec[i] = inv[i];
+    vec[L + i] = cvec[i];
+    vec[2 * L + i] = bvec[i];
+  }
+  fence_async_proxy();           // w is read by wgmma after the first barrier
+  const float2* inv2 = reinterpret_cast<const float2*>(vec);
+  const float2* c2 = inv2 + L / 2;
+  const float2* b2 = inv2 + L;
+
+  const int tp = ROWS / Gn;                      // time rows a panel
+  const int tro = tp / PT;                       // output time rows a panel
+  const int gout = Gn / PG;
+  const int tiles_t = (Tout + tro - 1) / tro;
+  const int ntiles = B * tiles_t;
+  const float keep_scale = DROP ? 256.f / (float)keep_k : 1.f;
+
+  int prow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    prow[r] = panel_row(mb * 16 + g + 8 * r, PT, Gn, PG);
+  // the output row of the panel this thread writes: its pair index, or
+  // half of it when the other pair of the pool is 4 lanes away
+  const int q = mb * 8 + g;
+  const int orow = RU == 4 ? q / 2 : q;
+  const bool writes = RU < 4 || g % 2 == 0;
+  const uint32_t w_s = smem_addr(smem);
+  unsigned char* outp = smem + M_OUT;
+
+  auto stage_panel = [&](int tile, int stage) {
+    const int bi = tile / tiles_t;
+    const int ti0 = (tile % tiles_t) * tro * PT;
+    load_panel<DROP>(smem + M_STAGE + stage * STAGE_BYTES, h, bits,
+                     ((size_t)bi * Tin + ti0) * Gn * L, ti0, Tin, Gn, tid);
+  };
+
+  if (blockIdx.x < ntiles) stage_panel(blockIdx.x, 0);
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, stage ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();             // this panel landed; the last one is out
+    if (tile + gridDim.x < ntiles) stage_panel(tile + gridDim.x, stage ^ 1);
+
+    const unsigned char* st = smem + M_STAGE + stage * STAGE_BYTES;
+    const int bi = tile / tiles_t;
+    const int to0 = (tile % tiles_t) * tro;
+    const uint32_t* const hrow[2] = {
+        reinterpret_cast<const uint32_t*>(st + prow[0] * TSB),
+        reinterpret_cast<const uint32_t*>(st + prow[1] * TSB)};
+    float acc[8][4];
+    lin_product(acc, hrow, inv2, c2, w_s + 8 * nh * BLK_COL, t);
+
+    // gate and dropout at the accumulator positions in f32, then the pool
+    // in registers: n-block nb holds columns 64 nh + 8 nb + 2 t, + 1
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int col = nh * 64 + nb * 8 + 2 * t;
+      const int cp = col / 2;
+      const float2 iv = inv2[cp], cv = c2[cp], bv = b2[cp];
+      float z[2][2];                             // [row][lane]
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 hv = unpack_bf16(hrow[r][cp]);
+        const float y[2] = {fmaf(hv.x, iv.x, cv.x), fmaf(hv.y, iv.y, cv.y)};
+        const float lin[2] = {acc[nb][2 * r] + bv.x, acc[nb][2 * r + 1] + bv.y};
+        unsigned int kb2 = 0;
+        if constexpr (DROP)
+          kb2 = *reinterpret_cast<const unsigned short*>(
+              st + STAGE_H + prow[r] * BSB + col);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float zz = GLU ? lin[e] * sigmoid_fast(y[e])
+                         : y[e] * sigmoid_fast(lin[e]);
+          if constexpr (DROP)
+            zz = (int)((kb2 >> (8 * e)) & 0xffu) < keep_k ? zz * keep_scale
+                                                          : 0.f;
+          z[r][e] = zz;
+        }
+      }
+      if constexpr (RU == 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(outp + prow[r] * TSB + col * 2) =
+              pack_bf16(z[r][0], z[r][1]);
+      } else {
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          o[e] = z[0][e] + z[1][e];
+          if constexpr (RU == 4) o[e] += __shfl_xor_sync(0xffffffffu, o[e], 4);
+          o[e] *= 1.f / (float)RU;
+        }
+        if (writes)
+          *reinterpret_cast<uint32_t*>(outp + orow * TSB + col * 2) =
+              pack_bf16(o[0], o[1]);
+      }
+    }
+    __syncthreads();             // the output panel is whole
+
+    __nv_bfloat16* dst = out + ((size_t)bi * Tout + to0) * gout * L;
+    for (int c = tid; c < (ROWS / RU) * 16; c += NT) {
+      const int row = c >> 4, ch = c & 15;
+      if (to0 + row / gout < Tout)
+        *reinterpret_cast<uint4*>(dst + row * L + ch * 8) =
+            *reinterpret_cast<const uint4*>(outp + row * TSB + ch * 16);
+    }
+  }
+}
+
 // Group-pool form (pool_w = None), for standard-layout blocks where the
 // group axis is the spatial frequency axis: h (B, T, G, 128) with G | 64,
 // rows (t, g) with g fastest. Per row the same y, lin, gate and dropout as
 // above; then the mean over pt time rows and PG adjacent groups in f32,
 //   out[t', g', l] = mean_{a < pt, c < PG} z[t'*pt + a, g'*PG + c, l],
 // written once in the input dtype: (B, Tout, G / PG, 128), no lane matrix.
+// This FMA body serves float32 (the bf16 form runs epilogue_pg_mma_kernel).
 // Design: the same persistent blocks, w in shared memory (unpermuted) and
 // panels of 64 contiguous rows (64 / G time rows); each thread owns 4 panel
 // rows that make whole pooling groups (4 / (pt * PG) output rows) and 8
@@ -570,6 +747,27 @@ int launch_mma(const FwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The bfloat16 group pool: the tensor-core body.
+template <bool GLU, int PT, int PG, bool DROP>
+int launch_pg_mma(const FwdArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaFuncSetAttribute(epilogue_pg_mma_kernel<GLU, PT, PG, DROP>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         PG_MMA_SMEM);
+    configured = true;
+  }
+  const int tro = ROWS / a.G / PT;
+  const int grid = grid_size((long)a.B * ((a.Tout + tro - 1) / tro));
+  if (grid > 0)
+    epilogue_pg_mma_kernel<GLU, PT, PG, DROP>
+        <<<grid, NT, PG_MMA_SMEM, stream>>>(
+            static_cast<const __nv_bfloat16*>(a.h), a.inv, a.c,
+            static_cast<const __nv_bfloat16*>(a.w), a.b, a.bits, a.keep_k,
+            static_cast<__nv_bfloat16*>(a.out), a.B, a.Tin, a.Tout, a.G);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool GLU, int PT, int PG, bool DROP>
 int launch_pg(const FwdArgs& a, cudaStream_t stream) {
   static bool configured = false;
@@ -593,11 +791,17 @@ int launch_pg(const FwdArgs& a, cudaStream_t stream) {
 // runtime form -> template instance
 template <typename T, bool GLU, int PT, bool DROP>
 int run_form(const FwdArgs& a, cudaStream_t st) {
-  if constexpr (sizeof(T) == 2)
+  if constexpr (sizeof(T) == 2) {
     if (a.pc >= 8) return launch_mma<GLU, PT, DROP>(a, st);
-  if (a.pc > 0) return launch<T, GLU, PT, DROP>(a, st);
-  if (a.pg == 2) return launch_pg<T, GLU, PT, 2, DROP>(a, st);
-  return launch_pg<T, GLU, PT, 1, DROP>(a, st);
+    if (a.pc == 0)
+      return a.pg == 2 ? launch_pg_mma<GLU, PT, 2, DROP>(a, st)
+                       : launch_pg_mma<GLU, PT, 1, DROP>(a, st);
+    return launch<T, GLU, PT, DROP>(a, st);
+  } else {
+    if (a.pc > 0) return launch<T, GLU, PT, DROP>(a, st);
+    if (a.pg == 2) return launch_pg<T, GLU, PT, 2, DROP>(a, st);
+    return launch_pg<T, GLU, PT, 1, DROP>(a, st);
+  }
 }
 
 template <typename T, bool GLU, int PT>
@@ -619,6 +823,11 @@ int run_act(const FwdArgs& a, int act, int pt, cudaStream_t st) {
 // (0 = float32, 1 = bfloat16).
 extern "C" int bsed_stem_epilogue_smem_bytes(int dtype) {
   return dtype == 1 ? MMA_SMEM : (int)sizeof(Smem);
+}
+
+// The same for the group-pool form.
+extern "C" int bsed_stem_epilogue_pg_smem_bytes(int dtype) {
+  return dtype == 1 ? PG_MMA_SMEM : (int)sizeof(Smem);
 }
 
 // h: (B, Tin, G, 128); w: (128, 128), both in the input dtype

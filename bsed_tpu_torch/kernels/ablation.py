@@ -1,13 +1,16 @@
-"""Where the time of K2's and K3's tensor-core bodies goes: time copies of
-the two sources with one phase taken out.
+"""Where the time of a kernel goes: time copies of its source with one
+phase taken out.
 
     python -m bsed_tpu_torch.kernels.ablation [--block 0|1|2]
+    python -m bsed_tpu_torch.kernels.ablation --kernel stem
 
 The card has no kernel profiler that attributes time inside a kernel, so
 each variant is the source with a few lines edited away (the products, the
 dW chain, the gate, the dh stores, ...), built beside the real library and
-timed at one folded block's student shape (B=72, bfloat16, GLU, dropout
-bits) through the same C entry points. A variant computes wrong numbers by
+timed through the same C entry points: K2's and K3's tensor-core bodies at
+one folded block's student shape (B=72, bfloat16, GLU, dropout bits; the
+default), or K5, the fused block-0 stem, at the fused-stem path's shape
+(``--kernel stem``: B=64, T=1255, float32). A variant computes wrong numbers by
 design; only its time is read. What a phase costs is the base time minus
 the time without it; if the phases overlapped, the differences would sum to
 less than the base.
@@ -30,6 +33,7 @@ from bsed_tpu_torch import kernels
 Edit = Tuple[str, str]
 
 FWD, BWD, COMMON = "stem_epilogue", "stem_epilogue_bwd", "stem_common"
+STEM = "stem_kernel"
 
 # the edits, by phase: (source, text in it, replacement)
 PHASES: Dict[str, List[Tuple[str, str, str]]] = {
@@ -65,11 +69,21 @@ PHASES: Dict[str, List[Tuple[str, str, str]]] = {
               "fmaf(hv.y, iv.y, cv.y));",
          "          a[kb][half * 2 + r] = kb + r + tid;")],
     # K2
-    "fwd_no_product": [(FWD, "      wgmma_n64_reg_mn(acc,",
-                        "      if (tid < 0) wgmma_n64_reg_mn(acc,")],
+    "fwd_no_product": [(FWD, "    wgmma_n64_reg_mn(acc, a[kb],",
+                        "    if (t < 0) wgmma_n64_reg_mn(acc, a[kb],")],
     # both
     "cheap_sigmoid": [(COMMON, "  return __fdividef(1.f, 1.f + __expf(-v));",
                        "  return 0.5f + 0.01f * v;")],
+    # K5
+    "stem_no_sigmoid": [(STEM, "            acc += l * sigmoid_ex2(g);",
+                         "            acc += l * (0.5f + 0.01f * g);")],
+    "stem_no_convs": [(STEM, "            for (int kt = 0; kt < 3; ++kt)",
+                       "            for (int kt = 0; kt < 0; ++kt)")],
+    "stem_no_staging": [(STEM, "      cp_async16(st + r * RS + 4 * q,",
+                         "      if (i < 0) cp_async16(st + r * RS + 4 * q,")],
+    "stem_no_stores": [(STEM, "      store_out(dst + (size_t)r * FO * C, res);",
+                        "      if (res[0] == 1.2345f) "
+                        "store_out(dst + (size_t)r * FO * C, res);")],
 }
 
 # variant -> (the kernel it times, the phases taken out)
@@ -90,6 +104,13 @@ VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "k2_base": (FWD, ()),
     "k2_no_product": (FWD, ("fwd_no_product",)),
     "k2_cheap_sigmoid": (FWD, ("cheap_sigmoid",)),
+    "k5_base": (STEM, ()),
+    "k5_no_sigmoid": (STEM, ("stem_no_sigmoid",)),
+    "k5_no_convs": (STEM, ("stem_no_convs",)),
+    "k5_loads_stores_only": (STEM, ("stem_no_sigmoid", "stem_no_convs")),
+    "k5_no_staging": (STEM, ("stem_no_staging",)),
+    "k5_no_stores": (STEM, ("stem_no_stores",)),
+    "k5_compute_only": (STEM, ("stem_no_staging", "stem_no_stores")),
 }
 
 
@@ -97,9 +118,9 @@ def variants() -> Dict[str, Tuple[str, Dict[str, str]]]:
     """``{variant: (kernel source name, {file name: edited text})}`` for
     every variant; raises ValueError if an edit's text is not in its
     source."""
-    texts = {FWD: (kernels.SRC_DIR / f"{FWD}.cu").read_text(),
-             BWD: (kernels.SRC_DIR / f"{BWD}.cu").read_text(),
-             COMMON: (kernels.SRC_DIR / f"{COMMON}.cuh").read_text()}
+    texts = {name: (kernels.SRC_DIR / f"{name}.cu").read_text()
+             for name in (FWD, BWD, STEM)}
+    texts[COMMON] = (kernels.SRC_DIR / f"{COMMON}.cuh").read_text()
     out = {}
     for name, (kernel, phases) in VARIANTS.items():
         files = {f"{kernel}.cu": texts[kernel],
@@ -118,13 +139,16 @@ def variants() -> Dict[str, Tuple[str, Dict[str, str]]]:
     return out
 
 
-def build_variants() -> Dict[str, Tuple[str, ctypes.CDLL]]:
-    """Compile every variant (all nvcc processes started together) under
-    the kernels' build directory; ``{variant: (kernel, library)}``."""
+def build_variants(sources) -> Dict[str, Tuple[str, ctypes.CDLL]]:
+    """Compile every variant of the kernels in ``sources`` (all nvcc
+    processes started together) under the kernels' build directory;
+    ``{variant: (kernel, library)}``."""
     root = kernels.BUILD_DIR / "ablation"
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     jobs = {}
     for name, (kernel, files) in variants().items():
+        if kernel not in sources:
+            continue
         d = root / name
         d.mkdir(parents=True, exist_ok=True)
         for fname, text in files.items():
@@ -169,18 +193,11 @@ BLOCKS = ((1255, 2, 16), (627, 2, 32), (313, 1, 64))
 BATCH = 72
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--block", type=int, default=0, choices=(0, 1, 2))
-    args = parser.parse_args()
-    import torch
+def epilogue_calls(torch, dev, block: int, libs):
+    """{variant: call} for K2's and K3's variants at folded block
+    ``block``'s student shape."""
     from bsed_tpu_torch.ops import stem_epilogue as se
-    if not torch.cuda.is_available():
-        raise SystemExit("ablation: no CUDA device")
-    dev = torch.device("cuda")
-    libs = build_variants()
-
-    t_in, pt, pc = BLOCKS[args.block]
+    t_in, pt, pc = BLOCKS[block]
     gen = torch.Generator(device=dev).manual_seed(5)
     h = torch.randn((BATCH, t_in, 16, 128), generator=gen,
                     device=dev).bfloat16()
@@ -201,7 +218,7 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ws = torch.empty((sms, 128 * 128 + 3 * 128), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-
+    calls = {}
     for name, (kernel, lib) in libs.items():
         if kernel == FWD:
             fn = se._bind_fwd(lib)
@@ -221,10 +238,53 @@ def main() -> int:
                           dinv.data_ptr(), dc.data_ptr(), db.data_ptr(),
                           ws.data_ptr(), sms, 1, 0, pt, BATCH, t_in,
                           t_in // pt, 16, pc, 1, stream)
+        calls[name] = call
+    return calls, {"block": block, "batch": BATCH, "dtype": "bfloat16"}
+
+
+STEM_BATCH, STEM_T = 64, 1255
+
+
+def stem_calls(torch, dev, libs):
+    """{variant: call} for K5's variants at the fused-stem path's shape
+    (B=64, T=1255, float32), random folded parameters."""
+    from bsed_tpu_torch.ops import stem_kernel as sk
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((STEM_BATCH, STEM_T, 128), generator=gen, device=dev)
+    prm = 0.3 * torch.randn(sk.N_PACKED, generator=gen, device=dev)
+    out = torch.empty((STEM_BATCH, STEM_T // 2, 64, 16), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    calls = {}
+    for name, (_, lib) in libs.items():
+        fn = sk._bind(lib)
+
+        def call(fn=fn):
+            return fn(x.data_ptr(), prm.data_ptr(), out.data_ptr(),
+                      STEM_BATCH, STEM_T, STEM_T // 2, stream)
+        calls[name] = call
+    return calls, {"batch": STEM_BATCH, "frames": STEM_T,
+                   "dtype": "float32"}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernel", default="epilogue",
+                        choices=("epilogue", "stem"))
+    parser.add_argument("--block", type=int, default=0, choices=(0, 1, 2))
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("ablation: no CUDA device")
+    dev = torch.device("cuda")
+    if args.kernel == "stem":
+        calls, shape = stem_calls(torch, dev, build_variants((STEM,)))
+    else:
+        calls, shape = epilogue_calls(torch, dev, args.block,
+                                      build_variants((FWD, BWD)))
+    for name, call in calls.items():
         kernels.check(call(), f"ablation variant {name}")
         torch.cuda.synchronize()
-        print(json.dumps({"variant": name, "block": args.block,
-                          "batch": BATCH, "dtype": "bfloat16",
+        print(json.dumps({"variant": name, **shape,
                           "without": list(VARIANTS[name][1]),
                           "ms": time_ms(torch, call)}), flush=True)
     print(subprocess.run(

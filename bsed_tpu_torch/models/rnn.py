@@ -9,12 +9,17 @@ recurrence in XLA (``lax.scan``), so cuDNN runs it here. Dtype handling
 follows rnn.py:83-111: the input, the projection and the carry are in the
 compute dtype; the output is cast to float32.
 
-``bigru_hoisted`` is the JAX module's own form of the same network: one
-input-projection matmul per layer and direction, then both directions'
-recurrences in one walk over time (``gru_scan_bidir``, the port of
-``_gru_scan_bidir``, or kernel K4, ``ops/gru_kernel.py``, the port of the
-Pallas drop-in for it). ``bsed_tpu`` wires K4 into no path, and neither
-does the port: serving and training keep ``nn.GRU``.
+``HoistedBiGRU`` is the JAX module's own form of the same network, and
+the form the port serves (``serve.make_fast_forward``): one
+input-projection matmul per layer for both directions, then both
+directions' recurrences in one walk over time on kernel K4
+(``ops/gru_kernel.py``, the port of the Pallas drop-in for
+``_gru_scan_bidir``) or on K4's plain version; its weights are laid out
+once, when it is built. ``bigru_hoisted`` is the same network written as
+the JAX module writes it, laying the weights out on every call: the
+reference the built form is held to. ``gru_scan_bidir`` ports
+``_gru_scan_bidir`` itself (h carried in the compute dtype). Training
+keeps ``nn.GRU``: K4 is forward only, as the Pallas kernel is.
 
 Weights: serving casts them to the compute dtype once, at build time
 (``cast_weights=True``). Training keeps float32 master weights, as the JAX
@@ -97,15 +102,15 @@ class BidirectionalGRU(nn.Module):
 def bigru_hoisted(rnn: BidirectionalGRU, x: torch.Tensor,
                   use_kernel: bool = True) -> torch.Tensor:
     """Eval forward of ``rnn`` in ``bsed_tpu``'s hoisted form
-    (rnn.py:84-111): per layer and direction one (B·T, D) @ (D, 3H)
-    projection plus b_ih in the module's dtype, then the recurrence of both
-    directions on the stacked, flipped projections — kernel K4
-    (``gru_kernel.gru_bidir_recurrence``) or, with ``use_kernel=False``,
-    ``gru_scan_bidir``. Reads the weights of ``rnn.gru`` (torch names and
-    gate order); no inter-layer dropout. (B, T, n_in) → (B, T, 2H) float32.
-    """
+    (rnn.py:84-111), written as the JAX module writes it: per layer and
+    direction one (B·T, D) @ (D, 3H) projection plus b_ih in the module's
+    dtype, then the recurrence of both directions on the stacked, flipped
+    projections — kernel K4 (``gru_kernel.gru_bidir_recurrence``) or, with
+    ``use_kernel=False``, its plain version. Reads the weights of
+    ``rnn.gru`` (torch names and gate order) on every call; no inter-layer
+    dropout. (B, T, n_in) → (B, T, 2H) float32."""
     recurrence = (gru_kernel.gru_bidir_recurrence if use_kernel
-                  else gru_scan_bidir)
+                  else gru_kernel.gru_bidir_recurrence_plain)
     gru, cd = rnn.gru, rnn.dtype
     out = x.to(cd)
     for layer in range(gru.num_layers):
@@ -121,3 +126,42 @@ def bigru_hoisted(rnn: BidirectionalGRU, x: torch.Tensor,
         ys2 = recurrence(xp2, torch.stack(w_hh), torch.stack(b_hh))
         out = torch.cat([ys2[0], ys2[1].flip(1)], dim=-1)
     return out.float()
+
+
+class HoistedBiGRU:
+    """The eval BiGRU of ``rnn`` in ``bsed_tpu``'s hoisted form, with its
+    weights laid out once: per layer W_ih of both directions as one
+    (D, 6H) matrix and b_ih as one (6H,) vector in the module's dtype, and
+    W_hh, b_hh in K4's layout (``gru_kernel.prepare_weights``). A call
+    makes one projection a layer, stacks the directions (the reverse one
+    flipped in time), runs their recurrences in one call of K4
+    (``gru_kernel.recurrence``) or, with ``use_kernel=False``, of its plain
+    version, and concatenates them back. No inter-layer dropout (eval).
+    (B, T, n_in) → (B, T, 2H) float32, equal to ``bigru_hoisted``."""
+
+    def __init__(self, rnn: BidirectionalGRU, use_kernel: bool = True):
+        gru, cd = rnn.gru, rnn.dtype
+        self.dtype = cd
+        self.recurrence = (gru_kernel.recurrence if use_kernel
+                           else gru_kernel.recurrence_plain)
+        self.layers = []
+        with torch.no_grad():
+            for layer in range(gru.num_layers):
+                names = (f"l{layer}", f"l{layer}_reverse")
+                get = lambda kind: [getattr(gru, f"{kind}_{n}")  # noqa: E731
+                                    for n in names]
+                w_ih = torch.cat(get("weight_ih")).to(cd).T.contiguous()
+                b_ih = torch.cat(get("bias_ih")).to(cd)
+                self.layers.append((w_ih, b_ih, gru_kernel.prepare_weights(
+                    torch.stack(get("weight_hh")),
+                    torch.stack(get("bias_hh")), cd)))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.to(self.dtype)
+        for w_ih, b_ih, w_hh in self.layers:
+            xp = out @ w_ih + b_ih                       # (B, T, 6H)
+            g3 = xp.shape[-1] // 2
+            xp2 = torch.stack([xp[..., :g3], xp[..., g3:].flip(1)])
+            ys2 = self.recurrence(xp2, w_hh)
+            out = torch.cat([ys2[0], ys2[1].flip(1)], dim=-1)
+        return out.float()

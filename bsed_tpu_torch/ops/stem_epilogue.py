@@ -33,9 +33,11 @@ bfloat16 runs its 128×128 products on the tensor cores (``wgmma`` on
 core-matrix tiles, A fragments formed in registers, panels staged by
 ``cp.async``; K3's dW keeps float32-grade operands as inv·(hᵀ·dlin) +
 c·dbᵀ with h exact in bf16 and dlin split into bf16 hi and lo parts,
-``split_product``); float32 keeps FMA products on unrounded operands. See
-the sources for the fragment layout (``fragment_panel_row``) and the
-shared-memory budget (``kernel_shared_memory``).
+``split_product``; the group pool takes its pool pair through the
+fragment-row map, ``pool_output_row``); float32 keeps FMA products on
+unrounded operands. See the sources for the fragment layout
+(``fragment_panel_row``) and the shared-memory budget
+(``kernel_shared_memory``).
 
 ``pool_w`` must be the folded stem's pair-averaging matrix
 (``ops/folded_stem._freq_pool_matrix(f, 2, c)``): the kernels compute that
@@ -67,21 +69,26 @@ SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
 _TSB, _BSB = 272, 144    # shared-memory row strides of csrc/stem_common.cuh
 
 
-def fragment_panel_row(f: int, pt: int, groups: int) -> int:
+def fragment_panel_row(f: int, pt: int, groups: int, pg: int = 1) -> int:
     """The panel row (tl·groups + g) held by fragment row ``f`` of the
     tensor-core bodies (``panel_row`` in ``csrc/stem_common.cuh``).
     Fragment row f = 16·mb + i is row i of the panel's m16 tile mb (warp
     mb of a warpgroup); a thread (lane) holds rows i = lane//4 and
-    lane//4 + 8. For pt = 2 these two are the time pair (2·tp, g),
-    (2·tp + 1, g), so the time pool stays inside the thread; for pt = 1
-    the map is the identity."""
+    lane//4 + 8, pair q = 8·mb + lane//4. For pt = 2 these two are the time
+    pair (2·tp, g), (2·tp + 1, g), q = tp·groups + g, so the time pool
+    stays inside the thread (and with pg = 2 the pool's other pair, g ^ 1,
+    is pair q ^ 1: the thread 4 lanes away); for pt = 1 and pg = 2 they are
+    the group pair (tl, 2·g'), (tl, 2·g' + 1), rows 2q and 2q + 1; for
+    pt = pg = 1 the map is the identity."""
     if not 0 <= f < PANEL_ROWS:
         raise ValueError(f"fragment row {f} outside the {PANEL_ROWS}-row "
                          f"panel")
-    if pt == 1:
-        return f
     q = (f // 16) * 8 + f % 8                 # pair index, < 32
-    return (2 * (q // groups) + (f % 16) // 8) * groups + q % groups
+    if pt == 2:
+        return (2 * (q // groups) + (f % 16) // 8) * groups + q % groups
+    if pg == 2:
+        return 2 * q + (f % 16) // 8
+    return f
 
 
 def core_matrix_offset(row: int, col: int) -> int:
@@ -100,18 +107,35 @@ def lane_pool_source(out_lane: int, pool_c: int) -> int:
     return (out_lane // pool_c) * 2 * pool_c + out_lane % pool_c
 
 
-def panel_fragment_row(p: int, pt: int, groups: int) -> int:
+def panel_fragment_row(p: int, pt: int, groups: int, pg: int = 1) -> int:
     """The inverse of ``fragment_panel_row``: the fragment row that holds
     panel row ``p`` (``fragment_row`` in ``csrc/stem_common.cuh``). K3
     stages h in this order, so that the staged panel is the tensor-core
     operand of dW as it lies."""
     if not 0 <= p < PANEL_ROWS:
         raise ValueError(f"panel row {p} outside the {PANEL_ROWS}-row panel")
-    if pt == 1:
-        return p
-    tl = p // groups                           # time row in the panel
-    q = (tl // 2) * groups + p % groups        # pair index
-    return (q // 8) * 16 + (tl % 2) * 8 + q % 8
+    if pt == 2:
+        tl = p // groups                       # time row in the panel
+        q = (tl // 2) * groups + p % groups    # pair index
+        return (q // 8) * 16 + (tl % 2) * 8 + q % 8
+    if pg == 2:
+        return (p // 16) * 16 + (p % 2) * 8 + (p // 2) % 8
+    return p
+
+
+def pool_output_row(f: int, pt: int, pg: int) -> Optional[int]:
+    """The row of the pooled output panel that the thread holding fragment
+    row ``f`` writes in K2's bf16 group-pool body, or None if it writes
+    none: each pooled row once, by the thread with the even pair index
+    when the pool's two pairs sit 4 lanes apart (pt = pg = 2)."""
+    q = (f // 16) * 8 + f % 8
+    if pt * pg == 1:
+        return f
+    if f % 16 >= 8:                     # the second row of the thread's pair
+        return None
+    if pt * pg == 4:
+        return q // 2 if q % 2 == 0 else None
+    return q
 
 
 def split_product(h: torch.Tensor, inv: torch.Tensor, c: torch.Tensor,
@@ -142,20 +166,23 @@ SPLIT_PRODUCT_RTOL = 2.0 ** -15
 def kernel_body(dtype: torch.dtype, lane_form: bool = True,
                 pool_c: int = 16) -> Dict[str, str]:
     """Which body of K2 and K3 serves a form: ``mma`` (bfloat16, tensor
-    cores) or ``fma`` (float32; K2 also for the group pool and for the
-    4-channel lane pool, whose lane pairs fall inside one 8-column
-    fragment block). Mirrors the dispatch in the two sources."""
+    cores) or ``fma`` (float32; K2 also for the 4-channel lane pool, whose
+    lane pairs fall inside one 8-column fragment block). Mirrors the
+    dispatch in the two sources."""
     bf16 = dtype == torch.bfloat16
-    return {"fwd": "mma" if bf16 and lane_form and pool_c >= 8 else "fma",
+    return {"fwd": "mma" if bf16 and (not lane_form or pool_c >= 8)
+            else "fma",
             "bwd": "mma" if bf16 else "fma"}
 
 
-def kernel_shared_memory(kernel: str, dtype: torch.dtype) -> Dict[str, int]:
+def kernel_shared_memory(kernel: str, dtype: torch.dtype,
+                         lane_form: bool = True) -> Dict[str, int]:
     """Dynamic shared memory (bytes) of one block of ``kernel`` ('fwd' =
-    K2's lane-pool form, 'bwd' = K3) for ``dtype``, and the blocks per SM
-    the source claims for it; mirrors the layouts in the two sources
-    (the C entries ``bsed_stem_epilogue[_bwd]_smem_bytes`` report the same
-    numbers on the card)."""
+    K2, in its lane-pool form or, with ``lane_form=False``, its group-pool
+    form; 'bwd' = K3) for ``dtype``, and the blocks per SM the source
+    claims for it; mirrors the layouts in the two sources (the C entries
+    ``bsed_stem_epilogue[_pg|_bwd]_smem_bytes`` report the same numbers on
+    the card)."""
     stage_h, bits = PANEL_ROWS * _TSB, PANEL_ROWS * _BSB
     tile, wbytes = PANEL_ROWS * L * 2, L * L * 2
     if dtype == torch.bfloat16:
@@ -164,7 +191,7 @@ def kernel_shared_memory(kernel: str, dtype: torch.dtype) -> Dict[str, int]:
                 + 2 * (tile + stage_h + bits), 1
         else:                   # w, inv/c/b, 2 × (h, bits), the output panel
             nbytes, blocks = wbytes + 3 * L * 4 + 2 * (stage_h + bits) \
-                + bits, 2
+                + (bits if lane_form else stage_h), 2
     elif kernel == "bwd":       # w (padded), y and dlin in float32
         nbytes, blocks = (L * (L + 1) + 2 * PANEL_ROWS * L) * 4, 1
     else:                       # w and round(y) in float32

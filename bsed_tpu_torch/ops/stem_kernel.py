@@ -11,15 +11,16 @@ single-input-channel 3×3 convolutions (``fold_block0_params``):
     lin  = conv(x, w_lin) + b_lin           (BN and the GLU dense folded in)
     out  = avg_pool_2x2(lin · σ(gate))      (floor: an odd last row drops)
 
-Bound on the H100: operations. Per pixel 16 channels × 2 convs × 9 taps
-(576 FLOP) against 4 bytes of log-mel in and 16 bytes of pooled output out
-(B=64, T=1255: 5.9 GFLOP, 205 MB). Design: one thread block owns 4 pooled
-rows of one clip; it stages the (2·4+2) × 130 halo tile of log-mel in
-shared memory (zeros for the conv's padding) beside the 320 folded
-parameters, and each of its 256 threads owns one pooled (t', f') position
-for all 16 channels: a 4×4 input window in registers, both convs at the
-four positions the pool averages, and one contiguous 64-byte store, so
-adjacent threads write adjacent chunks of the channels-last output.
+Bound on the H100: operations. Per pixel 16 channels × (2 convs × 9 taps
++ a sigmoid) (672 FLOP) against 4 bytes of log-mel in and 4 bytes a
+channel of pooled output out (B=64, T=1255: 6.9 GFLOP, 205 MB). Design:
+persistent blocks of 512 threads, one an SM, walk over work items of
+``ROWS_PER_ITEM`` pooled rows of one clip (``work_items``); an item's halo
+tile of log-mel arrives by ``cp.async`` into a 2-deep ring
+(``ring_shared_memory``) while the previous item computes, and a thread
+keeps the taps and biases of 2 channels in registers, walks down the
+item's rows with its 4×4 input window and takes the sigmoid on the MUFU
+approximations (``ex2``, ``rcp``). See the source for the layout.
 
 The plain PyTorch version is ``reference_stem_block`` (the port of the
 JAX package's XLA reference); the wrapper takes it only for CPU tensors.
@@ -27,7 +28,7 @@ JAX package's XLA reference); the wrapper takes it only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -35,6 +36,33 @@ import torch.nn.functional as F
 
 N_MELS = 128
 N_CH = 16
+N_PACKED = 2 * 9 * N_CH + 2 * N_CH     # w_gate, w_lin, b_gate, b_lin
+ROWS_PER_ITEM = 16       # pooled rows of a work item (RT, csrc/stem_kernel.cu)
+_ROW_FLOATS = 136        # floats of a staged row: f = -1 .. 128 at 3 .. 132
+
+
+def ring_shared_memory() -> int:
+    """Bytes of K5's dynamic shared memory: two stages of an item's halo
+    tile, (2·ROWS_PER_ITEM + 2) rows of ``_ROW_FLOATS`` float32 (the C
+    entry ``bsed_stem_smem_bytes`` reports the same on the card)."""
+    return 2 * (2 * ROWS_PER_ITEM + 2) * _ROW_FLOATS * 4
+
+
+def work_items(batch: int, frames: int, blocks: int) -> List[List[tuple]]:
+    """The walk of K5's persistent blocks, as the kernel computes it: for
+    each of ``blocks`` blocks the (clip, first pooled row, rows) of the
+    items it takes, item i = block + k·blocks of batch · ⌈(T//2) /
+    ROWS_PER_ITEM⌉ items, clip-major."""
+    t_out = frames // 2
+    tiles = -(-t_out // ROWS_PER_ITEM)
+    walk = []
+    for blk in range(blocks):
+        mine = []
+        for item in range(blk, batch * tiles, blocks):
+            t0 = (item % tiles) * ROWS_PER_ITEM
+            mine.append((item // tiles, t0, min(ROWS_PER_ITEM, t_out - t0)))
+        walk.append(mine)
+    return walk
 
 
 def fold_block0_params(block_params: Mapping, block_stats: Mapping,
@@ -118,6 +146,8 @@ def fused_stem_block(x: torch.Tensor,
                          f"{x.device}")
     bsz, t = x.shape[:2]
     x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("stem kernel needs 16-byte aligned log-mel")
     out = torch.empty((bsz, t // 2, N_MELS // 2, N_CH), device=x.device,
                       dtype=torch.float32)
     from bsed_tpu_torch import kernels

@@ -3,10 +3,13 @@
 Port of ``bsed_tpu/serve.py`` (``make_fast_forward``,
 ``predict_long_recording``): mel front end → folded stem (blocks 0-2) →
 remaining conv blocks → BiGRU → predictor. On CUDA the front end is kernel
-K1 (``ops/mel_kernel.py``) and each folded block's epilogue is kernel K2
-(``ops/stem_epilogue.py``); the opt-in fused stem (``use_fused_stem``)
-runs block 0 as kernel K5 (``ops/stem_kernel.py``). Everything else is
-ordinary PyTorch/cuDNN, as the JAX package leaves it to XLA.
+K1 (``ops/mel_kernel.py``), each folded block's epilogue is kernel K2
+(``ops/stem_epilogue.py``), the opt-in fused stem (``use_fused_stem``)
+runs block 0 as kernel K5 (``ops/stem_kernel.py``), and every branch runs
+the BiGRU in ``bsed_tpu``'s hoisted form with both directions'
+recurrences of a layer in one call of kernel K4 (``ops/gru_kernel.py``,
+through ``models/rnn.HoistedBiGRU``). Everything else is ordinary
+PyTorch/cuDNN, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from bsed_tpu_torch.config import Config
 from bsed_tpu_torch.models.cnn import CNN
 from bsed_tpu_torch.models.crnn import CRNN, compute_dtype
 from bsed_tpu_torch.models.predictor import make_predictor_head
-from bsed_tpu_torch.models.rnn import BidirectionalGRU
+from bsed_tpu_torch.models.rnn import BidirectionalGRU, HoistedBiGRU
 from bsed_tpu_torch.ops import mel_kernel, stem_kernel
 from bsed_tpu_torch.ops.folded_stem import build_folded_stem
 from bsed_tpu_torch.ops.mel import PRECISIONS, MelFrontEnd
@@ -68,6 +71,9 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
     (``utils/weights.py``) in place of ``TrainModules``, the device is
     explicit, and ``use_kernels=False`` runs the kernels' plain PyTorch
     versions on any device (for holding the kernel path against them).
+    Every branch runs the BiGRU as ``bsed_tpu``'s module does, hoisted
+    (``HoistedBiGRU``: one projection a layer, both recurrences in one
+    call of K4, or of K4's plain version under ``use_kernels=False``).
 
     Auto choices (None) follow the JAX package with "on CUDA" for "on TPU":
     the mel kernel K1 runs when ``precision`` is 'high' or 'fast' and the
@@ -141,18 +147,18 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
                                dtype=dtype)
         weights.load_gru(rnn, enc_params["rnn"])
         rest.to(dev).eval()
-        rnn.to(dev).eval()
+        bigru = HoistedBiGRU(rnn.to(dev), use_kernel=use_kernels)
 
         def encode(mel):
-            h = rest(stem(mel)).squeeze(2)
-            return rnn(h)
+            return bigru(rest(stem(mel)).squeeze(2))
     else:
         encoder = CRNN(m)
         weights.load_crnn(encoder, enc_params, enc_stats)
         encoder.to(dev).eval()
+        bigru = HoistedBiGRU(encoder.rnn, use_kernel=use_kernels)
 
-        def encode(mel):
-            return encoder(mel)[0]
+        def encode(mel):                   # CRNN.forward, eval
+            return bigru(encoder.cnn(mel).squeeze(2))
 
     @torch.inference_mode()
     def forward(audio):

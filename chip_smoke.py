@@ -12,18 +12,22 @@ use, all sources in parallel) and drives every slice of the port:
     path
     (``make_fast_forward`` on preset ``baseline``, bf16, precision 'high',
     B=64 full 10 s clips, random weights from seed 0), which must launch K1
-    once and K2 three times per batch, and the float32 kernel path against
-    the plain path;
+    once, K2 three times and K4 twice (the hoisted BiGRU, one call a
+    layer) per batch, a profiled batch (device time, busy share, launches),
+    and the float32 kernel path against the plain path;
   * the fused-stem serving path: K5 (block 0) against its plain version at
-    B=64, then ``make_fast_forward(use_fused_stem=True)`` at B=64, which
-    must launch K1 and K5 once per batch and K2 never, held at B=8 against
-    the same path on the plain versions and against the standard CRNN path;
-  * K4 (the BiGRU recurrence, a 2-block cluster kernel, on no path of
-    either package) against its plain version at the serving shape in
-    float32 and bfloat16, a 2-layer BiGRU through the hoisted form + K4
-    against cuDNN's ``nn.GRU``, and their times beside cuDNN's: µs a step,
-    the cluster shape (RB, C), registers per thread and the hoisted
-    layer's glue on its own;
+    B=64, beside the standard block 0 (cuDNN conv + torch) as a yardstick,
+    then ``make_fast_forward(use_fused_stem=True)`` at B=64, which must
+    launch K1 and K5 once and K4 twice per batch and K2 never, held at B=8
+    against the same path on the plain versions and against the standard
+    CRNN path;
+  * K4 (the BiGRU recurrence, a 2-block cluster kernel) against its plain
+    version at the serving shape in float32 and bfloat16, the serving
+    BiGRU (``HoistedBiGRU``) against cuDNN's ``nn.GRU``, and times a layer
+    beside cuDNN's: µs a step, the cluster shape (RB, C), registers per
+    thread and the serving layer's glue on its own; then the two BiGRU
+    forms at the serving shape, 2 layers, bf16 and f32: host-clock wall
+    time in turns and each form's distance from the f32 plain form;
   * training: K2's train form (dropout bits) and K3 (its backward) against
     their plain versions at the student shapes (B=72), with the body that
     served each dtype (bfloat16: wgmma, float32: FMA), its registers and
@@ -37,7 +41,8 @@ use, all sources in parallel) and drives every slice of the port:
     step, a profiled step, and the float32 kernel step against the plain
     step;
   * K2's and K3's group-pool form (on no path of either package) against
-    their plain versions at the shapes of blocks 3-6 (B=72, G=16/8/4/2).
+    their plain versions at the shapes of blocks 3-6 (B=72, G=16/8/4/2),
+    with the body that served each dtype (bfloat16: wgmma for both).
 
 One JSON line per phase; then the card's name and power limit as
 nvidia-smi gives them, the kernels line, and last ``{"ok": true,
@@ -82,7 +87,9 @@ def bound(bytes_moved: float, flops_by_type: dict):
 
 
 def time_ms(fn, reps: int, warmup: int = 2):
-    """Median per-call device time (CUDA events, ms) of ``fn()``."""
+    """Median per-call time (CUDA events, ms) of ``fn()``: one call between
+    two events, so the time includes whatever host time of the wrapper the
+    card waits for (the ``ms`` of every kernel entry, PRs 1-6)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -97,6 +104,63 @@ def time_ms(fn, reps: int, warmup: int = 2):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def pipelined_ms(fn, reps: int = 10, warmup: int = 2, runs: int = 3):
+    """Time a call of ``fn()`` (ms) the other way: CUDA events around
+    ``reps`` back-to-back calls, divided by ``reps``, the median of
+    ``runs`` runs. The card queues the next call while it runs this one,
+    so a wrapper's host time is hidden where the call's device time
+    exceeds it (``ms_pipelined``, beside ``time_ms``'s ``ms``)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def device_rows(torch, run, calls: int = 1):
+    """``calls`` calls of ``run`` under torch.profiler: (events, the
+    self-time attribute, rows), rows being (device self time in µs, key,
+    count) of the device-side events only (kernels, memcpy, memset; the
+    operators that launch them repeat the same time), largest first."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    events = p.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    rows = sorted(((getattr(e, attr), e.key, e.count) for e in events
+                   if getattr(e, attr) > 0
+                   and "CUDA" in str(getattr(e, "device_type", ""))),
+                  reverse=True)
+    return events, attr, rows
+
+
+def kernel_device_ms(torch, fn, needle: str, reps: int = 10) -> float:
+    """The device time (ms) a call of ``fn()`` spends in kernels whose name
+    contains ``needle``, from torch.profiler over ``reps`` calls: no host
+    time at all."""
+    fn()
+    torch.cuda.synchronize()
+    _, _, rows = device_rows(torch, fn, reps)
+    total = sum(t for t, k, _ in rows if needle in k)
+    assert total > 0, f"no device time under {needle}"
+    return total / 1e3 / reps
 
 
 PTXAS = {}                        # source name -> ptxas report of this run
@@ -134,7 +198,8 @@ def body_report(se, torch, fwd: bool, lane_form: bool = True):
     """Which body served each dtype, with its resources."""
     src = "stem_epilogue" if fwd else "stem_epilogue_bwd"
     which = "fwd" if fwd else "bwd"
-    names = {("fwd", "mma"): "epilogue_mma_kernel",
+    names = {("fwd", "mma"): ("epilogue_mma_kernel" if lane_form
+                              else "epilogue_pg_mma_kernel"),
              ("fwd", "fma"): ("epilogue_kernel" if lane_form
                               else "epilogue_pg_kernel"),
              ("bwd", "mma"): "epilogue_bwd_mma_kernel",
@@ -327,8 +392,9 @@ def serve(dev, compute_dtype, use_kernels=True):
 
 def main_path(torch, dev, card, kernel_ms, profile_dir):
     """The serving path at B=64 full-width clips, bf16, precision 'high';
-    K1 must launch once and K2 three times per batch."""
-    from bsed_tpu_torch.ops import mel_kernel, stem_epilogue
+    K1 must launch once, K2 three times and K4 twice (one call a BiGRU
+    layer) per batch."""
+    from bsed_tpu_torch.ops import gru_kernel, mel_kernel, stem_epilogue
 
     cfg, forward = serve(dev, "bfloat16")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -340,19 +406,21 @@ def main_path(torch, dev, card, kernel_ms, profile_dir):
 
     mel_kernel.fused_block_mel.launches = 0
     stem_epilogue.stem_epilogue_fwd.launches = 0
+    gru_kernel.gru_bidir_recurrence.launches = 0
     t0 = time.perf_counter()
     for _ in range(N_TIMED):
         strong, weak = forward(audio)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {"mel_kernel": mel_kernel.fused_block_mel.launches,
-                "stem_epilogue": stem_epilogue.stem_epilogue_fwd.launches}
+                "stem_epilogue": stem_epilogue.stem_epilogue_fwd.launches,
+                "gru_kernel": gru_kernel.gru_bidir_recurrence.launches}
 
     assert strong.shape == (B_SERVE, cfg.n_frames, cfg.nclass), strong.shape
     assert weak.shape == (B_SERVE, cfg.nclass), weak.shape
     assert torch.isfinite(strong).all() and torch.isfinite(weak).all()
-    assert launches == {"mel_kernel": N_TIMED,
-                        "stem_epilogue": 3 * N_TIMED}, launches
+    assert launches == {"mel_kernel": N_TIMED, "stem_epilogue": 3 * N_TIMED,
+                        "gru_kernel": 2 * N_TIMED}, launches
     emit(phase="main_path", preset="baseline", compute_dtype="bfloat16",
          precision="high", batch=B_SERVE, batches=N_TIMED,
          strong=list(strong.shape), weak=list(weak.shape),
@@ -360,28 +428,25 @@ def main_path(torch, dev, card, kernel_ms, profile_dir):
          ms_per_batch=elapsed / N_TIMED * 1e3, launches=launches,
          kernel_median_ms=kernel_ms, card=card,
          weak_mean=float(weak.mean()), weak_std=float(weak.std()))
-    profile(torch, forward, audio, profile_dir)
+    profile(torch, lambda: forward(audio), elapsed / N_TIMED, profile_dir,
+            "profile", "serve_profile.txt", batch=B_SERVE)
     return launches
 
 
-def profile(torch, forward, audio, profile_dir, phase="profile",
-            table="serve_profile.txt"):
-    """Device time by kernel over one batch (torch.profiler); the top
-    entries are printed, the full table written to ``profile_dir``."""
-    from torch.profiler import ProfilerActivity, profile as prof
-
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        forward(audio)
-        torch.cuda.synchronize()
-    events = p.key_averages()
-    attr = ("device_time_total" if hasattr(events[0], "device_time_total")
-            else "cuda_time_total")
-    rows = sorted(((getattr(e, attr), e.key, e.count) for e in events
-                   if getattr(e, attr) > 0), reverse=True)
+def profile(torch, run, timed_s, profile_dir, phase, table, **kw):
+    """One call of ``run`` under torch.profiler (``device_rows``): device
+    self time by kernel, its sum against the timed call's wall time
+    (``timed_s``, from the phase's timed loop) and the count of
+    device-side events; the top entries are printed, the full table
+    written to ``profile_dir``."""
+    events, attr, rows = device_rows(torch, run)
     write_table(events, attr, profile_dir, table)
-    emit(phase=phase, batch=int(audio.shape[0]),
-         top=[{"name": k[:60], "ms": t / 1e3, "calls": n}
-              for t, k, n in rows[:12]])
+    busy_ms = sum(t for t, _, _ in rows) / 1e3
+    emit(phase=phase, **kw, device_ms=busy_ms, timed_ms=timed_s * 1e3,
+         device_busy_share=busy_ms / (timed_s * 1e3),
+         device_launches=sum(n for _, _, n in rows),
+         top=[{"name": k[:70], "ms": t / 1e3, "calls": n}
+              for t, k, n in rows[:30]])
 
 
 def write_table(events, attr, profile_dir, name):
@@ -412,16 +477,21 @@ def path_equality(torch, dev):
 def check_stem_kernel(torch, dev):
     """K5 against reference_stem_block at B=64, T=1255, float32 (gate
     2e-5 max |Δ|, tests/test_stem_kernel.py), block 0's weights from seed
-    0; times of both."""
+    0; times of both, and as a yardstick of the same work done the
+    standard way (not one library call of the same function): the port's
+    eval block 0 (``models/layers.ConvBlock``: cuDNN conv with TF32 off,
+    BatchNorm, GLU and the pool in torch) on the same input."""
     from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.models.layers import ConvBlock
     from bsed_tpu_torch.ops import stem_kernel as sk
+    from bsed_tpu_torch.utils import weights
     from bsed_tpu_torch.utils.weights import init_params
 
     cfg = get_config("baseline")
     params, stats = init_params(cfg, 0)
-    folded = sk.fold_block0_params(params["encoder"]["cnn"]["block0"],
-                                   stats["encoder"]["cnn"]["block0"],
-                                   device=dev)
+    p0 = params["encoder"]["cnn"]["block0"]
+    s0 = stats["encoder"]["cnn"]["block0"]
+    folded = sk.fold_block0_params(p0, s0, device=dev)
     t = cfg.audio.max_frames
     gen = torch.Generator(device=dev).manual_seed(12)
     x = torch.randn((B_SERVE, t, 128, 1), generator=gen, device=dev)
@@ -429,23 +499,46 @@ def check_stem_kernel(torch, dev):
     want = sk.reference_stem_block(x, folded)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (B_SERVE, t // 2, 64, 16), got.shape
+    assert torch.isfinite(got).all()
     err = float((got - want).abs().max())
     emit(phase="check_stem_kernel", shape=list(x.shape), dtype="float32",
          max_abs_err=err, gate=2e-5)
     assert err <= 2e-5, f"K5 differs from its plain version by {err}"
     ms = time_ms(lambda: sk.fused_stem_block(x, folded), 10)
+    ms_pipe = pipelined_ms(lambda: sk.fused_stem_block(x, folded))
+    device_ms = kernel_device_ms(torch, lambda: sk.fused_stem_block(x, folded),
+                                 "stem_kernel")
     plain_ms = time_ms(lambda: sk.reference_stem_block(x, folded), 5)
+    blk = ConvBlock(1, 16, (2, 2), "glu")
+    weights.load_conv_block(blk, p0, s0)
+    blk.to(dev).eval()
+    with torch.inference_mode():
+        like_err = float((blk(x) - want).abs().max())
+        like_ms = time_ms(lambda: blk(x), 10)
     pix = B_SERVE * (t // 2) * 2 * 128         # conv pixels the pool reads
     flops = pix * (16 * 2 * 9 * 2 + 16 * 6) + got.numel() * 5
-    nbytes = x.numel() * 4 + got.numel() * 4 + 320 * 4
+    nbytes = x.numel() * 4 + got.numel() * 4 + sk.N_PACKED * 4
     b_ms, b_by = bound(nbytes, {"float32": flops})
     return {"name": "stem_kernel", "route": "cuda",
             "source": "bsed_tpu_torch/csrc/stem_kernel.cu",
             "replaces": "bsed_tpu/ops/stem_kernel.py:137",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "ms_pipelined": ms_pipe,
+            "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "like_for_like_ms": like_ms,
+            "like_for_like": "models/layers.ConvBlock block 0, eval: cuDNN "
+                             "conv (TF32 off) + BN + GLU + 2x2 pool in "
+                             "torch, same input",
+            "like_for_like_max_abs_err": like_err,
+            "resources": kernel_resources("stem_kernel", "stem_kernel"),
+            "phases": "python -m bsed_tpu_torch.kernels.ablation --kernel "
+                      "stem",
             "gflop_per_call": flops / 1e9, "mb_per_call": nbytes / 1e6,
-            "times_are": "one B=64 float32 block-0 forward"}
+            "times_are": "one B=64 float32 block-0 forward; ms is one "
+                         "call between two CUDA events (as PRs 1-5), "
+                         "ms_pipelined a run of back-to-back calls, "
+                         "device_ms the kernel's own device time "
+                         "(profiler)"}
 
 
 def fused_stem_forward(dev, use_kernels=True, **kw):
@@ -468,12 +561,14 @@ def fused_stem_forward(dev, use_kernels=True, **kw):
 def fused_stem_path(torch, dev, card, profile_dir):
     """The fused-stem serving path (preset baseline, precision 'high',
     blocks 1-6 and the GRU in float32): B=64, 2 warm-up and 5 timed
-    batches, K1 and K5 once per batch and K2 never, and one profiled
+    batches, K1 and K5 once and K4 twice per batch and K2 never, and one
+    profiled
     batch (``fused_stem_profile.txt``). Then at B=8: against
     the same path on the plain versions (2e-3, as path_equality) and
     against the standard CRNN path with kernels (1e-4,
     test_stem_kernel.py::test_fast_forward_matches_standard_path)."""
-    from bsed_tpu_torch.ops import mel_kernel, stem_epilogue, stem_kernel
+    from bsed_tpu_torch.ops import (gru_kernel, mel_kernel, stem_epilogue,
+                                    stem_kernel)
 
     cfg, forward = fused_stem_forward(dev, use_fused_stem=True)
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -486,6 +581,7 @@ def fused_stem_path(torch, dev, card, profile_dir):
     mel_kernel.fused_block_mel.launches = 0
     stem_kernel.fused_stem_block.launches = 0
     stem_epilogue.stem_epilogue_fwd.launches = 0
+    gru_kernel.gru_bidir_recurrence.launches = 0
     t0 = time.perf_counter()
     for _ in range(N_TIMED):
         strong, weak = forward(audio)
@@ -493,18 +589,20 @@ def fused_stem_path(torch, dev, card, profile_dir):
     elapsed = time.perf_counter() - t0
     launches = {"mel_kernel": mel_kernel.fused_block_mel.launches,
                 "stem_kernel": stem_kernel.fused_stem_block.launches,
-                "stem_epilogue": stem_epilogue.stem_epilogue_fwd.launches}
+                "stem_epilogue": stem_epilogue.stem_epilogue_fwd.launches,
+                "gru_kernel": gru_kernel.gru_bidir_recurrence.launches}
     assert strong.shape == (B_SERVE, cfg.n_frames, cfg.nclass), strong.shape
     assert torch.isfinite(strong).all() and torch.isfinite(weak).all()
     assert launches == {"mel_kernel": N_TIMED, "stem_kernel": N_TIMED,
-                        "stem_epilogue": 0}, launches
+                        "stem_epilogue": 0, "gru_kernel": 2 * N_TIMED}, \
+        launches
     emit(phase="fused_stem_path", preset="baseline", compute_dtype="float32",
          precision="high", batch=B_SERVE, batches=N_TIMED,
          clips_per_s=B_SERVE * N_TIMED / elapsed,
          ms_per_batch=elapsed / N_TIMED * 1e3, launches=launches, card=card,
          weak_mean=float(weak.mean()), weak_std=float(weak.std()))
-    profile(torch, forward, audio, profile_dir, "fused_stem_profile",
-            "fused_stem_profile.txt")
+    profile(torch, lambda: forward(audio), elapsed / N_TIMED, profile_dir,
+            "fused_stem_profile", "fused_stem_profile.txt", batch=B_SERVE)
     del forward, strong, weak, audio
     torch.cuda.empty_cache()
 
@@ -525,22 +623,23 @@ def fused_stem_path(torch, dev, card, profile_dir):
 
 
 GRU_T = 313                       # serving frames after the CNN
+N_GRU = 10                        # timed calls of each BiGRU form
 
 
-def hoisted_glue(torch, rnn, x):
-    """The hoisted layer's work outside K4, as ``bigru_hoisted`` does it
-    for one layer: two projection matmuls + b_ih, flip, stack, then flip
-    and cat of an output of K4's shape."""
-    gru, cd = rnn.gru, rnn.dtype
-    x = x.to(cd)
-    ys2 = torch.zeros((2,) + x.shape[:2] + (gru.hidden_size,), device=x.device,
-                      dtype=cd)
+def hoisted_glue(torch, bigru, x):
+    """The serving BiGRU's work a layer outside K4, as ``HoistedBiGRU``
+    does it for its first layer: one projection of both directions + b_ih,
+    the stack with the reverse half flipped, then flip and cat of an
+    output of K4's shape."""
+    w_ih, b_ih, _ = bigru.layers[0]
+    x = x.to(bigru.dtype)
+    ys2 = torch.zeros((2,) + x.shape[:2] + (w_ih.shape[1] // 6,),
+                      device=x.device, dtype=bigru.dtype)
 
     def glue():
-        xps = [x @ getattr(gru, f"weight_ih_l0{s}").to(cd).T
-               + getattr(gru, f"bias_ih_l0{s}").to(cd)
-               for s in ("", "_reverse")]
-        torch.stack([xps[0], xps[1].flip(1)])
+        xp = x @ w_ih + b_ih
+        g3 = xp.shape[-1] // 2
+        torch.stack([xp[..., :g3], xp[..., g3:].flip(1)])
         return torch.cat([ys2[0], ys2[1].flip(1)], dim=-1)
     return glue
 
@@ -548,13 +647,13 @@ def hoisted_glue(torch, rnn, x):
 def check_gru_kernel(torch, dev):
     """K4 at the serving shape (B=64, T=313, H=128): against its plain
     version (float32 1e-5; bfloat16 within 3e-2 of the float32 plain
-    recurrence), a 2-layer BiGRU in the hoisted form + K4 against cuDNN's
-    nn.GRU on the same weights (float32, 1e-4); times of K4 per layer (and
-    per step), of one hoisted layer (projection matmul + K4), of that
-    layer's glue alone and of cuDNN's one-layer bidirectional nn.GRU, in
-    both dtypes, with the cluster shape (RB, C) and registers per thread.
-    Launches are counted over the timed K4 calls."""
-    from bsed_tpu_torch.models.rnn import BidirectionalGRU, bigru_hoisted
+    recurrence), the serving 2-layer BiGRU (``HoistedBiGRU`` on K4)
+    against cuDNN's nn.GRU on the same weights (float32, 1e-4); times of
+    K4 per layer (and per step), of one serving layer (projection matmul +
+    K4 + glue), of that layer's glue alone and of cuDNN's one-layer
+    bidirectional nn.GRU, in both dtypes, with the cluster shape (RB, C)
+    and registers per thread."""
+    from bsed_tpu_torch.models.rnn import BidirectionalGRU, HoistedBiGRU
     from bsed_tpu_torch.ops import gru_kernel as gk
 
     gen = torch.Generator(device=dev).manual_seed(14)
@@ -574,7 +673,7 @@ def check_gru_kernel(torch, dev):
     rnn = BidirectionalGRU(h, h, 2).to(dev).eval()
     x = torch.randn((B_SERVE, GRU_T, h), generator=gen, device=dev)
     with torch.no_grad():
-        err_net = float((bigru_hoisted(rnn, x) - rnn(x)).abs().max())
+        err_net = float((HoistedBiGRU(rnn)(x) - rnn(x)).abs().max())
     torch.cuda.synchronize()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     resident = gk.resident_clusters(dev)
@@ -593,17 +692,16 @@ def check_gru_kernel(torch, dev):
     assert err16 <= 3e-2, f"K4 bfloat16 differs by {err16}"
     assert err_net <= 1e-4, f"hoisted BiGRU + K4 vs nn.GRU: {err_net}"
 
-    res, launches = {}, 0
+    res = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
         a = (xp2.to(dt), w.to(dt), bias.to(dt))
         one = BidirectionalGRU(h, h, 1, dtype=dt).to(dev).eval()
-        n0 = gk.gru_bidir_recurrence.launches
+        served = HoistedBiGRU(one)
         with torch.no_grad():
             k = time_ms(lambda: gk.gru_bidir_recurrence(*a), 10)
-            launches += gk.gru_bidir_recurrence.launches - n0
-            hoisted = time_ms(lambda: bigru_hoisted(one, x), 10)
-            glue = time_ms(hoisted_glue(torch, one, x), 10)
+            hoisted = time_ms(lambda: served(x), 10)
+            glue = time_ms(hoisted_glue(torch, served, x), 10)
             lib = time_ms(lambda: one(x), 10)
         plain = time_ms(lambda: gk.gru_bidir_recurrence_plain(*a), 3,
                         warmup=1)
@@ -635,12 +733,69 @@ def check_gru_kernel(torch, dev):
             "hoisted_layer_ms": f32["hoisted_layer_ms"],
             "glue_ms": f32["glue_ms"], "rows_per_cluster": rows,
             "cluster": cluster, "registers_per_thread": regs,
-            "bf16": res["bfloat16"], "launches": launches,
+            "bf16": res["bfloat16"],
             "times_are": "one layer, both directions, B=64, T=313, float32; "
                          "library_ms is cuDNN's one-layer bidirectional GRU "
                          "with its input projection, to be set against "
-                         "hoisted_layer_ms; the floor is 313 dependent "
-                         "steps, not the bound"}
+                         "hoisted_layer_ms (the serving layer: projection, "
+                         "K4, glue); the floor is 313 dependent steps, not "
+                         "the bound"}
+
+
+def bigru_forms(torch, dev, card):
+    """The serving BiGRU's two forms at the serving shape (B=64, T=313, 2
+    layers, random baseline weights from seed 0), in bf16 and f32: the
+    hoisted form on K4 (``HoistedBiGRU``, what serving runs) and cuDNN's
+    nn.GRU (``BidirectionalGRU``, what training runs). Host clock around
+    N_GRU calls ending in synchronize(), the forms in turns (K4, cuDNN,
+    cuDNN, K4): the host's time launching cuDNN's per-timestep kernels is
+    what the hoisted form removes, so CUDA events alone would hide it.
+    Accuracy: each form's max |Δ| from the f32 hoisted form on K4's plain
+    version; the bf16 K4 form within 3e-2 (tests/test_gru_kernel.py)."""
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.models.rnn import BidirectionalGRU, HoistedBiGRU
+    from bsed_tpu_torch.utils import weights
+    from bsed_tpu_torch.utils.weights import init_params
+
+    params, _ = init_params(get_config("baseline"), 0)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn((B_SERVE, GRU_T, 128), generator=gen, device=dev)
+
+    def module(dtype):
+        rnn = BidirectionalGRU(128, 128, 2, dtype=dtype)
+        weights.load_gru(rnn, params["encoder"]["rnn"])
+        return rnn.to(dev).eval()
+
+    def wall_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_GRU):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / N_GRU * 1e3
+
+    with torch.inference_mode():
+        want = HoistedBiGRU(module(None), use_kernel=False)(x)
+        res = {}
+        for dt in (torch.bfloat16, torch.float32):
+            rnn = module(dt)
+            forms = {"hoisted_k4": HoistedBiGRU(rnn), "cudnn": rnn}
+            times = {k: [] for k in forms}
+            for k in ("hoisted_k4", "cudnn", "cudnn", "hoisted_k4"):
+                times[k].append(wall_ms(lambda: forms[k](x)))
+            errs = {k: float((f(x) - want).abs().max())
+                    for k, f in forms.items()}
+            res[str(dt).split(".")[1]] = {
+                k: {"wall_ms": times[k], "max_abs_err_vs_f32_plain": errs[k]}
+                for k in forms}
+    emit(phase="bigru_forms", batch=B_SERVE, frames=GRU_T, layers=2,
+         calls=N_GRU, gate_bf16_hoisted=3e-2, card=card, **res)
+    err16 = res["bfloat16"]["hoisted_k4"]["max_abs_err_vs_f32_plain"]
+    err32 = res["float32"]["hoisted_k4"]["max_abs_err_vs_f32_plain"]
+    assert err16 <= 3e-2, f"bf16 hoisted BiGRU on K4 vs f32: {err16}"
+    assert err32 <= 1e-5, f"f32 hoisted BiGRU on K4 vs plain: {err32}"
+    return res
 
 
 PG_BLOCKS = ((3, 16), (4, 8), (5, 4), (6, 2))   # blocks 3-6: (block, G)
@@ -746,6 +901,11 @@ def check_stem_epilogue_pg(torch, dev):
                                                       keep_k, pg), 10)
             launches["fwd"] += se.stem_epilogue_fwd.launches - n0[0]
             launches["bwd"] += se.stem_epilogue_bwd.launches - n0[1]
+            kf_pipe = pipelined_ms(lambda: se.stem_epilogue_fwd(
+                *args, 0, bits, keep_k, pg))
+            kf_dev = kernel_device_ms(
+                torch, lambda: se.stem_epilogue_fwd(*args, 0, bits, keep_k,
+                                                    pg), "epilogue_pg")
             pf = time_ms(lambda: se.stem_epilogue_plain(*args, bits, keep_k,
                                                         pg), 5)
             pb = time_ms(lambda: se.stem_epilogue_bwd_plain(
@@ -762,7 +922,9 @@ def check_stem_epilogue_pg(torch, dev):
             tot["bwd"]["bound_ms_fma_dw"] = \
                 tot["bwd"].get("bound_ms_fma_dw", 0.0) + bound(
                     bb, {"bfloat16": 2 * mm, "float32": mm + n * 20})[0]
-            rec_b = {"block": blk, "G": g, "fwd_ms": kf, "fwd_plain_ms": pf,
+            rec_b = {"block": blk, "G": g, "fwd_ms": kf,
+                     "fwd_ms_pipelined": kf_pipe, "fwd_device_ms": kf_dev,
+                     "fwd_plain_ms": pf,
                      "bwd_ms": kb, "bwd_plain_ms": pb}
             for acc, k, pl, nbytes, ops, tag in (
                     (tot["fwd"], kf, pf, fb, f_ops, "fwd"),
@@ -773,6 +935,8 @@ def check_stem_epilogue_pg(torch, dev):
                 acc["t_bytes"] += nbytes / H100_BYTES_PER_S
                 acc["t_ops"] += sum(v / H100_FLOPS[t] for t, v in ops.items())
                 rec_b[tag + "_bound_ms"] = bound(nbytes, ops)[0]
+            for key, v in (("ms_pipelined", kf_pipe), ("device_ms", kf_dev)):
+                tot["fwd"][key] = tot["fwd"].get(key, 0.0) + v
             per_block.append(rec_b)
         del h32, w32, bits, gz32, h, w, gz, got, want, g1, g2, gp
         torch.cuda.empty_cache()
@@ -782,7 +946,8 @@ def check_stem_epilogue_pg(torch, dev):
     def entry(name, src, replaces, t, err, n, fwd):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "max_abs_err": err,
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "ms": t["ms"], "ms_pipelined": t.get("ms_pipelined"),
+                "device_ms": t.get("device_ms"), "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"],
                 "bound_by": ("bytes" if t["t_bytes"] >= t["t_ops"]
                              else "operations"),
@@ -791,7 +956,12 @@ def check_stem_epilogue_pg(torch, dev):
                 "blocks": own_blocks(per_block, fwd),
                 "times_are": "sum over blocks 3-6 (G=16/8/4/2) of one B=72 "
                              "bf16 forward/backward with dropout bits, "
-                             "pt=1, pg=2"}
+                             "pt=1, pg=2; ms is one call between two "
+                             "CUDA events (as PRs 1-5), ms_pipelined a run "
+                             "of back-to-back calls, device_ms the "
+                             "kernel's own device time (profiler); "
+                             "launches are the calls timed for ms (no path "
+                             "runs it)"}
     return (entry("stem_epilogue_pg", "bsed_tpu_torch/csrc/stem_epilogue.cu",
                   "bsed_tpu/ops/stem_epilogue.py:307", tot["fwd"],
                   worst["fwd_bf16"], launches["fwd"], True)
@@ -1041,30 +1211,10 @@ def train_path(torch, dev, card, profile_dir):
 
 
 def train_profile(torch, state, step, batch, step_s, profile_dir):
-    """One train step under torch.profiler: device self time by kernel
-    (top entries printed, the full table to ``profile_dir``)."""
-    from torch.profiler import ProfilerActivity, profile as prof
-
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        step(state, batch, 1, 30.0)
-        torch.cuda.synchronize()
-    events = p.key_averages()
-    attr = ("self_device_time_total"
-            if hasattr(events[0], "self_device_time_total")
-            else "self_cuda_time_total")
-    # device-side events only (kernels, memcpy, memset): the operators
-    # that launch them repeat the same time
-    rows = sorted(((getattr(e, attr), e.key, e.count) for e in events
-                   if getattr(e, attr) > 0
-                   and "CUDA" in str(getattr(e, "device_type", ""))),
-                  reverse=True)
-    write_table(events, attr, profile_dir, "train_profile.txt")
-    busy_ms = sum(t for t, _, _ in rows) / 1e3
-    emit(phase="train_profile", device_ms=busy_ms,
-         timed_step_ms=step_s * 1e3,
-         device_busy_share=busy_ms / (step_s * 1e3),
-         top=[{"name": k[:70], "ms": t / 1e3, "calls": n}
-              for t, k, n in rows[:30]])
+    """One train step under torch.profiler (``profile``), then the GRU's
+    weight cast."""
+    profile(torch, lambda: step(state, batch, 1, 30.0), step_s, profile_dir,
+            "train_profile", "train_profile.txt")
     gru_weight_cast(torch, state.model.encoder.rest.rnn.gru.weight_ih_l0.device)
 
 
@@ -1188,6 +1338,8 @@ def main() -> int:
     k5["launches"] = fused_stem_path(torch, dev, smi,
                                      args.profile_dir)["stem_kernel"]
     k4 = check_gru_kernel(torch, dev)
+    k4["launches"] = launches["gru_kernel"]
+    bigru_forms(torch, dev, smi)
     torch.cuda.empty_cache()
 
     k2t, k3 = check_stem_epilogue_train(torch, dev)

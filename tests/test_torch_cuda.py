@@ -10,13 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from bsed_tpu_torch.config import AudioConfig
-from bsed_tpu_torch.models.rnn import (BidirectionalGRU, bigru_hoisted,
-                                       gru_scan_bidir)
+import dataclasses
+
+from bsed_tpu_torch.config import AudioConfig, get_config
+from bsed_tpu_torch.models.rnn import (BidirectionalGRU, HoistedBiGRU,
+                                       bigru_hoisted, gru_scan_bidir)
 from bsed_tpu_torch.ops import (gru_kernel, mel, mel_kernel, stem_epilogue,
                                 stem_kernel)
 from bsed_tpu_torch.ops.filterbank import mel_filterbank
 from bsed_tpu_torch.ops.folded_stem import _freq_pool_matrix
+from bsed_tpu_torch.serve import make_fast_forward
+from bsed_tpu_torch.utils.weights import init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -265,6 +269,17 @@ def test_stem_epilogue_bwd_ignores_nan_in_dropped_rows(dev, dtype,
     assert float(got[0][:, -1].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_pool_shared_memory_matches_source(dev, dtype):
+    """K2's group-pool form requests the bytes the Python helper states."""
+    import ctypes
+    from bsed_tpu_torch import kernels
+    entry = kernels.load("stem_epilogue").bsed_stem_epilogue_pg_smem_bytes
+    entry.restype, entry.argtypes = ctypes.c_int, [ctypes.c_int]
+    want = stem_epilogue.kernel_shared_memory("fwd", dtype, False)["bytes"]
+    assert entry(int(dtype is torch.bfloat16)) == want
+
+
 @pytest.mark.parametrize("dtype,body", [(torch.float32, "fma"),
                                         (torch.bfloat16, "mma")])
 def test_stem_epilogue_shared_memory_matches_sources(dev, dtype, body):
@@ -288,14 +303,7 @@ def test_stem_kernel_matches_plain(dev, t):
     """K5 against reference_stem_block, float32, 2e-5
     (tests/test_stem_kernel.py); odd T drops the last row."""
     rng = np.random.default_rng(7)
-    p0 = {"conv": {"kernel": rng.normal(0, 0.3, (3, 3, 1, 16)),
-                   "bias": rng.normal(0, 0.1, 16)},
-          "bn": {"scale": rng.uniform(0.5, 1.5, 16),
-                 "bias": rng.normal(0, 0.1, 16)},
-          "GLU_0": {"linear": {"kernel": rng.normal(0, 0.3, (16, 16)),
-                               "bias": rng.normal(0, 0.1, 16)}}}
-    s0 = {"bn": {"mean": rng.normal(0, 0.1, 16),
-                 "var": rng.uniform(0.5, 1.5, 16)}}
+    p0, s0 = _stem_params(rng)
     folded = stem_kernel.fold_block0_params(p0, s0, device=dev)
     x = torch.from_numpy(rng.standard_normal((3, t, 128, 1)).astype(
         np.float32)).to(dev)
@@ -306,6 +314,50 @@ def test_stem_kernel_matches_plain(dev, t):
     assert stem_kernel.fused_stem_block.launches == before + 1
     assert got.shape == want.shape == (3, t // 2, 64, 16)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+def _stem_params(rng):
+    p0 = {"conv": {"kernel": rng.normal(0, 0.3, (3, 3, 1, 16)),
+                   "bias": rng.normal(0, 0.1, 16)},
+          "bn": {"scale": rng.uniform(0.5, 1.5, 16),
+                 "bias": rng.normal(0, 0.1, 16)},
+          "GLU_0": {"linear": {"kernel": rng.normal(0, 0.3, (16, 16)),
+                               "bias": rng.normal(0, 0.1, 16)}}}
+    s0 = {"bn": {"mean": rng.normal(0, 0.1, 16),
+                 "var": rng.uniform(0.5, 1.5, 16)}}
+    return p0, s0
+
+
+@pytest.mark.parametrize("t", [2, 3, 255, 1255])
+@pytest.mark.parametrize("batch", [1, 3, 64])
+def test_stem_kernel_shapes_match_plain(dev, batch, t):
+    """K5 against reference_stem_block, float32, 2e-5, at T = 2 and 3 (one
+    pooled row, one work item cut short), 255 and 1255 (ragged last item),
+    over batch sizes. The clips sit between NaN rows of their neighbours
+    in memory: the conv's padding at the clip edges must come from the
+    kernel's zero fill, so the output is finite."""
+    rng = np.random.default_rng(17)
+    p0, s0 = _stem_params(rng)
+    folded = stem_kernel.fold_block0_params(p0, s0, device=dev)
+    buf = torch.full((batch + 2, t, 128, 1), float("nan"), device=dev)
+    buf[1:batch + 1] = torch.from_numpy(rng.standard_normal(
+        (batch, t, 128, 1)).astype(np.float32)).to(dev)
+    x = buf[1:batch + 1]
+    got = stem_kernel.fused_stem_block(x, folded)
+    want = stem_kernel.reference_stem_block(x, folded)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (batch, t // 2, 64, 16)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+def test_stem_kernel_shared_memory_matches_source(dev):
+    """K5's ring is the bytes ring_shared_memory states."""
+    import ctypes
+    from bsed_tpu_torch import kernels
+    entry = kernels.load("stem_kernel").bsed_stem_smem_bytes
+    entry.restype, entry.argtypes = ctypes.c_int, []
+    assert entry() == stem_kernel.ring_shared_memory()
 
 
 @pytest.mark.parametrize("t", [1, 32, 313])
@@ -333,15 +385,46 @@ def test_gru_kernel_matches_plain(dev, batch, t):
 
 def test_hoisted_bigru_kernel_matches_nn_gru(dev):
     """A 2-layer BiGRU through the hoisted form + K4 against the module's
-    own nn.GRU (cuDNN) on the same weights, float32, 1e-4."""
+    own nn.GRU (cuDNN) on the same weights, float32, 1e-4; the serving
+    form (weights laid out once) equals the per-call form to 1e-6."""
     torch.manual_seed(0)
     rnn = BidirectionalGRU(128, 128, 2).to(dev).eval()
     x = torch.randn((4, 50, 128), device=dev)
+    before = gru_kernel.gru_bidir_recurrence.launches
     with torch.no_grad():
         got = bigru_hoisted(rnn, x)
+        served = HoistedBiGRU(rnn)(x)
         want = rnn(x)
     torch.cuda.synchronize()
+    assert gru_kernel.gru_bidir_recurrence.launches == before + 4
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(served, got, rtol=1e-6, atol=1e-6)
+
+
+def test_bf16_serving_path_close_to_f32_plain_path(dev):
+    """make_fast_forward in bfloat16 on the kernels (K1, K2 and the
+    hoisted BiGRU on K4: 2 launches a batch) against the float32 path on
+    the plain versions, 2 s clips, heads widened so posteriors spread:
+    within 1e-2 (on the CPU the same comparison of the plain versions
+    differs by ~1e-3)."""
+    cfg = get_config("baseline").replace(
+        audio=AudioConfig(max_len_seconds=2.0))
+    params, stats = init_params(cfg, 0)
+    for head in params["predictor"].values():
+        head["kernel"] *= 30.0
+    c16 = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype="bfloat16"))
+    audio = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, cfg.audio.n_samples)).astype(np.float32) * 0.1).to(dev)
+    before = gru_kernel.gru_bidir_recurrence.launches
+    got = make_fast_forward(c16, params, stats, device=dev)(audio)
+    assert gru_kernel.gru_bidir_recurrence.launches == before + 2
+    want = make_fast_forward(cfg, params, stats, device=dev,
+                             use_kernels=False)(audio)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-2)
 
 
 @pytest.mark.parametrize("g,pt,pg", [(16, 1, 2), (2, 1, 2), (8, 2, 2),
@@ -381,3 +464,38 @@ def test_stem_epilogue_group_pool_matches_plain(dev, g, pt, pg, with_bits):
     for name, a, e in zip("h inv c w b".split(), grads, want_g):
         torch.testing.assert_close(a.float(), e.float(), rtol=2e-4,
                                    atol=2e-4, msg=f"grad {name}")
+
+
+@pytest.mark.parametrize("g", [16, 8, 4, 2])
+@pytest.mark.parametrize("pt,pg", [(1, 1), (1, 2), (2, 1), (2, 2)])
+@pytest.mark.parametrize("act", ["glu", "cg"])
+@pytest.mark.parametrize("with_bits", [False, True])
+@pytest.mark.parametrize("batch", [1, 3, 72])
+@pytest.mark.parametrize("t_in", [20, 21])
+def test_group_pool_bf16_tensor_core_body(dev, g, pt, pg, act, with_bits,
+                                          batch, t_in):
+    """K2-pg in bfloat16 (the wgmma body, kernel_body 'mma') against the
+    plain chain over G, both pools, both gates, dropout bits on and off,
+    batch sizes and even and odd T: 0.06 rtol + atol."""
+    assert stem_epilogue.kernel_body(torch.bfloat16, False)["fwd"] == "mma"
+    rng = np.random.default_rng(31 + g + 10 * pt + 100 * pg)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).to(dev)
+    h = f(batch, t_in, g, 128).bfloat16()
+    inv, c, b = f(128) * 0.2 + 1.0, f(128) * 0.3, f(128) * 0.1
+    w = (f(128, 128) / np.sqrt(128)).bfloat16()
+    bits = (torch.from_numpy(rng.integers(0, 256, (batch, t_in * g, 128),
+                                          dtype=np.uint8)).to(dev)
+            if with_bits else None)
+    keep_k = 128 if with_bits else 0
+    before = stem_epilogue.stem_epilogue_fwd.launches
+    got = stem_epilogue.stem_epilogue_fwd(h, inv, c, w, b, act, pt, None, 0,
+                                          bits, keep_k, pg)
+    want = stem_epilogue.stem_epilogue_plain(h, inv, c, w, b, act, pt, None,
+                                             bits, keep_k, pg)
+    torch.cuda.synchronize()
+    assert stem_epilogue.stem_epilogue_fwd.launches == before + 1
+    assert got.shape == want.shape == (batch, t_in // pt, g // pg, 128)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.06,
+                               atol=0.06)

@@ -7,7 +7,11 @@ against the JAX Pallas kernel in interpret mode and against
 ``_gru_scan_bidir`` at 1e-5 in float32; in bfloat16 within 3e-2 of the
 float32 scan (tests/test_gru_kernel.py). A whole 2-layer BiGRU in the
 hoisted form, through either recurrence, is held against bsed_tpu's
-BidirectionalGRU and against the port's cuDNN-form ``nn.GRU`` at 1e-4."""
+BidirectionalGRU and against the port's cuDNN-form ``nn.GRU`` at 1e-4.
+The serving form (``HoistedBiGRU``, weights laid out once) equals the
+per-call form to 1e-6 in float32, and in bfloat16 on K4's plain version
+stays within 3e-2 of bsed_tpu's float32 module (tests/test_gru_kernel.py's
+gate for the JAX kernel in bfloat16)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +23,8 @@ from bsed_tpu.models.rnn import _gru_scan_bidir
 from bsed_tpu.ops.gru_kernel import gru_bidir_recurrence as j_recurrence
 
 from bsed_tpu_torch.config import get_config
-from bsed_tpu_torch.models.rnn import (BidirectionalGRU, bigru_hoisted,
-                                       gru_scan_bidir)
+from bsed_tpu_torch.models.rnn import (BidirectionalGRU, HoistedBiGRU,
+                                       bigru_hoisted, gru_scan_bidir)
 from bsed_tpu_torch.ops import gru_kernel
 from bsed_tpu_torch.utils import weights
 from bsed_tpu_torch.utils.weights import init_params
@@ -96,6 +100,51 @@ def test_hoisted_bigru_matches_jax_and_nn_gru(use_kernel):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.numpy(), cudnn_form.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+def _rnn_and_input(seed, dtype=None, shape=(3, 40, 128)):
+    params, _ = init_params(get_config("baseline"), seed)
+    rnn_params = params["encoder"]["rnn"]
+    x = np.random.default_rng(seed + 1).standard_normal(shape).astype(
+        np.float32)
+    rnn = BidirectionalGRU(128, 128, 2, dtype=dtype).eval()
+    weights.load_gru(rnn, rnn_params)
+    return rnn_params, rnn, x
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_built_weights_match_per_call_form(use_kernel):
+    """HoistedBiGRU lays W_ih of both directions out as one (D, 6H)
+    matrix and W_hh in K4's layout once; the result is the per-call form's
+    (two projections a layer, the layout made in the K4 wrapper) to 1e-6,
+    and no launch happens on CPU tensors."""
+    _, rnn, x = _rnn_and_input(7)
+    before = gru_kernel.gru_bidir_recurrence.launches
+    with torch.no_grad():
+        built = HoistedBiGRU(rnn, use_kernel=use_kernel)
+        got = built(torch.from_numpy(x))
+        want = bigru_hoisted(rnn, torch.from_numpy(x), use_kernel=use_kernel)
+    assert gru_kernel.gru_bidir_recurrence.launches == before
+    assert got.shape == (3, 40, 256) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    w_ih, b_ih, w_hh = built.layers[1]
+    assert w_ih.shape == (256, 768) and b_ih.shape == (768,)
+    assert w_hh.w_t2.shape == (2, 128, 384) and w_hh.b2.dtype == torch.float32
+
+
+def test_bf16_hoisted_on_plain_recurrence_close_to_jax_f32():
+    """The serving form in bfloat16 (projections and h rounded to bf16,
+    state carried in f32, as K4 computes) on K4's plain version, against
+    bsed_tpu's float32 BidirectionalGRU on the same weights: 3e-2."""
+    rnn_params, rnn, x = _rnn_and_input(9, torch.bfloat16, (2, 64, 128))
+    with jax.default_matmul_precision("float32"):
+        want = np.asarray(JBidirectionalGRU(128, 2).apply(
+            {"params": rnn_params}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = HoistedBiGRU(rnn, use_kernel=False)(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-2)
 
 
 def test_rows_per_block_fills_one_wave():

@@ -108,6 +108,26 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
         make_fast_forward(cfg, params, stats)          # device="cuda"
 
 
+@pytest.mark.parametrize("kw", [{}, {"use_folded_stem": False},
+                                {"use_fused_stem": True}])
+def test_serving_runs_the_hoisted_bigru(monkeypatch, kw):
+    """Folded, standard and fused-stem branches run the BiGRU in
+    bsed_tpu's hoisted form (K4's recurrence, its plain version on the
+    CPU): with nn.GRU's forward made to raise, each still serves."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("serving reached nn.GRU")
+    monkeypatch.setattr(torch.nn.GRU, "forward", refuse)
+    _, cfg, params, stats = _pair(SMALL, seed=7)
+    audio = np.random.default_rng(8).standard_normal(
+        (2, cfg.audio.n_samples)).astype(np.float32)
+    for use_kernels in (True, False):
+        strong, weak = make_fast_forward(cfg, params, stats, device="cpu",
+                                         use_kernels=use_kernels,
+                                         **kw)(audio)
+        assert strong.shape == (2, cfg.n_frames, 20)
+        assert torch.isfinite(strong).all() and torch.isfinite(weak).all()
+
+
 def test_fused_stem_with_cg_falls_through_to_standard():
     """The fused stem exists only for GLU: with context gating
     ``use_fused_stem=True`` runs the standard CRNN branch, as in JAX."""

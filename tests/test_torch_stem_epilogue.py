@@ -176,7 +176,7 @@ def test_kernel_shared_memory_fits_the_sm(kernel, dtype):
     (torch.bfloat16, True, 16, {"fwd": "mma", "bwd": "mma"}),
     (torch.bfloat16, True, 64, {"fwd": "mma", "bwd": "mma"}),
     (torch.bfloat16, True, 4, {"fwd": "fma", "bwd": "mma"}),
-    (torch.bfloat16, False, 0, {"fwd": "fma", "bwd": "mma"}),
+    (torch.bfloat16, False, 0, {"fwd": "mma", "bwd": "mma"}),
     (torch.float32, True, 16, {"fwd": "fma", "bwd": "fma"}),
     (torch.float32, False, 0, {"fwd": "fma", "bwd": "fma"})])
 def test_kernel_body_by_dtype_and_form(dtype, lane_form, pc, want):

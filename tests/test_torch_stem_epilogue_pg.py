@@ -74,3 +74,77 @@ def test_group_pool_form_is_checked():
         se.check_group_form(3, 1, 1)
     with pytest.raises(ValueError, match="G | 64"):
         se.check_group_form(64, 2, 1)
+
+
+# ---- the bf16 group-pool body's index algebra (epilogue_pg_mma_kernel) ----
+
+GROUP_FORMS = [(g, pt, pg) for g in (1, 2, 4, 8, 16, 32, 64)
+               for pt in (1, 2) for pg in (1, 2)
+               if se.PANEL_ROWS % g == 0 and (se.PANEL_ROWS // g) % pt == 0
+               and g % pg == 0]
+
+
+def _pool_group(p, g, pt, pg):
+    """The output row of the panel (t', g') that panel row p pools into."""
+    tl, gi = divmod(p, g)
+    return (tl // pt) * (g // pg) + gi // pg
+
+
+@pytest.mark.parametrize("g,pt,pg", GROUP_FORMS)
+def test_group_fragment_rows_are_pool_groups(g, pt, pg):
+    """For every (G, pt, pg) check_group_form admits: the fragment-row map
+    is a bijection onto the 64-row panel with its inverse, a thread's two
+    rows (i, i + 8 of an m16 tile) lie in one pool group, and when pt = pg
+    = 2 the thread 4 lanes away (rows i ^ 1, i ^ 1 + 8) holds the rest of
+    that group; each pooled row is written once, by a thread that holds
+    its whole group."""
+    se.check_group_form(g, pt, pg)
+    rows = [se.fragment_panel_row(f, pt, g, pg) for f in range(64)]
+    assert sorted(rows) == list(range(64))
+    for f, p in enumerate(rows):
+        assert se.panel_fragment_row(p, pt, g, pg) == f
+    written = {}
+    ru = pt * pg
+    for mb in range(4):
+        for i in range(8):
+            f = 16 * mb + i
+            mine = [rows[f], rows[f + 8]]
+            if ru == 4:
+                mine += [rows[f ^ 1], rows[(f ^ 1) + 8]]
+            groups = {_pool_group(p, g, pt, pg) for p in mine}
+            if ru > 1:
+                assert len(groups) == 1 and len(set(mine)) == ru
+            for r, f_r in enumerate((f, f + 8)):
+                out = se.pool_output_row(f_r, pt, pg)
+                if out is None:
+                    continue
+                want = (_pool_group(rows[f_r], g, pt, pg) if ru == 1
+                        else groups.pop() if len(groups) == 1 else None)
+                assert out == want and out not in written
+                written[out] = f_r
+    assert sorted(written) == list(range(64 // ru))
+
+
+def test_group_pool_map_keeps_the_lane_and_time_forms():
+    """pg = 1 leaves K2's and K3's earlier map as it was: the identity for
+    pt = 1 and the time pairs for pt = 2."""
+    for f in range(64):
+        assert se.fragment_panel_row(f, 1, 16) == f
+        assert se.fragment_panel_row(f, 1, 16, 1) == f
+        for g in (1, 2, 16):
+            assert (se.fragment_panel_row(f, 2, g, 2)
+                    == se.fragment_panel_row(f, 2, g, 1))
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, 104_960),
+                                        (torch.float32, 98_304)])
+def test_group_pool_body_shared_memory(dtype, want):
+    """K2-pg's bf16 body holds w, inv/c/b, two stages of (h, bits) and a
+    pooled panel of 128-lane rows at the 272-byte stride; two blocks fit
+    an SM with the 1 KB each reserves. The f32 FMA body keeps w and
+    round(y) in float32. Its body is mma in bf16, fma in f32."""
+    got = se.kernel_shared_memory("fwd", dtype, lane_form=False)
+    assert got == {"bytes": want, "blocks_per_sm": 2}
+    assert 2 * (got["bytes"] + 1024) <= 228 * 1024
+    body = "mma" if dtype == torch.bfloat16 else "fma"
+    assert se.kernel_body(dtype, lane_form=False)["fwd"] == body

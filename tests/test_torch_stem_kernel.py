@@ -122,3 +122,33 @@ def test_stem_impl_is_checked():
     with pytest.raises(ValueError, match="stem_impl"):
         make_fast_forward(cfg, params, stats, device="cpu",
                           use_fused_stem=True, stem_impl="xla")
+
+
+# ---- K5's persistent walk and its ring (csrc/stem_kernel.cu) ---------------
+
+@pytest.mark.parametrize("t", [2, 3, 8, 1255])
+@pytest.mark.parametrize("blocks", [1, 3, 132, 5000])
+def test_work_items_cover_every_pooled_row_once(t, blocks):
+    """The persistent blocks' walk takes every pooled row of every clip
+    exactly once, in items of at most ROWS_PER_ITEM rows, for any block
+    count (more blocks than items leaves the rest idle)."""
+    batch = 3
+    walk = sk.work_items(batch, t, blocks)
+    assert len(walk) == blocks
+    seen = [(clip, t0 + r) for items in walk for clip, t0, rows in items
+            for r in range(rows)]
+    assert sorted(seen) == [(c, r) for c in range(batch)
+                            for r in range(t // 2)]
+    assert all(0 < rows <= sk.ROWS_PER_ITEM and t0 % sk.ROWS_PER_ITEM == 0
+               for items in walk for _, t0, rows in items)
+    sizes = [len(items) for items in walk]
+    assert max(sizes) - min(sizes) <= 1         # round robin
+
+
+def test_ring_shared_memory_holds_two_halo_tiles():
+    """Two stages of an item's (2·RT + 2)-row halo tile, rows of 136
+    floats (f = -1 .. 128 with 16-byte aligned copies of f = 0 .. 127);
+    far below what a block may use (the kernel runs one block an SM)."""
+    rows = 2 * sk.ROWS_PER_ITEM + 2
+    assert sk.ring_shared_memory() == 2 * rows * 136 * 4 == 36_992
+    assert sk.ring_shared_memory() + 1024 <= 228 * 1024
