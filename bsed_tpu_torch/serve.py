@@ -55,6 +55,82 @@ def _fold_divides(pooling, fold0: int = 8) -> bool:
     return True
 
 
+def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
+                  *, use_folded_stem: Optional[bool] = None,
+                  use_fused_epilogue: Optional[bool] = None,
+                  use_fused_stem: bool = False,
+                  stem_impl: str = "pallas",
+                  use_kernels: bool = True) -> Callable:
+    """The eval-mode CRNN encoder on ``dev`` from the encoder's flax-layout
+    trees: ``encode(log_mel (B, T, F, 1)) -> (B, T', 2H)`` float32, the
+    input in NHWC layout. Shared by ``make_fast_forward`` and
+    ``train.steps.make_predict_fn``; the options are
+    ``make_fast_forward``'s (see there). Every branch runs the BiGRU
+    hoisted (``HoistedBiGRU``: K4, or its plain version under
+    ``use_kernels=False``)."""
+    if stem_impl not in ("pallas", "reference"):
+        raise ValueError(f"unknown stem_impl {stem_impl}")
+    m = cfg.model
+    folded = (use_folded_stem is not False and not use_fused_stem
+              and not m.use_fpn
+              and m.kernel_size == 3
+              and m.activation in ("glu", "cg", "relu", "leakyrelu")
+              and cfg.audio.n_mels % 8 == 0
+              and m.predictor_head != "crnn"
+              and _fold_divides(m.pooling))
+    fused = (use_fused_stem and not folded and not m.use_fpn
+             and m.activation == "glu" and cfg.audio.n_mels == 128)
+    if not (folded or fused):
+        encoder = CRNN(m)
+        weights.load_crnn(encoder, enc_params, enc_stats)
+        encoder.to(dev).eval()
+        bigru = HoistedBiGRU(encoder.rnn, use_kernel=use_kernels)
+
+        def encode(mel):                   # CRNN.forward, eval
+            return bigru(encoder.cnn(mel).squeeze(2))
+        return encode
+    if folded:
+        dtype = compute_dtype(m)
+        if use_fused_epilogue is None:
+            use_fused_epilogue = dev.type == "cuda"
+        stem, start = build_folded_stem(
+            enc_params["cnn"], enc_stats["cnn"], m.nb_filters,
+            tuple(tuple(p) for p in m.pooling), activation=m.activation,
+            n_mels=cfg.audio.n_mels, dtype=dtype,
+            fused_epilogue=use_fused_epilogue, device=dev,
+            use_kernels=use_kernels)
+    else:
+        dtype, start = None, 1        # float32, as bsed_tpu builds them
+        fold = stem_kernel.fold_block0_params(
+            enc_params["cnn"]["block0"], enc_stats["cnn"]["block0"],
+            device=dev)
+        stem_fn = (stem_kernel.fused_stem_block
+                   if stem_impl == "pallas" and use_kernels
+                   else stem_kernel.reference_stem_block)
+
+        def stem(mel):
+            return stem_fn(mel, fold)
+    rest = _RestCNN(cfg, start=start, dtype=dtype)
+    weights.load_cnn(rest, enc_params["cnn"], enc_stats["cnn"])
+    rnn = BidirectionalGRU(m.nb_filters[-1], m.n_rnn_cell,
+                           m.n_layers_rnn, m.dropout_recurrent,
+                           dtype=dtype)
+    weights.load_gru(rnn, enc_params["rnn"])
+    rest.to(dev).eval()
+    bigru = HoistedBiGRU(rnn.to(dev), use_kernel=use_kernels)
+
+    def encode(mel):
+        return bigru(rest(stem(mel)).squeeze(2))
+    return encode
+
+
+def build_predictor(cfg: Config, pred_params: Dict, dev) -> torch.nn.Module:
+    """The eval-mode predictor head on ``dev`` from its flax-layout tree."""
+    predictor = make_predictor_head(cfg)
+    weights.load_predictor(predictor, pred_params)
+    return predictor.to(dev).eval()
+
+
 def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
                       device="cuda", precision: str = "high",
                       mel_algorithm: Optional[str] = None,
@@ -91,8 +167,6 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
     dev = resolve_device(device)
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision}")
-    if stem_impl not in ("pallas", "reference"):
-        raise ValueError(f"unknown stem_impl {stem_impl}")
     a = cfg.audio
     if mel_algorithm is None:
         mel_algorithm = (
@@ -100,65 +174,14 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
             if (precision in ("high", "fast") and dev.type == "cuda"
                 and mel_kernel.supports(a.n_window, a.hop_size, a.n_mels))
             else "dense")
+    encode = build_encoder(cfg, params["encoder"], batch_stats["encoder"],
+                           dev, use_folded_stem=use_folded_stem,
+                           use_fused_epilogue=use_fused_epilogue,
+                           use_fused_stem=use_fused_stem,
+                           stem_impl=stem_impl, use_kernels=use_kernels)
+    predictor = build_predictor(cfg, params["predictor"], dev)
     fe = MelFrontEnd(a, algorithm=mel_algorithm, device=dev,
                      use_kernel=use_kernels)
-    enc_params = params["encoder"]
-    enc_stats = batch_stats["encoder"]
-    m = cfg.model
-    predictor = make_predictor_head(cfg)
-    weights.load_predictor(predictor, params["predictor"])
-    predictor.to(dev).eval()
-
-    folded = (use_folded_stem is not False and not use_fused_stem
-              and not m.use_fpn
-              and m.kernel_size == 3
-              and m.activation in ("glu", "cg", "relu", "leakyrelu")
-              and a.n_mels % 8 == 0
-              and m.predictor_head != "crnn"
-              and _fold_divides(m.pooling))
-    fused = (use_fused_stem and not folded and not m.use_fpn
-             and m.activation == "glu" and a.n_mels == 128)
-    if folded or fused:
-        if folded:
-            dtype = compute_dtype(m)
-            if use_fused_epilogue is None:
-                use_fused_epilogue = dev.type == "cuda"
-            stem, start = build_folded_stem(
-                enc_params["cnn"], enc_stats["cnn"], m.nb_filters,
-                tuple(tuple(p) for p in m.pooling), activation=m.activation,
-                n_mels=a.n_mels, dtype=dtype,
-                fused_epilogue=use_fused_epilogue, device=dev,
-                use_kernels=use_kernels)
-        else:
-            dtype, start = None, 1        # float32, as bsed_tpu builds them
-            fold = stem_kernel.fold_block0_params(
-                enc_params["cnn"]["block0"], enc_stats["cnn"]["block0"],
-                device=dev)
-            stem_fn = (stem_kernel.fused_stem_block
-                       if stem_impl == "pallas" and use_kernels
-                       else stem_kernel.reference_stem_block)
-
-            def stem(mel):
-                return stem_fn(mel, fold)
-        rest = _RestCNN(cfg, start=start, dtype=dtype)
-        weights.load_cnn(rest, enc_params["cnn"], enc_stats["cnn"])
-        rnn = BidirectionalGRU(m.nb_filters[-1], m.n_rnn_cell,
-                               m.n_layers_rnn, m.dropout_recurrent,
-                               dtype=dtype)
-        weights.load_gru(rnn, enc_params["rnn"])
-        rest.to(dev).eval()
-        bigru = HoistedBiGRU(rnn.to(dev), use_kernel=use_kernels)
-
-        def encode(mel):
-            return bigru(rest(stem(mel)).squeeze(2))
-    else:
-        encoder = CRNN(m)
-        weights.load_crnn(encoder, enc_params, enc_stats)
-        encoder.to(dev).eval()
-        bigru = HoistedBiGRU(encoder.rnn, use_kernel=use_kernels)
-
-        def encode(mel):                   # CRNN.forward, eval
-            return bigru(encoder.cnn(mel).squeeze(2))
 
     @torch.inference_mode()
     def forward(audio):

@@ -19,6 +19,8 @@ randomness — teacher noise, ISP shifts, dropout bits — comes from one
 folds the step count into its key; the draws differ from JAX's, so parity
 tests inject them.
 
+``make_predict_fn`` is the port of the JAX package's inference function.
+
 Not ported (ROADMAP item 8): the other ISP flavours, ICT mixup, domain
 adaptation, the exp_step ramp, real-stream supervision, normalisation
 statistics and the unfolded train encoder.
@@ -131,9 +133,15 @@ class TrainModel(nn.Module):
 
 @dataclasses.dataclass
 class TrainModules:
+    """What the train step and the predict function build their models
+    from. ``build_modules`` also checks that the train step supports the
+    configuration; inference (``make_predict_fn``) needs no such check, so
+    evaluation builds this directly. ``norm_stats``: the dataset's
+    (mean, std) of the log-mel per mel bin, as (F,) arrays, or None."""
     cfg: Config
     device: torch.device
     use_kernels: bool = True
+    norm_stats: Optional[tuple] = None
 
     def make_model(self) -> TrainModel:
         return TrainModel(self.cfg, self.device,
@@ -357,3 +365,62 @@ def make_train_step(modules: TrainModules):
         return metrics
 
     return train_step
+
+
+def make_predict_fn(modules: TrainModules, norm_stats="train"):
+    """Inference: ``predict(params, batch_stats, mel, inference=False,
+    apply_log=True) -> (strong (B, T', C), weak (B, C))``, float32 tensors
+    on ``modules.device``, with BN running averages and no dropout
+    (get_predictions contract, evaluation_measures.py:163-182). ``mel`` is
+    linear mel (B, T, F) (log-mel with ``apply_log=False``), a tensor on
+    any device or a numpy array; it runs under ``torch.inference_mode()``.
+
+    norm_stats: "train" uses ``modules.norm_stats``; None disables
+    normalization (TestModel.py semantics); an explicit (mean, std) pair
+    ((F,) arrays) normalizes with those.
+
+    Differs from ``bsed_tpu.train.steps.make_predict_fn`` in how it reaches
+    the model: the encoder is ``serve.build_encoder`` (folded stem with
+    kernel K2's eval form on the card for blocks 0-2 where the topology
+    folds, the BiGRU hoisted on kernel K4; their plain versions under
+    ``modules.use_kernels=False``) and the head ``serve.build_predictor``,
+    built from ``params``/``batch_stats`` (flax-layout trees) at the first
+    call and again whenever a call passes other tree objects
+    (``predict.prepare(params, batch_stats)`` builds them ahead)."""
+    from bsed_tpu_torch.serve import build_encoder, build_predictor
+
+    cfg, dev = modules.cfg, modules.device
+    if norm_stats == "train":
+        norm_stats = modules.norm_stats
+    nm = None
+    if norm_stats is not None:
+        nm = tuple(torch.as_tensor(np.asarray(a, np.float32),
+                                   device=dev)[:, None] for a in norm_stats)
+    if cfg.model.predictor_head == "crnn":
+        raise NotImplementedError(f"the 'crnn' predictor head {_LATER}")
+    built = {}
+
+    def models(params, batch_stats):
+        if built.get("trees") != (id(params), id(batch_stats)):
+            built.clear()
+            built["encode"] = build_encoder(
+                cfg, params["encoder"], batch_stats["encoder"], dev,
+                use_kernels=modules.use_kernels)
+            built["predictor"] = build_predictor(cfg, params["predictor"],
+                                                 dev)
+            # the trees are held so their ids stay theirs
+            built["trees"] = (id(params), id(batch_stats))
+            built["held"] = (params, batch_stats)
+        return built["encode"], built["predictor"]
+
+    @torch.inference_mode()
+    def predict(params, batch_stats, mel, inference=False, apply_log=True):
+        encode, predictor = models(params, batch_stats)
+        mel = torch.as_tensor(mel, device=dev).float()
+        x = _log_input(mel) if apply_log else mel[..., None]
+        if nm is not None:
+            x = (x - nm[0]) / nm[1]
+        return predictor(encode(x), inference=inference)
+
+    predict.prepare = models        # build for (params, batch_stats) now
+    return predict

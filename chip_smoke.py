@@ -40,6 +40,17 @@ use, all sources in parallel) and drives every slice of the port:
     from seed 0), which must launch K2 six times and K3 three times per
     step, a profiled step, and the float32 kernel step against the plain
     step;
+  * the eval path: ``evaluate_checkpoint`` on a checkpoint of preset
+    baseline (full width, random weights from seed 0, written with the
+    port's ``export_torch_checkpoint``) over 256 synthetic clips resident
+    on the card at B=64, with the kernels (K2 eval three times and K4
+    twice a batch) and on their plain versions: scores, wall seconds by
+    phase, clips/s, posteriors within the float32 serving gate, every
+    flipped binarized frame within that gate of the threshold, and card
+    and host decoding giving identical event tables;
+  * the loader-fed train step: a ``ThreeStreamLoader`` resident on the
+    card feeds the flagship train step (same keys, shapes and dtypes as
+    the random batch), ms a step beside the random-batch step's;
   * K2's and K3's group-pool form (on no path of either package) against
     their plain versions at the shapes of blocks 3-6 (B=72, G=16/8/4/2),
     with the body that served each dtype (bfloat16: wgmma for both).
@@ -154,12 +165,17 @@ def device_rows(torch, run, calls: int = 1):
 def kernel_device_ms(torch, fn, needle: str, reps: int = 10) -> float:
     """The device time (ms) a call of ``fn()`` spends in kernels whose name
     contains ``needle``, from torch.profiler over ``reps`` calls: no host
-    time at all."""
+    time at all. Up to three profiled windows: a window can come back
+    with no record of a kernel launched through ctypes (seen once, for K5,
+    in a run whose other profiles had their kernels)."""
     fn()
     torch.cuda.synchronize()
-    _, _, rows = device_rows(torch, fn, reps)
-    total = sum(t for t, k, _ in rows if needle in k)
-    assert total > 0, f"no device time under {needle}"
+    for _ in range(3):
+        _, _, rows = device_rows(torch, fn, reps)
+        total = sum(t for t, k, _ in rows if needle in k)
+        if total > 0:
+            break
+    assert total > 0, f"no device time under {needle} in three windows"
     return total / 1e3 / reps
 
 
@@ -1207,7 +1223,7 @@ def train_path(torch, dev, card, profile_dir):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          loss=values["loss"], card=card)
     train_profile(torch, state, step, batch, step_s, profile_dir)
-    return launches
+    return launches, step_s * 1e3
 
 
 def train_profile(torch, state, step, batch, step_s, profile_dir):
@@ -1293,6 +1309,225 @@ def train_equality(torch, dev):
     assert stats_err <= 1e-5, f"BN statistics differ by {stats_err}"
 
 
+N_EVAL_CLIPS = 256                # eval_path's synthetic clips
+B_EVAL = 64
+EVAL_THRESHOLDS = (0.5,)
+EVAL_GATE = 2e-3                  # float32 serving gate (path_equality)
+
+
+def eval_path(torch, dev, card):
+    """Evaluate a checkpoint on the card, as a user does
+    (``eval.test_model.evaluate_checkpoint``): preset baseline at full
+    width, random weights from seed 0 written with the port's
+    ``export_torch_checkpoint``, an ``EvalLoader`` over
+    ``SyntheticDataSource(n_items=256, seed=0)`` at B=64, resident on the
+    card; once with the kernels (K2 eval three times and K4 twice a batch
+    must launch) and once on their plain versions. Gates: posteriors
+    within the float32 serving gate; every binarized frame that differs
+    has a plain posterior within that gate of the threshold; decoding the
+    plain posteriors on the card and on the host gives identical event
+    tables."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.data.datasets import SyntheticDataSource
+    from bsed_tpu_torch.data.pipeline import EvalLoader
+    from bsed_tpu_torch.eval.decode import decode_batch
+    from bsed_tpu_torch.eval.test_model import (evaluate_checkpoint,
+                                                export_torch_checkpoint)
+    from bsed_tpu_torch.ops import gru_kernel, stem_epilogue
+    from bsed_tpu_torch.utils.weights import init_params
+
+    cfg = get_config("baseline")
+    params, stats = init_params(cfg, 0)
+    t0 = time.perf_counter()
+    source = SyntheticDataSource(cfg, n_items=N_EVAL_CLIPS, seed=0)
+    source.as_arrays()                       # made once, on the host
+    data_s = time.perf_counter() - t0
+    n_batches = N_EVAL_CLIPS // B_EVAL
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = export_torch_checkpoint(cfg, params, stats,
+                                       os.path.join(tmp, "baseline.pt"))
+        # kernels (the first use of every op on this path), plain, and
+        # kernels again (warm): the gates read the first run
+        for run, use_kernels in (("kernels", True), ("plain", False),
+                                 ("kernels_warm", True)):
+            loader = EvalLoader(source, batch_size=B_EVAL, device=dev)
+            torch.cuda.synchronize()
+            stem_epilogue.stem_epilogue_fwd.launches = 0
+            gru_kernel.gru_bidir_recurrence.launches = 0
+            t0 = time.perf_counter()
+            res = evaluate_checkpoint(cfg, loader, torch_ckpt=ckpt,
+                                      thresholds=EVAL_THRESHOLDS,
+                                      device=dev, use_kernels=use_kernels,
+                                      keep_posteriors=True)
+            wall = time.perf_counter() - t0
+            launches = {
+                "stem_epilogue": stem_epilogue.stem_epilogue_fwd.launches,
+                "gru_kernel": gru_kernel.gru_bidir_recurrence.launches}
+            assert loader.prepare()[0].device.type == "cuda"
+            runs[run] = (res, wall, launches)
+    (rk, wall_k, launches), (rp, wall_p, launches_p), (rw, wall_w, _) = (
+        runs["kernels"], runs["plain"], runs["kernels_warm"])
+    assert launches == {"stem_epilogue": 3 * n_batches,
+                        "gru_kernel": 2 * n_batches}, launches
+    assert launches_p == {"stem_epilogue": 0, "gru_kernel": 0}, launches_p
+    pk, pp = rk["posteriors"], rp["posteriors"]
+    assert pk.shape == (N_EVAL_CLIPS, cfg.n_frames, cfg.nclass), pk.shape
+    assert np.isfinite(pk).all() and np.isfinite(pp).all()
+    err = float(np.abs(pk - pp).max())
+    flips, flip_dist = 0, 0.0
+    for th in EVAL_THRESHOLDS:
+        diff = (pk > th) != (pp > th)
+        flips += int(diff.sum())
+        if diff.any():
+            flip_dist = max(flip_dist, float(np.abs(pp[diff] - th).max()))
+    names = [source.filename(i) for i in range(N_EVAL_CLIPS)]
+    on_card = decode_batch(torch.from_numpy(pp).to(dev), names,
+                           cfg.bird_list, cfg, thresholds=EVAL_THRESHOLDS)
+    on_host = decode_batch(pp, names, cfg.bird_list, cfg,
+                           thresholds=EVAL_THRESHOLDS)
+    tables_equal = all(on_card[th].rows() == on_host[th].rows()
+                       for th in EVAL_THRESHOLDS)
+    n_events = sum(len(on_host[th]) for th in EVAL_THRESHOLDS)
+    split = decode_split(torch, dev, torch.from_numpy(pp[:B_EVAL]).to(dev),
+                         names[:B_EVAL], cfg)
+
+    def scores(r):
+        return {"event_f1": r["event_f1"], "psds_f1": r["psds_f1"],
+                "per_class_f1": r["per_class_f1"], "seconds": r["seconds"]}
+    sec = rk["seconds"]
+    emit(phase="eval_path", preset="baseline", compute_dtype="float32",
+         clips=N_EVAL_CLIPS, batch=B_EVAL, batches=n_batches,
+         thresholds=list(EVAL_THRESHOLDS), data_setup_s=data_s,
+         kernels=scores(rk), plain=scores(rp), kernels_warm=scores(rw),
+         wall_s=wall_k, wall_s_plain=wall_p, wall_s_warm=wall_w,
+         clips_per_s=N_EVAL_CLIPS / wall_k,
+         clips_per_s_warm=N_EVAL_CLIPS / wall_w,
+         clips_per_s_predict=N_EVAL_CLIPS / sec["predict"],
+         decode_split_ms=split,
+         launches=launches,
+         launches_per_batch={k: v / n_batches for k, v in launches.items()},
+         max_abs_err_posteriors=err, gate=EVAL_GATE,
+         binarized_frames_differing=flips,
+         max_plain_distance_from_threshold=flip_dist,
+         events_decoded=n_events, card_host_tables_equal=tables_equal,
+         card=card)
+    assert err <= EVAL_GATE, f"eval posteriors differ by {err}"
+    assert flip_dist <= EVAL_GATE, \
+        f"a binarized frame flipped {flip_dist} from the threshold"
+    assert tables_equal, "decoding on the card and on the host differ"
+    return launches
+
+
+def decode_split(torch, dev, probs, names, cfg, reps: int = 5):
+    """Where one batch's decode goes (ms, median of ``reps``, host clock
+    around synchronised steps): binarize + median filter on the card, the
+    copy of the binary events to the host, run-length extraction, and the
+    event tables."""
+    import numpy as np
+    from bsed_tpu_torch.eval.decode import extract_events_batch
+    from bsed_tpu_torch.ops.median import threshold_and_filter
+    from bsed_tpu_torch.utils.tables import EventTable
+
+    times = {"filter_on_card": [], "copy_to_host": [], "extract": [],
+             "tables": []}
+    sec = cfg.model.pooling_time_ratio / (cfg.audio.sr / cfg.audio.hop_size)
+    labels = np.asarray(cfg.bird_list, dtype=object)
+    fnames = np.asarray(names, dtype=object)
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        filtered = threshold_and_filter(probs, EVAL_THRESHOLDS,
+                                        window=cfg.median_window)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        act = filtered.to(torch.uint8).cpu().numpy()
+        t2 = time.perf_counter()
+        k_i, b_i, c_i, on_t, off_t = extract_events_batch(act)
+        t3 = time.perf_counter()
+        EventTable(labels[c_i], on_t * sec, off_t * sec, fnames[b_i])
+        t4 = time.perf_counter()
+        for key, a, b in (("filter_on_card", t0, t1), ("copy_to_host", t1, t2),
+                          ("extract", t2, t3), ("tables", t3, t4)):
+            times[key].append((b - a) * 1e3)
+    return {k: sorted(v[1:])[reps // 2] for k, v in times.items()}
+
+
+def loader_train_path(torch, dev, card, random_batch_ms):
+    """The flagship train step fed by a ``ThreeStreamLoader`` resident on
+    the card (12 SYN + 12 real full-width clips of ``SyntheticDataSource``,
+    the unlabelled stream weak-only), the loader's gather inside the
+    timing. One state takes 2 warm-up steps of each feed, then four turns
+    of 5 steps: loader, random batch, random batch, loader (the random
+    batch is ``train_path``'s, whose own ms a step is printed beside).
+    Gates: the batches carry exactly the keys, shapes and dtypes
+    ``train_path`` feeds, on the card; the losses are finite; K2 launches
+    6 and K3 3 times a step."""
+    from bsed_tpu_torch.data.datasets import SyntheticDataSource
+    from bsed_tpu_torch.data.pipeline import ThreeStreamLoader
+    from bsed_tpu_torch.ops import stem_epilogue as se
+
+    cfg, state, step, batch = train_setup(torch, dev, "bfloat16", True,
+                                          B_TRAIN)
+    n_steps = 2 + 2 * N_TIMED
+    t0 = time.perf_counter()
+    syn = SyntheticDataSource(cfg, n_items=n_steps * B_TRAIN, seed=1)
+    weak = SyntheticDataSource(cfg, n_items=2 * B_TRAIN, seed=2)
+    unlab = SyntheticDataSource(cfg, n_items=2 * B_TRAIN, seed=3,
+                                weak_only=True)
+    for src in (syn, weak, unlab):
+        src.as_arrays()
+    loader = ThreeStreamLoader(syn, weak, unlab, batch_size=B_TRAIN,
+                               seed=0, device=dev)
+    batches = loader.epoch(0)
+    first = next(batches)
+    setup_s = time.perf_counter() - t0
+    spec = lambda b: {k: (tuple(v.shape), str(v.dtype), v.device.type)  # noqa
+                      for k, v in b.items()}
+    assert spec(first) == spec(batch), (spec(first), spec(batch))
+    for b in (first, next(batches), batch, batch):
+        step(state, b, 1, 30.0)
+    torch.cuda.synchronize()
+
+    se.stem_epilogue_fwd.launches = 0
+    se.stem_epilogue_bwd.launches = 0
+    turns, gather_ms = [], 0.0
+    for feed in ("loader", "random", "random", "loader"):
+        t0 = time.perf_counter()
+        for _ in range(N_TIMED):
+            if feed == "loader":
+                g0 = time.perf_counter()
+                b = next(batches)
+                gather_ms += (time.perf_counter() - g0) * 1e3
+            else:
+                b = batch
+            metrics = step(state, b, 1, 30.0)
+        torch.cuda.synchronize()
+        turns.append((feed, (time.perf_counter() - t0) / N_TIMED * 1e3))
+        values = {k: float(v) for k, v in metrics.items()}
+        assert all(math.isfinite(v) for v in values.values()), values
+    launches = {"stem_epilogue_train": se.stem_epilogue_fwd.launches,
+                "stem_epilogue_bwd": se.stem_epilogue_bwd.launches}
+    assert launches == {"stem_epilogue_train": 6 * 4 * N_TIMED,
+                        "stem_epilogue_bwd": 3 * 4 * N_TIMED}, launches
+    mean = lambda f: sum(ms for k, ms in turns if k == f) / 2  # noqa: E731
+    emit(phase="loader_train_path", preset="baseline_mt_isp",
+         config="perf_config", compute_dtype="bfloat16", batch_syn=B_TRAIN,
+         batch_real=B_TRAIN, steps_per_turn=N_TIMED, resident=True,
+         data_setup_s=setup_s, turns_ms_per_step=turns,
+         ms_per_step=mean("loader"), ms_per_step_random_turns=mean("random"),
+         ms_per_step_train_path=random_batch_ms,
+         loader_host_ms_per_step=gather_ms / (2 * N_TIMED),
+         clips_per_s=2 * B_TRAIN / mean("loader") * 1e3,
+         batch_spec=spec(first), launches=launches,
+         launches_per_step={k: v / (4 * N_TIMED)
+                            for k, v in launches.items()},
+         loss=values["loss"], card=card)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-dir", default=None,
@@ -1333,6 +1568,8 @@ def main() -> int:
                          args.profile_dir)
     path_equality(torch, dev)
     torch.cuda.empty_cache()
+    eval_launches = eval_path(torch, dev, smi)
+    torch.cuda.empty_cache()
 
     k5 = check_stem_kernel(torch, dev)
     k5["launches"] = fused_stem_path(torch, dev, smi,
@@ -1343,7 +1580,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     k2t, k3 = check_stem_epilogue_train(torch, dev)
-    launches.update(train_path(torch, dev, smi, args.profile_dir))
+    train_launches, train_ms = train_path(torch, dev, smi, args.profile_dir)
+    launches.update(train_launches)
+    torch.cuda.empty_cache()
+    loader_train_path(torch, dev, smi, train_ms)
     torch.cuda.empty_cache()
     train_equality(torch, dev)
     torch.cuda.empty_cache()
@@ -1351,6 +1591,8 @@ def main() -> int:
 
     for k in (k1, k2, k2t, k3):
         k["launches"] = launches[k["name"]]
+    for k in (k2, k4):           # the eval path's run, 4 batches of 64
+        k["launches_eval_path"] = eval_launches[k["name"]]
     kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)

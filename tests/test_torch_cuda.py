@@ -499,3 +499,99 @@ def test_group_pool_bf16_tensor_core_body(dev, g, pt, pg, act, with_bits,
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0.06,
                                atol=0.06)
+
+
+# ---------------------------------------------------------------------------
+# the eval path: median filter, loaders and make_predict_fn on the card
+
+
+@pytest.mark.parametrize("window,windows", [
+    (1, None), (14, None), (15, None), (400, None),
+    (1, tuple(get_config().median_window_classwise))])
+def test_threshold_and_filter_card_equals_cpu(dev, window, windows):
+    """Binarize + median filter on the card equals the CPU result exactly:
+    B=64 clips of 313 frames × 20 classes, three thresholds, odd, even,
+    classwise and longer-than-T windows."""
+    from bsed_tpu_torch.ops.median import threshold_and_filter
+
+    probs = torch.from_numpy(np.random.default_rng(window).random(
+        (64, 313, 20)).astype(np.float32))
+    thr = (0.3, 0.5, 0.7)
+    got = threshold_and_filter(probs.to(dev), thr, window, windows)
+    want = threshold_and_filter(probs, thr, window, windows)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("layout", ["default", "origin"])
+def test_three_stream_loader_card_gather_equals_host(dev, layout):
+    """Resident batches, gathered on the card, equal the host batches of
+    two epochs, and stay on the card."""
+    from bsed_tpu_torch.data.datasets import SyntheticDataSource
+    from bsed_tpu_torch.data.pipeline import ThreeStreamLoader
+
+    cfg = get_config("baseline").replace(
+        audio=AudioConfig(max_len_seconds=2.0))
+    syn = SyntheticDataSource(cfg, n_items=20, seed=1)
+    weak = SyntheticDataSource(cfg, n_items=8, seed=2)
+    unlab = SyntheticDataSource(cfg, n_items=8, seed=3, weak_only=True)
+    card = ThreeStreamLoader(syn, weak, unlab, batch_size=8, layout=layout,
+                             device=dev)
+    host = ThreeStreamLoader(syn, weak, unlab, batch_size=8, layout=layout,
+                             device=dev, device_resident=False)
+    for epoch in (0, 1):
+        got, want = list(card.epoch(epoch)), list(host.epoch(epoch))
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            assert set(a) == set(b)
+            for k in a:
+                assert a[k].device.type == "cuda", k
+                assert np.array_equal(a[k].cpu().numpy(), b[k]), k
+
+
+def test_eval_loader_card_batches_equal_host(dev):
+    from bsed_tpu_torch.data.datasets import SyntheticDataSource
+    from bsed_tpu_torch.data.pipeline import EvalLoader
+
+    cfg = get_config("baseline").replace(
+        audio=AudioConfig(max_len_seconds=2.0))
+    src = SyntheticDataSource(cfg, n_items=10, seed=8)
+    card = list(EvalLoader(src, batch_size=4, device=dev))
+    host = list(EvalLoader(src, batch_size=4, device=dev,
+                           device_resident=False))
+    assert len(card) == len(host) == 3
+    for (m, t, n, v), (hm, ht, hn, hv) in zip(card, host):
+        assert m.device.type == "cuda" and (n, v) == (hn, hv)
+        assert np.array_equal(m.cpu().numpy(), hm)
+        assert np.array_equal(t, ht)
+
+
+@pytest.mark.parametrize("compute_dtype,gate", [("float32", 2e-3),
+                                                ("bfloat16", 1e-2)])
+def test_predict_fn_kernels_match_plain(dev, compute_dtype, gate):
+    """make_predict_fn on the kernels (K2 eval 3 times and K4 twice a
+    batch) against the same function on their plain versions, full width
+    (1255 frames × 128 mels), B=8, heads widened: within the serving gate
+    of the compute dtype."""
+    from bsed_tpu_torch.train.steps import TrainModules, make_predict_fn
+
+    cfg = get_config("baseline")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype=compute_dtype))
+    params, stats = init_params(cfg, 0)
+    for head in params["predictor"].values():
+        head["kernel"] *= 30.0
+    mel = torch.from_numpy(np.abs(np.random.default_rng(2).standard_normal(
+        (8, cfg.audio.max_frames, cfg.audio.n_mels))).astype(
+            np.float32)).to(dev)
+    k2 = stem_epilogue.stem_epilogue_fwd.launches
+    k4 = gru_kernel.gru_bidir_recurrence.launches
+    got = make_predict_fn(TrainModules(cfg, dev))(params, stats, mel)
+    torch.cuda.synchronize()
+    assert stem_epilogue.stem_epilogue_fwd.launches == k2 + 3
+    assert gru_kernel.gru_bidir_recurrence.launches == k4 + 2
+    want = make_predict_fn(TrainModules(cfg, dev, use_kernels=False))(
+        params, stats, mel)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0, atol=gate)

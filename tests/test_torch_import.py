@@ -1,6 +1,7 @@
 """The port stands alone: bsed_tpu_torch and chip_smoke.py import no jax,
-flax or bsed_tpu (the JAX package), checked by importing every module with
-those blocked and by scanning every import statement."""
+flax or bsed_tpu (the JAX package), and no pandas (the machine with the
+card has none), checked by importing every module with those blocked and
+by scanning every import statement."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "bsed_tpu")
+FORBIDDEN = ("jax", "flax", "bsed_tpu", "pandas")
 
 
 def _port_sources():
@@ -21,7 +22,7 @@ def _port_sources():
 def test_imports_with_jax_blocked():
     code = (
         "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'flax', 'bsed_tpu'):\n"
+        "for name in ('jax', 'flax', 'bsed_tpu', 'pandas'):\n"
         "    sys.modules[name] = None\n"
         "import bsed_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -29,13 +30,15 @@ def test_imports_with_jax_blocked():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "importlib.import_module('chip_smoke')\n"
-        "assert 'bsed_tpu_torch.train.steps' in mods\n"
+        "for m in ('train.steps', 'data.pipeline', 'eval.test_model',\n"
+        "          'eval.psds', 'ops.median', 'utils.torch_compat'):\n"
+        "    assert 'bsed_tpu_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 23
+    assert int(out.stdout.split()[-1]) >= 51
 
 
 @pytest.mark.parametrize("path", _port_sources(),
