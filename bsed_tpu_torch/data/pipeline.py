@@ -58,7 +58,16 @@ def _device_ids(device: torch.device, *ids):
         flat = flat.pin_memory().to(device, non_blocking=True)
     else:
         flat = flat.to(device)
-    return torch.split(flat, [len(i) for i in ids])
+    return torch.split(flat, [int(np.size(i)) for i in ids])
+
+
+def device_index_matrices(device, idx: Dict[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """``epoch_arrays``' (n_steps, per_batch) index matrices as long
+    tensors on ``device``, all moved in one copy (``_device_ids``)."""
+    keys = list(idx)
+    moved = _device_ids(torch.device(device), *[idx[k] for k in keys])
+    return {k: m.reshape(np.shape(idx[k])) for k, m in zip(keys, moved)}
 
 
 def _placed_ids(pairs):

@@ -5,11 +5,11 @@ the best checkpoint, rebuild model/encoder/median-window state from it
 (:34-120), run ``get_predictions`` + ``compute_metrics`` on the validation
 set and write a cross-trigger confusion-matrix CSV (:262-265)).
 
-The checkpoint source is the reference's torch pickle, in the layout
-``bsed_tpu`` reads and writes (``load_torch_checkpoint`` /
-``export_torch_checkpoint`` round-trip with its functions). This
-framework's own checkpoints (``store_dir``) wait for the port's checkpoint
-manager (ROADMAP.md item 6b).
+The checkpoint source is either this framework's own store
+(``store_dir``: the student's trees of a tag, ``utils/checkpoint.py``) or
+the reference's torch pickle, in the layout ``bsed_tpu`` reads and writes
+(``load_torch_checkpoint`` / ``export_torch_checkpoint`` round-trip with
+its functions).
 
 On the card the whole path runs there: the loader's features are resident
 (``data.pipeline.EvalLoader``), ``train.steps.make_predict_fn`` runs the
@@ -37,6 +37,7 @@ from bsed_tpu_torch.eval.sed_scores import (event_based_counts,
                                             per_class_report)
 from bsed_tpu_torch.train.steps import TrainModules, make_predict_fn
 from bsed_tpu_torch.utils import torch_compat as tc
+from bsed_tpu_torch.utils.checkpoint import CheckpointManager
 from bsed_tpu_torch.utils.device import resolve_device
 from bsed_tpu_torch.utils.logger import create_logger
 from bsed_tpu_torch.utils.tables import missing
@@ -116,6 +117,17 @@ def export_torch_checkpoint(cfg: Config, params: Dict, batch_stats: Dict,
     return path
 
 
+def load_params(cfg: Config, store_dir: Optional[str] = None,
+                torch_ckpt: Optional[str] = None, tag: str = "best"):
+    """(params, batch_stats) of the student, flax-layout numpy trees: from
+    the reference pickle ``torch_ckpt`` when given, else from ``tag`` of
+    the store ``store_dir``."""
+    if torch_ckpt is not None:
+        return load_torch_checkpoint(torch_ckpt, cfg)
+    trees = CheckpointManager(store_dir).load(tag)
+    return trees["params"], trees["batch_stats"]
+
+
 def _write_confusion_csv(path: str, ct: np.ndarray, classes) -> None:
     """The cross-trigger matrix with class names as header and index (what
     ``bsed_tpu`` writes with ``DataFrame.to_csv``)."""
@@ -135,8 +147,10 @@ def evaluate_checkpoint(cfg: Config, loader,
                         confusion_csv: Optional[str] = None,
                         device="cuda", use_kernels: bool = True,
                         keep_posteriors: bool = False) -> Dict:
-    """Score a reference-format checkpoint on ``loader``'s clips
-    (``data.pipeline.EvalLoader``): ``{"event_f1", "psds_f1",
+    """Score a checkpoint on ``loader``'s clips
+    (``data.pipeline.EvalLoader``): the student of ``tag`` in the store
+    ``store_dir``, or the reference-format pickle ``torch_ckpt`` (which
+    wins when both are given); ``{"event_f1", "psds_f1",
     "per_class_f1"}`` (plus ``"event_f1_per_threshold"`` with several
     thresholds), as ``bsed_tpu``'s function returns them.
 
@@ -147,13 +161,8 @@ def evaluate_checkpoint(cfg: Config, loader,
     the event tables; score, on the host), the device synchronised at each
     phase's end; ``"posteriors"``, the strong posteriors of every clip as
     one (N, T', C) float32 numpy array, with ``keep_posteriors``."""
-    if store_dir is not None and torch_ckpt is None:
-        raise NotImplementedError(
-            "evaluating a checkpoint of this framework's own store "
-            "(store_dir) needs the port's checkpoint manager, which is not "
-            "ported yet (ROADMAP.md, open item 6b); pass torch_ckpt")
-    if torch_ckpt is None:
-        raise ValueError("evaluate_checkpoint needs torch_ckpt")
+    if store_dir is None and torch_ckpt is None:
+        raise ValueError("evaluate_checkpoint needs store_dir or torch_ckpt")
     dev = resolve_device(device)
 
     def sync():
@@ -162,7 +171,7 @@ def evaluate_checkpoint(cfg: Config, loader,
 
     seconds = {"load": 0.0, "predict": 0.0, "decode": 0.0, "score": 0.0}
     t0 = time.perf_counter()
-    params, stats = load_torch_checkpoint(torch_ckpt, cfg)
+    params, stats = load_params(cfg, store_dir, torch_ckpt, tag)
     predict = make_predict_fn(TrainModules(cfg, dev, use_kernels))
     predict.prepare(params, stats)
     codec = ManyHotEncoder(cfg.bird_list, n_frames=cfg.n_frames,

@@ -194,26 +194,51 @@ def _fold_gather_idx(f: int, cin: int, cout: int) -> np.ndarray:
 
 
 def _fold_gather_plan(f: int, cin: int, cout: int, device):
-    """(pos, src) int64 tensors on ``device``: the folded kernel's flat
-    positions that hold a tap and the flat index of the original kernel
-    each one takes (``_fold_gather_idx`` without its zero slot)."""
+    """(pos, src, by_src) int64 tensors on ``device``: the folded kernel's
+    flat positions that hold a tap, the flat index of the original kernel
+    each one takes (``_fold_gather_idx`` without its zero slot), and the
+    positions again grouped by tap (each tap has exactly ``f`` copies)."""
     idx = _fold_gather_idx(f, cin, cout)
     pos = np.nonzero(idx < 3 * cin * cout)[0]
-    return (torch.as_tensor(pos, device=device),
-            torch.as_tensor(idx[pos], device=device))
+    by_src = pos[np.argsort(idx[pos], kind="stable")]
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (pos, idx[pos], by_src))
+
+
+class _FoldKernel(torch.autograd.Function):
+    """The taps of a flat (kt, 3·cin·cout) kernel gathered into the flat
+    folded kernel. Its backward sums each tap's ``f`` copies by a gather
+    and a reduction, not by ``index_select``'s scatter-add: on CUDA that
+    adds with atomics, in an order that changes from run to run, and two
+    runs of one train step would differ in the last bits."""
+
+    @staticmethod
+    def forward(ctx, flat, pos, src, by_src, n_out: int):
+        ctx.save_for_backward(by_src)
+        ctx.n_taps = flat.shape[1]
+        taps = flat.index_select(1, src)
+        return flat.new_zeros((flat.shape[0], n_out)).index_copy(
+            1, pos, taps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        by_src, = ctx.saved_tensors
+        kt = grad.shape[0]
+        g = grad.index_select(1, by_src).reshape(kt, ctx.n_taps, -1)
+        return g.sum(-1), None, None, None, None
 
 
 def _fold_kernel_torch(kernel: torch.Tensor, f: int, pos: torch.Tensor,
-                       src: torch.Tensor) -> torch.Tensor:
+                       src: torch.Tensor, by_src: torch.Tensor
+                       ) -> torch.Tensor:
     """Differentiable fold_conv_kernel on an HWIO (kt, 3, cin, cout)
     kernel → (kt, 3, f·cin, f·cout): one constant-index gather of the taps
-    (``index_select``) copied into zeros; the backward is one scatter-add
-    onto the original kernel, each tap receiving its f fold copies.
-    ``pos``, ``src``: ``_fold_gather_plan(f, cin, cout, device)``."""
+    copied into zeros; the backward sums each tap's f fold copies in a
+    fixed order (``_FoldKernel``). ``pos``, ``src``, ``by_src``:
+    ``_fold_gather_plan(f, cin, cout, device)``."""
     kt, _, cin, cout = kernel.shape
-    taps = kernel.reshape(kt, 3 * cin * cout).index_select(1, src)
-    out = kernel.new_zeros((kt, 3 * f * cin * f * cout)).index_copy(
-        1, pos, taps)
+    out = _FoldKernel.apply(kernel.reshape(kt, 3 * cin * cout), pos, src,
+                            by_src, 3 * f * cin * f * cout)
     return out.reshape(kt, 3, f * cin, f * cout)
 
 
@@ -276,8 +301,8 @@ def make_folded_train_stem(model_cfg, n_mels: int, fold0: int = 8,
         if _ep_ok(pt) and pool_w is not None:
             eps = (make_fused_epilogue(act, pt, pool_w, use_kernels, rate),
                    make_fused_epilogue(act, pt, pool_w, use_kernels, 0.0))
-        pos, src = _fold_gather_plan(f, cin, cout, device)
-        plan.append((i, cout, pt, f, pool_w, pos, src, eps))
+        plan.append((i, cout, pt, f, pool_w,
+                     _fold_gather_plan(f, cin, cout, device), eps))
         f //= pf
         cin = cout
     n_folded = len(plan)
@@ -301,10 +326,10 @@ def make_folded_train_stem(model_cfg, n_mels: int, fold0: int = 8,
               gen: Optional[torch.Generator]) -> torch.Tensor:
         b, t, n_f, _ = x.shape
         h = x.reshape(b, t, n_f // fold0, fold0).to(dtype)
-        for (i, co, pt, fi, pool_w, pos, src, eps) in plan:
+        for (i, co, pt, fi, pool_w, gather, eps) in plan:
             blk = blocks[f"block{i}"]
             k = _fold_kernel_torch(blk.conv.weight.permute(2, 3, 1, 0)
-                                   .to(dtype), fi, pos, src)
+                                   .to(dtype), fi, *gather)
             h = conv2d_nhwc(h, k.permute(3, 2, 0, 1)).contiguous()
             bn = blk.bn
             if eps is not None:

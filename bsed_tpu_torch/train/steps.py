@@ -19,11 +19,16 @@ randomness — teacher noise, ISP shifts, dropout bits — comes from one
 folds the step count into its key; the draws differ from JAX's, so parity
 tests inject them.
 
-``make_predict_fn`` is the port of the JAX package's inference function.
+``make_epoch_runner`` runs an epoch of steps on loader arrays resident on
+the device (the port of the JAX package's ``lax.scan`` over the epoch, as
+a plain loop), and ``make_predict_fn`` is the port of the JAX package's
+inference function; ``train/trainer.py`` drives both.
 
-Not ported (ROADMAP item 8): the other ISP flavours, ICT mixup, domain
+Not ported (ROADMAP items 8a and 8b): the presets other than
+``baseline_mt_isp`` — the other ISP flavours, ICT mixup, domain
 adaptation, the exp_step ramp, real-stream supervision, normalisation
-statistics and the unfolded train encoder.
+statistics, SGD and the unfolded train encoder; ``build_modules`` refuses
+them.
 """
 from __future__ import annotations
 
@@ -225,7 +230,9 @@ def _log_input(linear_mel: torch.Tensor) -> torch.Tensor:
     return amplitude_to_db(linear_mel)[..., None]
 
 
-def make_train_step(modules: TrainModules):
+def make_train_step(modules: TrainModules,
+                    steps_per_epoch: Optional[int] = None,
+                    grad_flow: bool = False):
     """``step(state, batch, seed, epoch) -> metrics``: one optimizer step
     of the student, then the teacher's EMA, all in place on ``state``.
 
@@ -233,7 +240,16 @@ def make_train_step(modules: TrainModules):
     ``syn_strong`` (Bs, T', C) targets and, optionally, ``real_weak``
     (Br, C); the first half of the real stream is the labelled weak half.
     ``epoch`` drives the lr and the consistency-cost ramp. The metrics are
-    the JAX step's names, as 0-d tensors (lr and the cost as floats)."""
+    the JAX step's names, as 0-d tensors on the device (lr and the cost as
+    floats).
+
+    ``steps_per_epoch`` is what the exp_step cost ramp needs (ROADMAP
+    item 8a); the supported sigmoid ramp does not read it.
+    ``grad_flow=True`` adds the mean |grad| of every non-bias parameter
+    as ``grad_abs/<name>``, ``<name>`` being the parameter's flax path
+    joined by dots, as the JAX step names them (the reference's
+    plot_grad_flow diagnostic, main_baseline.py:108-123)."""
+    del steps_per_epoch
     cfg = modules.cfg
     t = cfg.train
     dev = modules.device
@@ -353,6 +369,8 @@ def make_train_step(modules: TrainModules):
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if grad_flow:
+            m.update(_grad_abs(model))
         state.optimizer.step()
         state.step += 1
         ema_update(teacher.parameters(), model.parameters(), state.step,
@@ -365,6 +383,68 @@ def make_train_step(modules: TrainModules):
         return metrics
 
     return train_step
+
+
+def _grad_abs(model: TrainModel) -> Dict[str, torch.Tensor]:
+    """``grad_abs/<flax path>`` → mean |grad| for every parameter whose
+    name has no "bias" in it (the JAX step's filter), in the order of the
+    flax tree's leaves (sorted keys)."""
+    out = {}
+    for path, param, _ in sorted(weights.train_param_map(model),
+                                 key=lambda entry: entry[0]):
+        name = ".".join(path)
+        if "bias" in name:
+            continue
+        g = param.grad
+        out[f"grad_abs/{name}"] = (g.detach().abs().mean() if g is not None
+                                   else param.new_zeros(()))
+    return out
+
+
+def make_epoch_runner(modules: TrainModules,
+                      steps_per_epoch: Optional[int] = None,
+                      grad_flow: bool = False):
+    """One epoch of train steps on a loader's resident arrays: the port of
+    the JAX package's ``make_epoch_runner`` (a ``lax.scan`` of the step
+    over the epoch) as a plain loop.
+
+    ``run_epoch(state, arrays, idx, seed, epoch) -> stacked_metrics``, with
+    ``arrays`` and ``idx`` from ``ThreeStreamLoader.epoch_arrays``: step
+    ``i`` trains on ``gather_batch(arrays, row i of every idx matrix)``.
+    The index matrices reach the device in one copy before the loop, and
+    nothing in the loop waits for the device; each metric comes back as
+    one (n_steps,) tensor on the device, which the caller fetches once."""
+    from bsed_tpu_torch.data.pipeline import device_index_matrices, \
+        gather_batch
+
+    step = make_train_step(modules, steps_per_epoch=steps_per_epoch,
+                           grad_flow=grad_flow)
+    dev = modules.device
+
+    def run_epoch(state: TrainState, arrays: Dict, idx: Dict, seed: int,
+                  epoch) -> Dict[str, torch.Tensor]:
+        ids = device_index_matrices(dev, idx)
+        n_steps = len(ids["syn"])
+        history = [step(state, gather_batch(arrays, {k: v[i] for k, v in
+                                                      ids.items()}),
+                        seed, epoch)
+                   for i in range(n_steps)]
+        return stack_metrics(history, dev)
+
+    return run_epoch
+
+
+def stack_metrics(history, device) -> Dict[str, torch.Tensor]:
+    """A list of per-step metric dicts as one (n_steps,) float32 tensor on
+    ``device`` per key (float metrics such as lr are moved there)."""
+    out = {}
+    for k in history[0]:
+        vals = [m[k] for m in history]
+        if isinstance(vals[0], torch.Tensor):
+            out[k] = torch.stack([v.float() for v in vals])
+        else:
+            out[k] = torch.tensor(vals, dtype=torch.float32, device=device)
+    return out
 
 
 def make_predict_fn(modules: TrainModules, norm_stats="train"):

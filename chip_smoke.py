@@ -51,6 +51,15 @@ use, all sources in parallel) and drives every slice of the port:
   * the loader-fed train step: a ``ThreeStreamLoader`` resident on the
     card feeds the flagship train step (same keys, shapes and dtypes as
     the random batch), ms a step beside the random-batch step's;
+  * the trainer (``trainer_path``): ``python -m bsed_tpu_torch.cli train
+    --preset baseline_mt_isp --perf -s 96`` through the CLI's ``main`` —
+    2 epochs (the first profiled), a resume to a third, a fresh 3-epoch
+    run and ``eval --store-dir`` — with K2's train form 48 and K3 24 times
+    an epoch and K2's eval form 6 and K4 4 times an evaluate, finite
+    results, a bit-exact checkpoint round trip, the resumed epoch against
+    the uninterrupted one within the card's measured noise floor, and the
+    store's evaluation equal to the best epoch's val scores; seconds an
+    epoch by part, ms a step, busy share, checkpoint bytes and save ms;
   * K2's and K3's group-pool form (on no path of either package) against
     their plain versions at the shapes of blocks 3-6 (B=72, G=16/8/4/2),
     with the body that served each dtype (bfloat16: wgmma for both).
@@ -1528,6 +1537,379 @@ def loader_train_path(torch, dev, card, random_batch_ms):
          loss=values["loss"], card=card)
 
 
+N_FIT_SYN = 96                    # trainer_path's -s: SYN clips (+48 + 48 + 24)
+FIT_STEPS = N_FIT_SYN // B_TRAIN  # steps an epoch
+FIT_VAL_BATCHES = 2               # 24 val clips at B=12
+
+
+def _counters():
+    """The wrappers whose launch counts trainer_path reads: K2 (both
+    forms), K3, K4."""
+    from bsed_tpu_torch.ops import gru_kernel, stem_epilogue as se
+    return (se.stem_epilogue_fwd, se.stem_epilogue_bwd,
+            gru_kernel.gru_bidir_recurrence)
+
+
+def _launch_counts():
+    return tuple(c.launches for c in _counters())
+
+
+class FitRecorder:
+    """Wraps ``Trainer.train_epoch``, ``Trainer.evaluate``,
+    ``Trainer.resume``, ``CheckpointManager.save`` and the loaders' data
+    preparation (``ThreeStreamLoader.epoch_arrays``, ``EvalLoader.prepare``:
+    the first call makes the dataset's arrays and moves them to the card)
+    for the length of a ``with`` block: each call's wall seconds (the card
+    synchronised at its end), the kernel launches it made (K2 forward, K3,
+    K4 counters before and after), the run it belongs to, and the object
+    it ran on."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.run = None
+        self.calls = []
+        self._saved = []
+
+    def _wrap(self, owner, name, kind):
+        fn = getattr(owner, name)
+
+        def wrapper(obj, *a, **k):
+            c0 = _launch_counts()
+            t0 = time.perf_counter()
+            out = fn(obj, *a, **k)
+            self.torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            k2, k3, k4 = (after - before for before, after
+                          in zip(c0, _launch_counts()))
+            self.calls.append({"run": self.run, "kind": kind, "obj": obj,
+                               "s": seconds, "k2": k2, "k3": k3, "k4": k4})
+            return out
+        self._saved.append((owner, name, fn))
+        setattr(owner, name, wrapper)
+
+    def __enter__(self):
+        from bsed_tpu_torch.data.pipeline import EvalLoader, ThreeStreamLoader
+        from bsed_tpu_torch.train.trainer import Trainer
+        from bsed_tpu_torch.utils.checkpoint import CheckpointManager
+        for name in ("train_epoch", "evaluate", "resume"):
+            self._wrap(Trainer, name, name)
+        self._wrap(CheckpointManager, "save", "save")
+        self._wrap(ThreeStreamLoader, "epoch_arrays", "train_data")
+        self._wrap(EvalLoader, "prepare", "eval_data")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def of(self, run, kind=None):
+        return [c for c in self.calls if c["run"] == run
+                and (kind is None or c["kind"] == kind)]
+
+    def epochs(self, run):
+        """Per epoch of ``run``: seconds of train, evaluate, checkpoint,
+        and the loaders' data preparation inside train and evaluate."""
+        out, data = [], {"train_data": 0.0, "eval_data": 0.0}
+        for c in self.of(run):
+            if c["kind"] in data:
+                data[c["kind"]] += c["s"]
+            elif c["kind"] == "train_epoch":
+                out.append({"train": c["s"], "evaluate": 0.0,
+                            "checkpoint": 0.0,
+                            "data_in_train": data["train_data"]})
+                data["train_data"] = 0.0
+            elif out and c["kind"] == "evaluate":
+                out[-1]["evaluate"] += c["s"]
+                out[-1]["data_in_evaluate"] = data["eval_data"]
+                data["eval_data"] = 0.0
+            elif out and c["kind"] == "save":
+                out[-1]["checkpoint"] += c["s"]
+        return out
+
+
+def read_results(path):
+    """results.tsv as a list of {column: float}."""
+    import csv
+    with open(path, newline="") as fh:
+        return [{k: float(v) for k, v in row.items()}
+                for row in csv.DictReader(fh, delimiter="\t")]
+
+
+def row_distance(a: dict, b: dict) -> float:
+    """The largest relative distance |a−b| / max(|a|, |b|) over the keys
+    of two results rows (0 where both are 0)."""
+    assert a.keys() == b.keys(), (sorted(a), sorted(b))
+    worst = 0.0
+    for k in a:
+        x, y = float(a[k]), float(b[k])
+        if x != y:
+            worst = max(worst, abs(x - y) / max(abs(x), abs(y)))
+    return worst
+
+
+def trace_busy_share(trace_dir):
+    """(device busy share, trace file, its bytes) of the one Chrome trace
+    in ``trace_dir``: the union of the device's kernel, copy and set
+    intervals over the span of every timed event."""
+    import glob
+    import os
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    assert len(files) == 1, f"expected one trace in {trace_dir}: {files}"
+    with open(files[0]) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy",
+                                        "gpu_memset"))
+    assert device, "the trace holds no device event"
+    busy, end = 0.0, -math.inf
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+            - min(float(e["ts"]) for e in events))
+    return busy / span, files[0], os.path.getsize(files[0])
+
+
+def state_leaves(state_or_trees):
+    """Flattened export_train_state trees (or already-exported trees):
+    {path: numpy array or scalar}."""
+    import numpy as np
+    from bsed_tpu_torch.utils.weights import export_train_state
+    trees = (state_or_trees if isinstance(state_or_trees, dict)
+             else export_train_state(state_or_trees))
+
+    def leaves(tree, prefix=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, prefix + (k,))
+        else:
+            yield prefix, np.asarray(tree)
+    return dict(leaves(trees))
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    import numpy as np
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def trainer_path(torch, dev, card, train_ms):
+    """Train, validate, checkpoint and resume on the card through the
+    CLI's ``main``, as a user does (``baseline_mt_isp --perf``, full width,
+    SyntheticDataSource at -s 96: 96 SYN + 48 weak + 48 unlabelled + 24
+    val clips, resident; B = 12 + 6 + 6, so an epoch is 8 steps and
+    validation 2 batches of 12). cuDNN runs deterministic algorithms
+    (``torch.backends.cudnn.deterministic``) for the phase, so that a
+    resumed epoch can be held against the uninterrupted one:
+
+      A: train --preset baseline_mt_isp --perf -s 96 --epochs 2 (its first
+         epoch profiled through --profile-dir);
+      B: train --store-dir A --resume --epochs 3 (continues at epoch 2);
+      C: a fresh train ... --epochs 3 (the uninterrupted epoch 2);
+      D: eval --store-dir A, no preset.
+
+    Gates: every train epoch launches K2's train form 48 and K3 24 times,
+    every evaluate K2's eval form 6 and K4 4 times; every results.tsv value
+    is finite, one row an epoch; A's final state, its epoch_1 file and
+    epoch_1 restored into a fresh state are bit for bit the same; the
+    card's noise floor (epoch 2 run twice from one restored epoch_1, in the
+    phase's setting and again with cuDNN free to choose) and B's epoch-2
+    row against C's: within 2× the floor, or bit-identical when the floor
+    is 0 (and B's final state C's, bit for bit, where the two runs of the
+    floor end in the same bits); D's scores equal the val scores of the
+    best epoch (B's one row) to 1e-6; one trace file exists. Returns the
+    launches of run A (K2's train and eval forms apart)."""
+    import os
+    import tempfile
+
+    from bsed_tpu_torch import cli
+    from bsed_tpu_torch.config import config_from_dict
+    from bsed_tpu_torch.train.steps import create_train_state
+    from bsed_tpu_torch.train.trainer import Trainer
+    from bsed_tpu_torch.utils.checkpoint import CheckpointManager
+
+    s_flag = ["-s", str(N_FIT_SYN)]
+    torch.backends.cudnn.deterministic = True
+    rec = FitRecorder(torch)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, rec:
+            a, c = os.path.join(tmp, "a"), os.path.join(tmp, "c")
+            trace_dir = os.path.join(tmp, "trace")
+            wall = {}
+            for run, argv in (
+                    ("A", ["train", "--preset", "baseline_mt_isp", "--perf",
+                           *s_flag, "--epochs", "2", "--store-dir", a,
+                           "--profile-dir", trace_dir]),
+                    ("B", ["train", "--store-dir", a, "--resume", *s_flag,
+                           "--epochs", "3"]),
+                    ("C", ["train", "--preset", "baseline_mt_isp", "--perf",
+                           *s_flag, "--epochs", "3", "--store-dir", c]),
+                    ("D", ["eval", "--store-dir", a, *s_flag])):
+                rec.run = run
+                if run == "A":
+                    for counter in _counters():
+                        counter.launches = 0
+                t0 = time.perf_counter()
+                out = cli.main(argv)
+                torch.cuda.synchronize()
+                wall[run] = time.perf_counter() - t0
+                if run == "A":
+                    totals_a = _launch_counts()
+                    rows_a = read_results(os.path.join(a, "results.tsv"))
+                    trainer_a = rec.of("A", "train_epoch")[-1]["obj"]
+                    final_a = state_leaves(trainer_a.state)
+                    busy, trace_file, trace_bytes = trace_busy_share(
+                        trace_dir)
+                    ckpt = CheckpointManager(a)
+                    ckpt_bytes = os.path.getsize(ckpt.state_file("epoch_1"))
+                    saved = state_leaves(ckpt.load("epoch_1"))
+                    fresh = create_train_state(trainer_a.cfg,
+                                               trainer_a.modules, seed=99)
+                    t0 = time.perf_counter()
+                    ckpt.restore("epoch_1", fresh)
+                    torch.cuda.synchronize()
+                    restore_s = time.perf_counter() - t0
+                    restored = state_leaves(fresh)
+                    del fresh
+                elif run == "B":
+                    rows_b = read_results(os.path.join(a, "results.tsv"))
+                elif run == "D":
+                    scores_d = out
+            rows_c = read_results(os.path.join(c, "results.tsv"))
+
+            # the card's noise floor: epoch 2 twice from restored epoch_1,
+            # in the phase's setting and with cuDNN free to choose
+            args = cli.build_parser().parse_args(
+                ["train", "--store-dir", a, *s_flag])
+            cfg = config_from_dict(CheckpointManager(a).load_meta()["config"])
+            train_loader, val_loader, _ = cli._dataset_loaders(cfg, args)
+            floor_trainer = Trainer(cfg, train_loader, val_loader=val_loader,
+                                    store_dir=os.path.join(tmp, "floor"),
+                                    device=dev)
+            floor_trainer.ckpt = CheckpointManager(a)    # reads A's epoch_1
+            floors, floor_states = {}, {}
+            for deterministic in (True, False):
+                torch.backends.cudnn.deterministic = deterministic
+                rec.run = f"floor_{deterministic}"
+                rows, states = [], []
+                for _ in range(2):
+                    floor_trainer.resume(2)
+                    row = {"epoch": 2.0, **floor_trainer.train_epoch(2)}
+                    row.update({f"val_{k}": v for k, v in
+                                floor_trainer.evaluate(val_loader).items()})
+                    rows.append(row)
+                    states.append(state_leaves(floor_trainer.state))
+                floors[deterministic] = row_distance(*rows)
+                floor_states[deterministic] = same_bits(*states)
+            torch.backends.cudnn.deterministic = True
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    launches = check_fit_launches(rec, totals_a)
+    # results: finite, one row an epoch
+    for rows, epochs in ((rows_a, [0, 1]), (rows_b, [2]),
+                         (rows_c, [0, 1, 2])):
+        assert [r["epoch"] for r in rows] == epochs, rows
+        assert all(math.isfinite(v) for r in rows for v in r.values()), rows
+    # the checkpoint round trip, bit for bit
+    assert same_bits(saved, final_a), "epoch_1 differs from A's state"
+    assert same_bits(restored, saved), "restored epoch_1 differs"
+    # resume against the uninterrupted run
+    distance = row_distance(rows_b[0], rows_c[2])
+    trainer_b = rec.of("B", "train_epoch")[-1]["obj"]
+    trainer_c = rec.of("C", "train_epoch")[-1]["obj"]
+    states_equal = same_bits(state_leaves(trainer_b.state),
+                             state_leaves(trainer_c.state))
+    # evaluation of the store against the best epoch's val scores
+    best = rows_b[0]      # B's SaveBest is fresh: its one epoch is best
+    eval_err = max(abs(scores_d["event_f1"] - best["val_event_f1"]),
+                   abs(scores_d["psds_f1"] - best["val_psds_f1"]))
+
+    split_a = rec.epochs("A")
+    split_c = rec.epochs("C")
+    saves = [c["s"] for c in rec.calls if c["kind"] == "save"]
+    step_ms = {run: [(e["train"] - e["data_in_train"]) / FIT_STEPS * 1e3
+                     for e in rec.epochs(run)] for run in ("A", "C")}
+    floor_ms = {str(k): [c["s"] / FIT_STEPS * 1e3 for c in
+                         rec.of(f"floor_{k}", "train_epoch")]
+                for k in (True, False)}
+    emit(phase="trainer_path", preset="baseline_mt_isp", config="--perf",
+         cli="python -m bsed_tpu_torch.cli", clips={
+             "syn": N_FIT_SYN, "weak": N_FIT_SYN // 2,
+             "unlabeled": N_FIT_SYN // 2, "val": N_FIT_SYN // 4},
+         batch={"syn": B_TRAIN, "weak": B_TRAIN // 2,
+                "unlabeled": B_TRAIN // 2, "val": B_TRAIN},
+         steps_per_epoch=FIT_STEPS, cudnn_deterministic=True,
+         epoch_seconds_a=split_a, epoch_seconds_c=split_c,
+         ms_per_step_fit=step_ms, ms_per_step_fit_is="train seconds less "
+         "the loader's data preparation, over 8 steps",
+         ms_per_step_fit_cudnn_free=floor_ms["False"],
+         ms_per_step_fit_floor_runs=floor_ms["True"],
+         ms_per_step_train_path=train_ms,
+         device_busy_share_profiled_epoch=busy, trace_file=os.path.basename(
+             trace_file), trace_bytes=trace_bytes,
+         checkpoint_bytes=ckpt_bytes, save_ms=[x * 1e3 for x in saves],
+         restore_s=restore_s,
+         resume_s=[c["s"] for c in rec.of("B", "resume")],
+         wall_s=wall,
+         launches_run_a=launches,
+         launches_per_epoch={"stem_epilogue_train": 6 * FIT_STEPS,
+                             "stem_epilogue_bwd": 3 * FIT_STEPS},
+         launches_per_evaluate={"stem_epilogue": 3 * FIT_VAL_BATCHES,
+                                "gru_kernel": 2 * FIT_VAL_BATCHES},
+         noise_floor=floors[True], noise_floor_cudnn_free=floors[False],
+         noise_floor_states_bit_identical=floor_states[True],
+         noise_floor_states_bit_identical_cudnn_free=floor_states[False],
+         resume_distance=distance, resume_state_bit_identical=states_equal,
+         eval_scores={"event_f1": scores_d["event_f1"],
+                      "psds_f1": scores_d["psds_f1"]},
+         eval_vs_results_max_err=eval_err,
+         val_scores=[{k: r[k] for k in r if k.startswith("val_")}
+                     for r in rows_c],
+         loss=[r["loss"] for r in rows_c], card=card)
+    floor = floors[True]
+    if floor == 0.0:
+        assert distance == 0.0, \
+            f"resumed epoch 2 differs from the uninterrupted one: {distance}"
+    if floor_states[True]:
+        assert states_equal, "the resumed run's state differs from the " \
+            "uninterrupted run's, where an epoch run twice does not"
+    else:
+        assert distance <= 2 * floor, \
+            f"resume distance {distance} > 2 × the noise floor {floor}"
+    assert eval_err <= 1e-6, f"eval --store-dir differs by {eval_err}"
+    return launches
+
+
+def check_fit_launches(rec, totals_a):
+    """Every train epoch of every run launched K2's train form 6 and K3 3
+    times a step (K4 never), every evaluate K2's eval form 3 and K4 2
+    times a batch; run A's counters, set to 0 before it, hold exactly its
+    calls' launches. Returns run A's launches by kernel entry."""
+    for call in rec.calls:
+        if call["kind"] == "train_epoch":
+            assert (call["k2"], call["k3"], call["k4"]) == (
+                6 * FIT_STEPS, 3 * FIT_STEPS, 0), call
+        elif call["kind"] == "evaluate":
+            assert (call["k2"], call["k3"], call["k4"]) == (
+                3 * FIT_VAL_BATCHES, 0, 2 * FIT_VAL_BATCHES), call
+    epochs_a = rec.of("A", "train_epoch")
+    evals_a = rec.of("A", "evaluate")
+    launches = {
+        "stem_epilogue_train": sum(e["k2"] for e in epochs_a),
+        "stem_epilogue_bwd": sum(e["k3"] for e in epochs_a),
+        "stem_epilogue": sum(e["k2"] for e in evals_a),
+        "gru_kernel": sum(e["k4"] for e in evals_a)}
+    assert totals_a == (launches["stem_epilogue_train"]
+                        + launches["stem_epilogue"],
+                        launches["stem_epilogue_bwd"],
+                        launches["gru_kernel"]), (totals_a, launches)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-dir", default=None,
@@ -1585,6 +1967,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     loader_train_path(torch, dev, smi, train_ms)
     torch.cuda.empty_cache()
+    fit_launches = trainer_path(torch, dev, smi, train_ms)
+    torch.cuda.empty_cache()
     train_equality(torch, dev)
     torch.cuda.empty_cache()
     k2pg, k3pg = check_stem_epilogue_pg(torch, dev)
@@ -1593,6 +1977,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     for k in (k2, k4):           # the eval path's run, 4 batches of 64
         k["launches_eval_path"] = eval_launches[k["name"]]
+    for k in (k2, k2t, k3, k4):  # run A of trainer_path: 2 epochs, 2 evals
+        k["launches_trainer_path"] = fit_launches[k["name"]]
     kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -595,3 +595,121 @@ def test_predict_fn_kernels_match_plain(dev, compute_dtype, gate):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and torch.isfinite(g).all()
         torch.testing.assert_close(g, w, rtol=0, atol=gate)
+
+
+def _card_trainer(dev, store, use_kernels=True, scan_epoch="auto"):
+    """A small Trainer on the card: baseline_mt_isp, float32, the folded
+    train stem with the fused epilogue, fused streams, 2 s clips at 32 kHz
+    (full mel width), batch 4: 2 steps an epoch over resident loaders,
+    validation on 8 clips."""
+    from bsed_tpu_torch.data.datasets import SyntheticDataSource
+    from bsed_tpu_torch.data.pipeline import EvalLoader, ThreeStreamLoader
+    from bsed_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("baseline_mt_isp").replace(
+        audio=AudioConfig(max_len_seconds=2.0))
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, folded_train_stem=True,
+                                  fused_stem_epilogue=True),
+        train=dataclasses.replace(cfg.train, batch_size=4,
+                                  fused_streams=True))
+    syn = SyntheticDataSource(cfg, n_items=8, seed=1)
+    weak = SyntheticDataSource(cfg, n_items=4, seed=2)
+    unlab = SyntheticDataSource(cfg, n_items=4, seed=3)
+    val = SyntheticDataSource(cfg, n_items=8, seed=4)
+    return Trainer(cfg, ThreeStreamLoader(syn, weak, unlab, batch_size=4,
+                                          seed=cfg.train.seed, device=dev),
+                   val_loader=EvalLoader(val, batch_size=4, device=dev),
+                   store_dir=str(store), device=dev,
+                   use_kernels=use_kernels, scan_epoch=scan_epoch)
+
+
+def _state_leaves(state):
+    from bsed_tpu_torch.utils.weights import export_train_state
+
+    def leaves(tree, prefix=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, prefix + (k,))
+        else:
+            yield prefix, np.asarray(tree)
+    return dict(leaves(export_train_state(state)))
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = False
+
+
+def test_trainer_fit_kernels_match_plain(dev, tmp_path, deterministic_cudnn):
+    """A 1-epoch fit with the kernels (K2 train 6 and K3 3 times a step;
+    K2 eval 3 and K4 2 times a val batch) against the same fit on their
+    plain versions, float32, dropout 0.5 with the same bits: the f32
+    train-step gates (metrics 1e-4 relative, Adam moments 3e-5, BN
+    statistics 1e-5 + 1e-5 relative)."""
+    launches = (stem_epilogue.stem_epilogue_fwd.launches,
+                stem_epilogue.stem_epilogue_bwd.launches,
+                gru_kernel.gru_bidir_recurrence.launches)
+    kern = _card_trainer(dev, tmp_path / "kernels")
+    kern.fit(n_epochs=1)
+    torch.cuda.synchronize()
+    assert (stem_epilogue.stem_epilogue_fwd.launches - launches[0],
+            stem_epilogue.stem_epilogue_bwd.launches - launches[1],
+            gru_kernel.gru_bidir_recurrence.launches - launches[2]) == \
+        (2 * 6 + 2 * 3, 2 * 3, 2 * 2)
+    plain = _card_trainer(dev, tmp_path / "plain", use_kernels=False)
+    plain.fit(n_epochs=1)
+    (got,), (want,) = kern.history, plain.history
+    assert list(got) == list(want)
+    for k, v in want.items():
+        if not k.startswith("val_"):
+            assert abs(got[k] - v) <= 1e-4 * abs(v), k
+        assert np.isfinite(got[k]), k
+    a, b = _state_leaves(kern.state), _state_leaves(plain.state)
+    for path, v in b.items():
+        if path[0] == "mu":
+            np.testing.assert_allclose(a[path], v, rtol=0, atol=3e-5,
+                                       err_msg=str(path))
+        elif path[0] in ("batch_stats", "ema_batch_stats"):
+            np.testing.assert_allclose(a[path], v, rtol=1e-5, atol=1e-5,
+                                       err_msg=str(path))
+
+
+def test_checkpoint_from_card_restores_bit_for_bit(dev, tmp_path):
+    """A state saved from card tensors after a step (Adam populated) and
+    restored into a fresh state on the card: every tensor equal, on the
+    card."""
+    from bsed_tpu_torch.train.steps import create_train_state
+    from bsed_tpu_torch.utils.checkpoint import CheckpointManager
+
+    trainer = _card_trainer(dev, tmp_path)
+    trainer.fit(n_epochs=1)
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save("probe", trainer.state)
+    fresh = create_train_state(trainer.cfg, trainer.modules, seed=99)
+    ckpt.restore("probe", fresh)
+    assert fresh.step == trainer.state.step == 2
+    assert next(fresh.model.parameters()).device.type == "cuda"
+    for st in fresh.optimizer.state.values():
+        assert st["exp_avg"].device.type == "cuda"
+    a, b = _state_leaves(trainer.state), _state_leaves(fresh)
+    assert a.keys() == b.keys()
+    for path, v in a.items():
+        assert np.array_equal(b[path], v), path
+
+
+def test_epoch_runner_matches_loop_on_card(dev, tmp_path,
+                                           deterministic_cudnn):
+    """On card-resident loaders the epoch runner and the prefetching loop
+    give the same metrics and the same state, bit for bit."""
+    runner = _card_trainer(dev, tmp_path / "runner")
+    loop = _card_trainer(dev, tmp_path / "loop", scan_epoch="off")
+    runner.fit(n_epochs=1)
+    loop.fit(n_epochs=1)
+    assert runner._epoch_runner is not None and loop._epoch_runner is None
+    assert runner.history == loop.history
+    a, b = _state_leaves(runner.state), _state_leaves(loop.state)
+    for path, v in a.items():
+        assert np.array_equal(b[path], v), path

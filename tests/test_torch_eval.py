@@ -582,9 +582,11 @@ def test_evaluate_checkpoint_refusals(tmp_path):
     _, cfg = _small()
     loader = EvalLoader(SyntheticDataSource(cfg, n_items=2), batch_size=2,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint 'best'"):
         tm.evaluate_checkpoint(cfg, loader, store_dir=str(tmp_path),
                                device="cpu")
+    with pytest.raises(ValueError, match="store_dir or torch_ckpt"):
+        tm.evaluate_checkpoint(cfg, loader, device="cpu")
     if not torch.cuda.is_available():
         params, stats = _weights(cfg)
         ckpt = tm.export_torch_checkpoint(cfg, params, stats,

@@ -1,7 +1,8 @@
 """The port stands alone: bsed_tpu_torch and chip_smoke.py import no jax,
 flax or bsed_tpu (the JAX package), and no pandas (the machine with the
 card has none), checked by importing every module with those blocked and
-by scanning every import statement."""
+by scanning every import statement; importing them pulls in neither
+tensorboard nor matplotlib (optional, and absent on that machine)."""
 import ast
 import os
 import subprocess
@@ -31,14 +32,18 @@ def test_imports_with_jax_blocked():
         "    importlib.import_module(m)\n"
         "importlib.import_module('chip_smoke')\n"
         "for m in ('train.steps', 'data.pipeline', 'eval.test_model',\n"
-        "          'eval.psds', 'ops.median', 'utils.torch_compat'):\n"
+        "          'eval.psds', 'ops.median', 'utils.torch_compat',\n"
+        "          'train.trainer', 'utils.checkpoint', 'utils.meters',\n"
+        "          'utils.profiling', 'eval.features', 'cli'):\n"
         "    assert 'bsed_tpu_torch.' + m in mods, m\n"
+        "for m in ('torch.utils.tensorboard', 'tensorboard', 'matplotlib'):\n"
+        "    assert m not in sys.modules, m + ' imported at module import'\n"
         "print(len(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 51
+    assert int(out.stdout.split()[-1]) >= 57
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -256,8 +256,8 @@ def test_folded_train_stem_matches_jax_encoder(fused):
 
 @pytest.mark.parametrize("f,cin,cout", [(8, 1, 16), (4, 16, 32), (2, 32, 64)])
 def test_fold_kernel_gather_matches_jax(f, cin, cout):
-    """The differentiable kernel fold and its scatter-add backward against
-    bsed_tpu's constant-index take."""
+    """The differentiable kernel fold and its backward (each tap sums its
+    fold copies) against bsed_tpu's constant-index take."""
     from bsed_tpu.ops.folded_stem import _fold_kernel_jnp
 
     from bsed_tpu_torch.ops import folded_stem as fs
