@@ -1,15 +1,28 @@
-"""CRNN encoder, eval form. Port of ``bsed_tpu/models/crnn.py:CRNN``
-(reference CRNN.py:178-240): CNN → squeeze freq → BiGRU → (eval) dropout;
-takes NHWC (B, T, F, 1) and returns ``(encoded, d_input)``, both
-(B, T/4, 2·n_rnn_cell)."""
+"""CRNN encoders. Port of ``bsed_tpu/models/crnn.py``: ``CRNN`` (reference
+CRNN.py:178-240), CNN → squeeze freq → BiGRU → dropout, and ``CRNNFPN``
+(CRNN.py:243-337), three BiGRUs over the (313, 156, 78)-frame pyramid of
+``CNNFPN`` with the coarse paths upsampled (align_corners=True, as
+``time_interp_matrix`` matmuls) and fused by dense layers. Both take NHWC
+(B, T, F, 1) and return ``(encoded, d_input)``, both (B, T/4, 2·n_rnn_cell)
+float32.
+
+In training mode (PyTorch's default) BatchNorm runs on batch statistics
+and dropout draws from the generator passed to ``forward``; ``.eval()`` is
+the serving form. ``cast_weights=False`` keeps the GRUs' weights in
+float32 and casts them per call (the train form, whose optimizer updates
+float32 master weights); serving casts them once (``models/rnn.py``)."""
 from __future__ import annotations
+
+from typing import Callable, Mapping, Optional
 
 import torch
 import torch.nn as nn
 
 from bsed_tpu_torch.config import ModelConfig
-from bsed_tpu_torch.models.cnn import CNN
+from bsed_tpu_torch.models.cnn import CNN, CNNFPN
+from bsed_tpu_torch.models.layers import time_interp_matrix
 from bsed_tpu_torch.models.rnn import BidirectionalGRU
+from bsed_tpu_torch.ops.dropout import FastDropout
 
 
 def compute_dtype(cfg: ModelConfig):
@@ -17,21 +30,81 @@ def compute_dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
 
 
+def _cnn_kwargs(cfg: ModelConfig) -> dict:
+    return dict(nb_filters=tuple(cfg.nb_filters),
+                pooling=tuple(tuple(p) for p in cfg.pooling),
+                activation=cfg.activation, kernel=cfg.kernel_size,
+                dtype=compute_dtype(cfg), n_in_channel=cfg.n_in_channel,
+                dropout=cfg.dropout)
+
+
+def _bigru(cfg: ModelConfig, cast_weights: bool) -> BidirectionalGRU:
+    return BidirectionalGRU(cfg.nb_filters[-1], cfg.n_rnn_cell,
+                            cfg.n_layers_rnn, cfg.dropout_recurrent,
+                            dtype=compute_dtype(cfg),
+                            cast_weights=cast_weights)
+
+
 class CRNN(nn.Module):
-    def __init__(self, cfg: ModelConfig = ModelConfig()):
+    def __init__(self, cfg: ModelConfig = ModelConfig(),
+                 cast_weights: bool = True):
         super().__init__()
         if cfg.use_fpn:
-            raise NotImplementedError("CRNNFPN is not ported yet")
-        dtype = compute_dtype(cfg)
-        self.cnn = CNN(tuple(cfg.nb_filters),
-                       tuple(tuple(p) for p in cfg.pooling), cfg.activation,
-                       cfg.kernel_size, dtype=dtype,
-                       n_in_channel=cfg.n_in_channel)
-        self.rnn = BidirectionalGRU(cfg.nb_filters[-1],
-                                    cfg.n_rnn_cell, cfg.n_layers_rnn,
-                                    cfg.dropout_recurrent, dtype=dtype)
+            raise ValueError("use_fpn=True: the encoder is CRNNFPN "
+                             "(make_encoder)")
+        self.cnn = CNN(**_cnn_kwargs(cfg))
+        self.rnn = _bigru(cfg, cast_weights)
+        self.dropout = FastDropout(cfg.dropout)
 
-    def forward(self, x):
-        x = self.cnn(x).squeeze(2)     # (B, T', 1, C) → (B, T', C)
-        x = self.rnn(x)
+    def forward(self, x, gen: Optional[torch.Generator] = None):
+        x = self.cnn(x, gen).squeeze(2)     # (B, T', 1, C) → (B, T', C)
+        x = self.dropout(self.rnn(x), gen)
         return x, x
+
+
+class CRNNFPN(nn.Module):
+    """The feature-pyramid CRNN. ``forward(x, gen, bigrus)``: ``bigrus``
+    maps "rnn", "rnn_2" and "rnn_4" to callables that replace those
+    modules' forwards (serving runs each hoisted, on kernel K4)."""
+
+    def __init__(self, cfg: ModelConfig = ModelConfig(),
+                 cast_weights: bool = True):
+        super().__init__()
+        self.cnn = CNNFPN(**_cnn_kwargs(cfg))
+        self.rnn = _bigru(cfg, cast_weights)
+        self.rnn_2 = _bigru(cfg, cast_weights)
+        self.rnn_4 = _bigru(cfg, cast_weights)
+        self.dropout = FastDropout(cfg.dropout)
+        d = 2 * cfg.n_rnn_cell
+        self.fuse_2 = nn.Linear(2 * d, d)
+        self.fuse_4 = nn.Linear(2 * d, d)
+        self._interp = {}
+
+    def _up(self, t_in: int, t_out: int, device) -> torch.Tensor:
+        key = (t_in, t_out, str(device))
+        if key not in self._interp:
+            self._interp[key] = time_interp_matrix(t_in, t_out,
+                                                   device=device)
+        return self._interp[key]
+
+    def forward(self, x, gen: Optional[torch.Generator] = None,
+                bigrus: Optional[Mapping[str, Callable]] = None):
+        x, x_2, x_4 = self.cnn(x, gen)
+
+        def run_rnn(h, name):
+            fn = bigrus[name] if bigrus is not None else getattr(self, name)
+            return self.dropout(fn(h.squeeze(2)), gen)
+
+        x = run_rnn(x, "rnn")            # (B, 313, 2H)
+        x_2 = run_rnn(x_2, "rnn_2")      # (B, 156, 2H)
+        x_4 = run_rnn(x_4, "rnn_4")      # (B, 78, 2H)
+        x_4_up = self._up(x_4.shape[1], x_2.shape[1], x.device) @ x_4
+        x_2 = self.fuse_2(torch.cat([x_2, x_4_up], dim=-1))
+        x_2_up = self._up(x_2.shape[1], x.shape[1], x.device) @ x_2
+        x = self.fuse_4(torch.cat([x, x_2_up], dim=-1))
+        return x, x
+
+
+def make_encoder(cfg: ModelConfig, cast_weights: bool = True) -> nn.Module:
+    return (CRNNFPN(cfg, cast_weights) if cfg.use_fpn
+            else CRNN(cfg, cast_weights))

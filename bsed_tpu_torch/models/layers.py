@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -71,6 +72,32 @@ class ContextGating(nn.Module):
         lin = F.linear(x.to(dt), self.linear.weight.to(dt),
                        self.linear.bias.to(dt))
         return x * torch.sigmoid(lin)
+
+
+class SmallChannelConv3x3(nn.Module):
+    """3×3 'same' conv computed as 9 shifted channel matmuls instead of a
+    convolution: the port of ``bsed_tpu``'s module of that name, which no
+    preset's ``ConvBlock`` runs (its ``use_shift_conv`` is off). Its
+    parameters are ``nn.Conv2d``'s, ``weight`` (out, in, 3, 3) and
+    ``bias``, so checkpoints are interchangeable. NHWC in and out; the
+    matmuls accumulate in float32."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.padding = (1, 1)
+
+    def forward(self, x):
+        w = self.weight.float()
+        xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+        h, wd = x.shape[1], x.shape[2]
+        out = None
+        for dt in range(3):
+            for df in range(3):
+                contrib = xp[:, dt:dt + h, df:df + wd] @ w[:, :, dt, df].T
+                out = contrib if out is None else out + contrib
+        return out + self.bias
 
 
 class _Fn(nn.Module):
@@ -173,3 +200,24 @@ class ConvBlock(nn.Module):
         if self.pooling != (1, 1):
             x = avg_pool(x, self.pooling)
         return x
+
+
+def time_interp_matrix(in_len: int, out_len: int, dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """(out_len, in_len) linear-interpolation matrix with
+    align_corners=True, torch's ``nn.Upsample(mode='bilinear',
+    align_corners=True)`` on a (T, 1) map (reference CRNN.py:280-281):
+    upsampling becomes one matmul. Built in float64, then cast."""
+    w = np.zeros((out_len, in_len), dtype=np.float64)
+    if out_len == 1:
+        w[0, 0] = 1.0
+    else:
+        scale = (in_len - 1) / (out_len - 1)
+        for j in range(out_len):
+            pos = j * scale
+            i0 = int(np.floor(pos))
+            i1 = min(i0 + 1, in_len - 1)
+            frac = pos - i0
+            w[j, i0] += 1.0 - frac
+            w[j, i1] += frac
+    return torch.as_tensor(w, dtype=dtype, device=device)

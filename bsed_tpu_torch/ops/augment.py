@@ -5,14 +5,19 @@
     Transforms.py:142-197): per-frequency-bin std over time,
     std_f = sqrt(mean_t(x² · 10^(−snr/10)));
   * ISP time/freq rolls (reference main_baseline.py:229-277): one
-    per-sample circular shift of the whole batch, as a gather.
+    per-sample circular shift of the whole batch, as a gather;
+  * ICT mixup (main_baseline.py:132-164): one λ ~ Beta(α, α) a batch and
+    one shared permutation mixing the input and every target.
 
-Draws come from the caller's ``torch.Generator``; ICT mixup is not ported.
+Draws come from the caller's ``torch.Generator``, on the batch's device;
+mixup's λ comes from a numpy ``Generator`` (torch's Beta and gamma
+samplers take no generator). Tests inject the draws of the JAX side.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -60,3 +65,25 @@ def roll_batch(x: torch.Tensor, shifts: torch.Tensor,
     view = [x.shape[0]] + [1] * (x.ndim - 1)
     view[axis] = n
     return torch.gather(x, axis, src.reshape(view).expand(x.shape))
+
+
+def mixup(gen: Optional[torch.Generator], x: torch.Tensor, *targets,
+          alpha: float = 1.0, rng: Optional[np.random.Generator] = None,
+          lam: Optional[float] = None,
+          perm: Optional[torch.Tensor] = None):
+    """ICT mixup: ``(mixed_x, *mixed_targets, lam)`` with
+    mixed = λ·a + (1 − λ)·a[perm] for the input and every target.
+
+    λ ~ Beta(α, α) from ``rng`` (1 when α ≤ 0), the permutation from
+    ``gen`` on x's device; ``lam`` and ``perm`` replace the draws. λ is
+    rounded to float32 and 1 − λ taken in float32, as the JAX function
+    computes them."""
+    if lam is None:
+        lam = float(rng.beta(alpha, alpha)) if alpha > 0 else 1.0
+    if perm is None:
+        perm = torch.randperm(x.shape[0], generator=gen, device=x.device)
+    perm = torch.as_tensor(perm, device=x.device).long()
+    lam32 = np.float32(lam)
+    a, b = float(lam32), float(np.float32(1.0) - lam32)
+    mixed = tuple(a * t + b * t[perm] for t in (x,) + targets)
+    return (*mixed, a)

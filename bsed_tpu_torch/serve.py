@@ -20,7 +20,7 @@ import torch
 
 from bsed_tpu_torch.config import Config
 from bsed_tpu_torch.models.cnn import CNN
-from bsed_tpu_torch.models.crnn import CRNN, compute_dtype
+from bsed_tpu_torch.models.crnn import compute_dtype, make_encoder
 from bsed_tpu_torch.models.predictor import make_predictor_head
 from bsed_tpu_torch.models.rnn import BidirectionalGRU, HoistedBiGRU
 from bsed_tpu_torch.ops import mel_kernel, stem_kernel
@@ -67,7 +67,8 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
     ``train.steps.make_predict_fn``; the options are
     ``make_fast_forward``'s (see there). Every branch runs the BiGRU
     hoisted (``HoistedBiGRU``: K4, or its plain version under
-    ``use_kernels=False``)."""
+    ``use_kernels=False``); the feature-pyramid encoder (``use_fpn``,
+    standard branch) runs its three, at T, T/2 and T/4 frames."""
     if stem_impl not in ("pallas", "reference"):
         raise ValueError(f"unknown stem_impl {stem_impl}")
     m = cfg.model
@@ -81,9 +82,18 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
     fused = (use_fused_stem and not folded and not m.use_fpn
              and m.activation == "glu" and cfg.audio.n_mels == 128)
     if not (folded or fused):
-        encoder = CRNN(m)
+        encoder = make_encoder(m)
         weights.load_crnn(encoder, enc_params, enc_stats)
         encoder.to(dev).eval()
+        if m.use_fpn:
+            # the three pyramid BiGRUs (T, T/2, T/4), each hoisted
+            bigrus = {n: HoistedBiGRU(getattr(encoder, n),
+                                      use_kernel=use_kernels)
+                      for n in ("rnn", "rnn_2", "rnn_4")}
+
+            def encode(mel):               # CRNNFPN.forward, eval
+                return encoder(mel, bigrus=bigrus)[0]
+            return encode
         bigru = HoistedBiGRU(encoder.rnn, use_kernel=use_kernels)
 
         def encode(mel):                   # CRNN.forward, eval

@@ -2,7 +2,8 @@
 
   * ``bce``: nn.BCELoss on probabilities — mean of
     −[y·log p + (1−y)·log(1−p)] with each log term clamped at −100;
-  * ``mse``: nn.MSELoss (mean).
+  * ``mse``: nn.MSELoss (mean);
+  * ``entropy``: H(p) = −Σ_c p·log(p + 1e-5) (reference DA/entropy.py:8-30).
 """
 from __future__ import annotations
 
@@ -27,3 +28,10 @@ def bce(probs: torch.Tensor, targets: torch.Tensor,
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean((a - b) * (a - b))
+
+
+def entropy(p: torch.Tensor, reduction: str = "none") -> torch.Tensor:
+    h = -torch.sum(p * torch.log(p + 1e-5), dim=-1)
+    if reduction == "mean":
+        return h.mean()
+    return h

@@ -1,9 +1,12 @@
-"""Train state. Port of ``bsed_tpu/train/state.py``: what the JAX package
-keeps as one immutable pytree is here the student and teacher modules and
-the optimizer, which the step updates in place, plus the step count."""
+"""Train state and optimizer. Port of ``bsed_tpu/train/state.py`` and of
+``_base_optimizer`` (``bsed_tpu/train/steps.py:75-89``): what the JAX
+package keeps as one immutable pytree is here the student and teacher
+modules and the optimizer, which the step updates in place, plus the step
+count."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable, Optional
 
 import torch
 
@@ -11,6 +14,28 @@ import torch
 @dataclasses.dataclass
 class TrainState:
     step: int
-    model: torch.nn.Module             # student: encoder + predictor
-    ema_model: torch.nn.Module         # mean teacher (no gradients)
-    optimizer: torch.optim.Optimizer   # Adam over the student's parameters
+    model: torch.nn.Module                # student: encoder + predictor
+    ema_model: Optional[torch.nn.Module]  # mean teacher (no gradients)
+    optimizer: torch.optim.Optimizer      # over the student's parameters
+
+
+def make_optimizer(cfg, params: Iterable[torch.nn.Parameter]
+                   ) -> torch.optim.Optimizer:
+    """The main optimizer of ``cfg.train.optimizer``, at the constant
+    max_learning_rate (the step sets each step's lr on its param groups):
+
+      * "adam": Adam(β 0.9, 0.999, ε 1e-8), optax.adam's;
+      * "sgd": SGD with Nesterov momentum 0.9 and weight decay 1e-4
+        (main_scmt_ada_weak.py:854-862). torch adds the decay to the
+        gradient before the momentum trace, as optax's
+        ``chain(add_decayed_weights, sgd(nesterov=True))`` does, and its
+        ``momentum_buffer`` is optax's trace."""
+    t = cfg.train
+    if t.optimizer == "adam":
+        return torch.optim.Adam(params, lr=t.max_learning_rate,
+                                betas=(0.9, 0.999), eps=1e-8)
+    if t.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=t.max_learning_rate,
+                               momentum=t.sgd_momentum, nesterov=True,
+                               weight_decay=t.sgd_weight_decay)
+    raise ValueError(f"unknown optimizer {t.optimizer!r}")

@@ -1,34 +1,44 @@
-"""The flagship train step: mean teacher + ISP shift consistency.
+"""The config-driven train step. Port of ``bsed_tpu/train/steps.py`` for
+every preset that trains without a discriminator (the ``pretrain`` stage):
 
-Port of ``bsed_tpu/train/steps.py`` for the configuration of preset
-``baseline_mt_isp`` (reference main_baseline.py:168-598): supervised BCE
-on the SYN strong+weak targets and the real weak targets, the mean teacher
-(EMA twin, SNR noise on its linear-mel input, MSE consistency × the
-sigmoid cost ramp), and the 'baseline' ISP flavour (per-sample time/freq
-rolls shared between streams, shift classification and self/teacher shift
-consistency). Forwards go through the folded train stem
-(``ModelConfig.folded_train_stem``), whose epilogues are kernels K2 and K3
-on the card; ``TrainConfig.fused_streams`` runs the 3 teacher and the 6
+  * supervised BCE on the SYN strong+weak targets, with the real stream's
+    weak term per ``TrainConfig.real_weak_bce``, or on the real stream
+    (``supervise_on='real'``, the ENA upper bound);
+  * the mean teacher: EMA twin, SNR noise on its linear-mel input, MSE
+    consistency × the cost ramp (per-epoch sigmoid, or per-step
+    ``exp_step``); the EMA over params and BatchNorm statistics, or over
+    params only (``ema_scope='params'``);
+  * ISP shift consistency in each lineage's wiring (flavours 'baseline',
+    'scmt', 'scmt_ada', 'sct', and 'origin' with its masked combined
+    batch), and ICT mixup (the masked 'origin' branch and the generic one);
+  * dataset normalisation of the log-mel (``TrainConfig.normalize``);
+  * Adam or SGD (``train/state.make_optimizer``).
+
+Forwards run in ``bsed_tpu``'s order, which fixes the order in which the
+BatchNorm running statistics advance. The encoder is the folded train
+stem (``ModelConfig.folded_train_stem``, the ``--perf`` form: epilogues on
+kernels K2 and K3 on the card) or, by default, the unfolded CRNN / CRNNFPN
+in float32 (the reference-parity form, no kernel).
+``TrainConfig.fused_streams`` runs the same-shape teacher forwards and the
 student forwards as one batched forward each (BatchNorm statistics pool
-over the streams), otherwise they run one by one in the reference's order.
+over the streams), otherwise they run one by one.
 
 PyTorch idiom: the student and teacher are ``nn.Module``s and the step
-updates them and the Adam optimizer in place (``train/state.py``). Its
-randomness — teacher noise, ISP shifts, dropout bits — comes from one
-``torch.Generator`` per step, seeded from (seed, step) as the JAX step
-folds the step count into its key; the draws differ from JAX's, so parity
-tests inject them.
+updates them and the optimizer in place (``train/state.py``). Its
+randomness — teacher noise, ISP shifts, dropout bits, mixup permutations —
+comes from one ``torch.Generator`` per step, seeded from (seed, step) as
+the JAX step folds the step count into its key, and mixup's λ from a
+numpy generator seeded the same way; the draws differ from JAX's, so
+parity tests inject them.
 
 ``make_epoch_runner`` runs an epoch of steps on loader arrays resident on
 the device (the port of the JAX package's ``lax.scan`` over the epoch, as
 a plain loop), and ``make_predict_fn`` is the port of the JAX package's
 inference function; ``train/trainer.py`` drives both.
 
-Not ported (ROADMAP items 8a and 8b): the presets other than
-``baseline_mt_isp`` — the other ISP flavours, ICT mixup, domain
-adaptation, the exp_step ramp, real-stream supervision, normalisation
-statistics, SGD and the unfolded train encoder; ``build_modules`` refuses
-them.
+Not ported: domain adaptation in the ``adaptation`` stage (ROADMAP item
+8b), the 'crnn' predictor head and recurrent dropout in training (item
+8c); ``build_modules`` refuses them.
 """
 from __future__ import annotations
 
@@ -41,25 +51,28 @@ import torch
 import torch.nn as nn
 
 from bsed_tpu_torch.config import Config
-from bsed_tpu_torch.models.crnn import compute_dtype
+from bsed_tpu_torch.models.crnn import compute_dtype, make_encoder
 from bsed_tpu_torch.models.layers import ConvBlock
 from bsed_tpu_torch.models.predictor import make_predictor_head
 from bsed_tpu_torch.models.rnn import BidirectionalGRU
-from bsed_tpu_torch.ops.augment import (gaussian_snr_noise, roll_batch,
-                                        sample_isp_shifts)
+from bsed_tpu_torch.ops.augment import (gaussian_snr_noise, mixup,
+                                        roll_batch, sample_isp_shifts)
 from bsed_tpu_torch.ops.dropout import FastDropout
 from bsed_tpu_torch.ops.folded_stem import (folded_train_eligible,
                                             make_folded_train_stem)
 from bsed_tpu_torch.ops.mel import amplitude_to_db
 from bsed_tpu_torch.train.ema import ema_update
 from bsed_tpu_torch.train.losses import bce, mse
-from bsed_tpu_torch.train.ramps import sigmoid_rampdown
+from bsed_tpu_torch.train.ramps import exp_rampup, sigmoid_rampdown
 from bsed_tpu_torch.train.schedule import learning_rate
-from bsed_tpu_torch.train.state import TrainState
+from bsed_tpu_torch.train.state import TrainState, make_optimizer
 from bsed_tpu_torch.utils import weights
 from bsed_tpu_torch.utils.device import resolve_device
 
-_LATER = "is not ported yet (ROADMAP.md, open item 8)"
+_NOT_FOLDABLE = ("folded_train_stem=True but the topology is not foldable "
+                 "(needs non-FPN, kernel 3, glu/cg/relu/leakyrelu "
+                 "activation, n_mels divisible by 8, freq pooling dividing "
+                 "the fold)")
 
 
 class _FoldedRestCRNN(nn.Module):
@@ -101,10 +114,7 @@ class FoldedEncoder(nn.Module):
         super().__init__()
         m = cfg.model
         if not folded_train_eligible(m, cfg.audio.n_mels):
-            raise ValueError(
-                "folded_train_stem=True but the topology is not foldable "
-                "(needs non-FPN, kernel 3, glu/cg/relu/leakyrelu activation, "
-                "n_mels divisible by 8, freq pooling dividing the fold)")
+            raise ValueError(_NOT_FOLDABLE)
         self.stem_apply, n_folded = make_folded_train_stem(
             m, cfg.audio.n_mels, device=device, use_kernels=use_kernels)
         dtype = compute_dtype(m)
@@ -123,15 +133,22 @@ class FoldedEncoder(nn.Module):
 
 class TrainModel(nn.Module):
     """Encoder + predictor head: ``forward(x, gen) -> (strong, weak,
-    encoded)``."""
+    encoded)``. The encoder is ``FoldedEncoder`` under
+    ``ModelConfig.folded_train_stem``, else the unfolded ``CRNN`` or
+    ``CRNNFPN`` with float32 master weights."""
 
     def __init__(self, cfg: Config, device="cuda", use_kernels: bool = True):
         super().__init__()
-        self.encoder = FoldedEncoder(cfg, device, use_kernels)
+        self.folded = cfg.model.folded_train_stem
+        self.encoder = (FoldedEncoder(cfg, device, use_kernels)
+                        if self.folded
+                        else make_encoder(cfg.model, cast_weights=False))
         self.predictor = make_predictor_head(cfg)
 
     def forward(self, x, gen: Optional[torch.Generator] = None):
         enc = self.encoder(x, gen)
+        if not self.folded:
+            enc = enc[0]
         strong, weak = self.predictor(enc)
         return strong, weak, enc
 
@@ -155,49 +172,46 @@ class TrainModules:
 
 def _check_supported(cfg: Config) -> None:
     t, m = cfg.train, cfg.model
-    if not (t.mean_teacher and t.isp and t.isp_flavor == "baseline"):
-        raise NotImplementedError(
-            f"train steps other than mean teacher + ISP flavour 'baseline' "
-            f"(mean_teacher={t.mean_teacher}, isp={t.isp}, "
-            f"isp_flavor={t.isp_flavor!r}) {_LATER}")
-    if t.mixup:
-        raise NotImplementedError(f"ICT mixup {_LATER}")
     if t.stage == "adaptation" and cfg.da.mode != "none":
-        raise NotImplementedError(f"domain adaptation {_LATER}")
-    if t.cost_ramp != "sigmoid_epoch":
-        raise NotImplementedError(f"cost_ramp={t.cost_ramp!r} {_LATER}")
-    if t.supervise_on != "syn":
-        raise NotImplementedError(f"supervise_on={t.supervise_on!r} {_LATER}")
-    if t.normalize:
-        raise NotImplementedError(f"dataset normalisation {_LATER}")
-    if t.optimizer != "adam":
-        raise NotImplementedError(f"optimizer={t.optimizer!r} {_LATER}")
-    if not m.folded_train_stem:
         raise NotImplementedError(
-            f"the unfolded train encoder (folded_train_stem=False) {_LATER}")
+            f"domain adaptation (stage 'adaptation', da.mode="
+            f"{cfg.da.mode!r}) is not ported yet (ROADMAP.md, open item 8b)")
     if m.predictor_head == "crnn":
-        raise NotImplementedError(f"the 'crnn' predictor head {_LATER}")
+        raise NotImplementedError(
+            "the 'crnn' predictor head is not ported yet (ROADMAP.md, open "
+            "item 8c)")
+    if m.dropout_recurrent > 0:
+        raise NotImplementedError(
+            "recurrent dropout in training (model.dropout_recurrent > 0) is "
+            "not ported yet (ROADMAP.md, open item 8c)")
+    if m.folded_train_stem and not folded_train_eligible(m,
+                                                         cfg.audio.n_mels):
+        raise ValueError(_NOT_FOLDABLE)
 
 
-def build_modules(cfg: Config, device="cuda",
-                  use_kernels: bool = True) -> TrainModules:
+def build_modules(cfg: Config, device="cuda", use_kernels: bool = True,
+                  norm_stats=None) -> TrainModules:
     """What the step needs to build its models on ``device``;
-    ``use_kernels=False`` runs the stem epilogue's plain versions."""
+    ``use_kernels=False`` runs the stem epilogue's plain versions;
+    ``norm_stats`` is the train scaler's (mean, std) for
+    ``TrainConfig.normalize``."""
     _check_supported(cfg)
-    return TrainModules(cfg, resolve_device(device), use_kernels)
+    return TrainModules(cfg, resolve_device(device), use_kernels,
+                        norm_stats)
 
 
 def load_train_state(modules: TrainModules, trees: Dict) -> TrainState:
     """A train state from flax-layout trees (``utils/weights``): step,
-    params, batch_stats, ema_params, ema_batch_stats and, optionally, the
-    Adam moments mu, nu and their count."""
+    params, batch_stats, with a mean teacher ema_params and
+    ema_batch_stats, and optionally the optimizer's state (Adam: mu, nu
+    and their count; SGD: trace)."""
     model = modules.make_model()
-    teacher = modules.make_model()
-    for p in teacher.parameters():
-        p.requires_grad_(False)
-    t = modules.cfg.train
-    opt = torch.optim.Adam(model.parameters(), lr=t.max_learning_rate,
-                           betas=(0.9, 0.999), eps=1e-8)
+    teacher = None
+    if modules.cfg.train.mean_teacher:
+        teacher = modules.make_model()
+        for p in teacher.parameters():
+            p.requires_grad_(False)
+    opt = make_optimizer(modules.cfg, model.parameters())
     state = TrainState(step=0, model=model, ema_model=teacher, optimizer=opt)
     weights.load_train_state(state, trees)
     return state
@@ -205,13 +219,16 @@ def load_train_state(modules: TrainModules, trees: Dict) -> TrainState:
 
 def create_train_state(cfg: Config, modules: TrainModules,
                        seed: int = 0) -> TrainState:
-    """Student and teacher from their own random inits, drawn from
-    ``seed`` (the teacher's init differs from the student's, as in the
-    reference, main_baseline.py:817-818); zero Adam state."""
+    """Student and, with a mean teacher, teacher from their own random
+    inits, drawn from ``seed`` (the teacher's init differs from the
+    student's, as in the reference, main_baseline.py:817-818); a fresh
+    optimizer."""
     s_seed, t_seed = (int(v) for v in
                       np.random.SeedSequence(seed).generate_state(2))
     params, stats = weights.init_params(cfg, s_seed)
-    ema_params, ema_stats = weights.init_params(cfg, t_seed)
+    ema_params = ema_stats = None
+    if cfg.train.mean_teacher:
+        ema_params, ema_stats = weights.init_params(cfg, t_seed)
     return load_train_state(modules, {
         "step": 0, "params": params, "batch_stats": stats,
         "ema_params": ema_params, "ema_batch_stats": ema_stats})
@@ -225,9 +242,21 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return gen
 
 
+def step_rng(seed: int, step: int) -> np.random.Generator:
+    """The host generator of one step (mixup's λ), seeded from
+    (seed, step)."""
+    return np.random.default_rng(np.random.SeedSequence((seed, step, 1)))
+
+
 def _log_input(linear_mel: torch.Tensor) -> torch.Tensor:
     """linear mel (B, T, F) → log-mel with channel axis (B, T, F, 1)."""
     return amplitude_to_db(linear_mel)[..., None]
+
+
+def _split(out, sizes):
+    """A batched forward's (strong, weak, enc) split back into streams."""
+    cuts = [0] + list(itertools.accumulate(sizes))
+    return [tuple(o[a:b] for o in out) for a, b in zip(cuts, cuts[1:])]
 
 
 def make_train_step(modules: TrainModules,
@@ -236,135 +265,405 @@ def make_train_step(modules: TrainModules,
     """``step(state, batch, seed, epoch) -> metrics``: one optimizer step
     of the student, then the teacher's EMA, all in place on ``state``.
 
-    ``batch``: ``syn`` (Bs, T, F) and ``real`` (Br, T, F) linear mel,
-    ``syn_strong`` (Bs, T', C) targets and, optionally, ``real_weak``
-    (Br, C); the first half of the real stream is the labelled weak half.
-    ``epoch`` drives the lr and the consistency-cost ramp. The metrics are
-    the JAX step's names, as 0-d tensors on the device (lr and the cost as
-    floats).
+    ``batch``: ``syn`` (Bs, T, F) linear mel with ``syn_strong``
+    (Bs, T', C) targets, and the real stream ``real`` (Br, T, F) with
+    ``real_weak`` (Br, C) and, where the loader has them, ``real_strong``
+    (Br, T', C); the first half of the real stream is the labelled weak
+    half (the origin layout: ¼ weak, ½ unlabelled, ¼ strong rows, and no
+    syn forward). ``epoch`` drives the lr and the sigmoid cost ramp. The
+    metrics are the JAX step's names, as 0-d tensors on the device (lr
+    and the cost as floats).
 
-    ``steps_per_epoch`` is what the exp_step cost ramp needs (ROADMAP
-    item 8a); the supported sigmoid ramp does not read it.
+    ``steps_per_epoch`` (= len(loader)) sizes the ``exp_step`` cost ramp,
+    exp_rampup(step, n_epoch_rampup · steps_per_epoch)
+    (main_scmt.py:261,515); that ramp raises without it.
     ``grad_flow=True`` adds the mean |grad| of every non-bias parameter
     as ``grad_abs/<name>``, ``<name>`` being the parameter's flax path
     joined by dots, as the JAX step names them (the reference's
     plot_grad_flow diagnostic, main_baseline.py:108-123)."""
-    del steps_per_epoch
     cfg = modules.cfg
     t = cfg.train
     dev = modules.device
-    fused = t.fused_streams
+    mean_teacher, isp, use_mixup = t.mean_teacher, t.isp, t.mixup
+    if t.cost_ramp == "exp_step" and steps_per_epoch is None:
+        raise ValueError(
+            "cfg.train.cost_ramp='exp_step' needs steps_per_epoch "
+            "(= len(syn_loader)) to size the step-based exp_rampup — "
+            "pass make_train_step(modules, steps_per_epoch=len(loader))")
+    # scmt/scmt_ada: only the syn stream runs shifted through the student
+    # (main_scmt.py:425-430)
+    isp_syn_only = t.isp_flavor in ("scmt", "scmt_ada")
+    # origin (main.py): the ISP and ICT wiring is masked over ONE combined
+    # real batch — ¼ weak + ½ unlabeled-PL + ¼ strong rows — and the syn
+    # stream is not forwarded; only the real batch is shifted, there are
+    # no teacher shift forwards, and the three ICT mixups act on the row
+    # slices
+    origin_masks = isp and t.isp_flavor == "origin"
+    nm = None
+    if modules.norm_stats is not None:
+        nm = tuple(torch.as_tensor(np.asarray(a, np.float32),
+                                   device=dev)[:, None]
+                   for a in modules.norm_stats)
+
+    def _inp(lin):
+        """linear mel → log-mel (+ channel axis), then the dataset
+        normalisation (after the log, before the ISP rolls, as the
+        reference's transform order, main.py:203-218)."""
+        x = _log_input(lin)
+        if nm is not None:
+            x = (x - nm[0]) / nm[1]
+        return x
 
     def train_step(state: TrainState, batch: Dict, seed: int,
                    epoch) -> Dict:
         model, teacher = state.model, state.ema_model
         gen = step_generator(seed, state.step, dev)
-        cost = t.max_consistency_cost * sigmoid_rampdown(epoch,
-                                                         t.rampdown_epochs)
+        rng = step_rng(seed, state.step)
+        if t.cost_ramp == "exp_step":
+            # per-step exponential ramp over n_epoch_rampup epochs' steps
+            rampup_value = exp_rampup(state.step,
+                                      t.n_epoch_rampup * steps_per_epoch)
+        else:
+            # per-epoch sigmoid-shaped ramp (main_baseline.py:285)
+            rampup_value = sigmoid_rampdown(epoch, t.rampdown_epochs)
+        cost = t.max_consistency_cost * rampup_value
         lr = learning_rate(epoch, t.max_learning_rate, t.adjust_lr,
                            t.rampdown_epochs)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
 
-        get = lambda k: torch.as_tensor(batch[k], device=dev)  # noqa: E731
-        syn_lin, real_lin, syn_target = get("syn"), get("real"), \
-            get("syn_strong")
-        real_weak_target = get("real_weak") if "real_weak" in batch else None
-        syn_target_weak = syn_target.amax(dim=-2)
-        x_syn, x_real = _log_input(syn_lin), _log_input(real_lin)
+        get = lambda k: (torch.as_tensor(batch[k], device=dev)  # noqa: E731
+                         if batch.get(k) is not None else None)
+        syn_lin, real_lin = get("syn"), get("real")
+        syn_target = get("syn_strong")                    # (Bs, Tf, C)
+        real_weak_target = get("real_weak")               # (Br, C)
+        real_strong_target = get("real_strong")
+        if not origin_masks and (syn_lin is None or syn_target is None):
+            raise KeyError("the batch needs 'syn' and 'syn_strong'")
+        syn_target_weak = (syn_target.amax(dim=-2)
+                           if syn_target is not None else None)
+        # origin trains on the combined real batch only
+        x_syn = (_inp(syn_lin) if syn_lin is not None and not origin_masks
+                 else None)
+        x_real = _inp(real_lin) if real_lin is not None else None
         metrics: Dict = {"lr": lr, "consistency_cost": cost}
+        if (mean_teacher or isp) and real_lin is None:
+            raise ValueError(
+                "mean_teacher/isp presets need the real streams — build "
+                "the loader with weak + unlabeled datasets (batch carries "
+                "no 'real' key)")
 
         # teacher input: noise on the LINEAR mel, then the log
-        x_real_t = _log_input(gaussian_snr_noise(gen, real_lin,
-                                                 cfg.audio.noise_snr))
-        # ISP shifts, shared between the real and syn streams
-        in_shift, pool_shift, freq_shift = sample_isp_shifts(
-            gen, syn_lin.shape[0], t.time_shift_max, t.freq_shift_max,
-            cfg.model.pooling_time_ratio, device=dev)
-        x_real_shift = roll_batch(x_real, in_shift, axis=1)
-        x_real_freq = roll_batch(x_real, freq_shift, axis=2)
-        x_syn_shift = roll_batch(x_syn, in_shift, axis=1)
-        x_syn_freq = roll_batch(x_syn, freq_shift, axis=2)
-        syn_target_shift = roll_batch(syn_target, pool_shift, axis=1)
-        x_real_t_shift = roll_batch(x_real_t, in_shift, axis=1)
-        x_real_t_freq = roll_batch(x_real_t, freq_shift, axis=2)
+        if mean_teacher:
+            x_real_t = _inp(gaussian_snr_noise(gen, real_lin,
+                                               cfg.audio.noise_snr))
+        # ISP shifts, shared between the streams (origin: drawn for and
+        # applied to the combined real batch only)
+        if isp:
+            n_shift = (real_lin.shape[0] if origin_masks
+                       else syn_lin.shape[0])
+            in_shift, pool_shift, freq_shift = sample_isp_shifts(
+                gen, n_shift, t.time_shift_max, t.freq_shift_max,
+                cfg.model.pooling_time_ratio, device=dev)
+            if origin_masks or not isp_syn_only:
+                x_real_shift = roll_batch(x_real, in_shift, axis=1)
+                x_real_freq = roll_batch(x_real, freq_shift, axis=2)
+            if not origin_masks:
+                x_syn_shift = roll_batch(x_syn, in_shift, axis=1)
+                x_syn_freq = roll_batch(x_syn, freq_shift, axis=2)
+                syn_target_shift = roll_batch(syn_target, pool_shift,
+                                              axis=1)
+                if mean_teacher:
+                    x_real_t_shift = roll_batch(x_real_t, in_shift, axis=1)
+                    x_real_t_freq = roll_batch(x_real_t, freq_shift, axis=2)
 
         # teacher forwards: no gradient; its BatchNorm running statistics
         # advance in the reference's call order
-        teacher.train()
-        with torch.no_grad():
-            t_inputs = [x_real_t, x_real_t_shift, x_real_t_freq]
-            if fused:
-                ts, tw, _ = teacher(torch.cat(t_inputs), gen)
-                n_t = x_real_t.shape[0]
-                t_out = [(ts[i * n_t:(i + 1) * n_t], tw[i * n_t:(i + 1) * n_t])
-                         for i in range(3)]
-            else:
-                t_out = [teacher(x, gen)[:2] for x in t_inputs]
-        (t_strong, t_weak), (t_strong_shift, _), (t_strong_freq, _) = t_out
+        teacher_out = {}
+        if mean_teacher:
+            teacher.train()
+            with torch.no_grad():
+                if isp and t.fused_streams and not origin_masks:
+                    outs = _split(teacher(torch.cat(
+                        [x_real_t, x_real_t_shift, x_real_t_freq]), gen),
+                        [x_real_t.shape[0]] * 3)
+                    for tag, o in zip(("", "_shift", "_freq"), outs):
+                        teacher_out[f"strong{tag}"] = o[0]
+                        teacher_out[f"weak{tag}"] = o[1]
+                else:
+                    inputs = [("", x_real_t)]
+                    if isp and not origin_masks:
+                        inputs += [("_shift", x_real_t_shift),
+                                   ("_freq", x_real_t_freq)]
+                    for tag, x in inputs:
+                        ts, tw, _ = teacher(x, gen)
+                        teacher_out[f"strong{tag}"] = ts
+                        teacher_out[f"weak{tag}"] = tw
 
-        # student forwards: syn, real, real shift, real freq, syn shift,
-        # syn freq (the baseline lineage's order, main_baseline.py:372-407)
+                # ICT unlabeled mixup-consistency targets (main.py:451-470):
+                # the teacher scores the CLEAN unlabeled inputs; input and
+                # both posteriors are mixed with one shared λ/permutation
+                if use_mixup:
+                    b = x_real.shape[0]
+                    x_u = (x_real[b // 4: 3 * b // 4] if origin_masks
+                           else x_real[b // 2:])
+                    ts_u, tw_u, _ = teacher(x_u, gen)
+                    mixed_x_u, mixed_strong_u, mixed_weak_u, _ = mixup(
+                        gen, x_u, ts_u, tw_u, alpha=t.mixup_usup_alpha,
+                        rng=rng)
+
+        # student forwards
         model.train()
-        parts = [x_syn, x_real, x_real_shift, x_real_freq, x_syn_shift,
-                 x_syn_freq]
+        fused = t.fused_streams and real_lin is not None
         if fused:
-            s_all, w_all, _ = model(torch.cat(parts), gen)
-            cuts = [0] + list(itertools.accumulate(p.shape[0] for p in parts))
-            outs = [(s_all[a:b], w_all[a:b]) for a, b in zip(cuts, cuts[1:])]
+            # one batched forward over all same-rank student streams
+            if origin_masks:
+                parts = [x_real, x_real_shift, x_real_freq]
+            else:
+                parts = [x_syn, x_real]
+                if isp and not isp_syn_only:
+                    parts += [x_real_shift, x_real_freq, x_syn_shift,
+                              x_syn_freq]
+                elif isp:
+                    parts += [x_syn_shift, x_syn_freq]
+            outs = _split(model(torch.cat(parts), gen),
+                          [p.shape[0] for p in parts])
+            if origin_masks:
+                r_strong, r_weak, _ = outs[0]
+                (rs_strong, rs_weak, _), (rf_strong, rf_weak, _) = outs[1:3]
+            else:
+                syn_strong, syn_weak, _ = outs[0]
+                r_strong, r_weak, _ = outs[1]
+                if isp and not isp_syn_only:
+                    ((rs_strong, rs_weak, _), (rf_strong, rf_weak, _),
+                     (ss_strong, ss_weak, _), (sf_strong, sf_weak, _)) = \
+                        outs[2:6]
+                elif isp:
+                    (ss_strong, ss_weak, _), (sf_strong, sf_weak, _) = \
+                        outs[2:4]
+        elif origin_masks:
+            r_strong, r_weak, _ = model(x_real, gen)
         else:
-            outs = [model(x, gen)[:2] for x in parts]
-        ((syn_strong, syn_weak), (r_strong, r_weak), (rs_strong, _),
-         (rf_strong, rf_weak), (ss_strong, _), (sf_strong, sf_weak)) = outs
+            # the syn forward runs (and advances the BatchNorm statistics)
+            # even when supervise_on == "real" (main_baseline_ena.py:338)
+            syn_strong, syn_weak, _ = model(x_syn, gen)
+            if x_real is not None:
+                r_strong, r_weak, _ = model(x_real, gen)
 
-        # supervised BCE (main_baseline.py:431-475)
-        weak_loss = bce(syn_weak, syn_target_weak)
-        if real_weak_target is not None:
-            if t.real_weak_bce == "full":
-                weak_loss = weak_loss + bce(r_weak, real_weak_target)
-            elif t.real_weak_bce == "half":
-                hw = real_weak_target.shape[0] // 2
-                weak_loss = weak_loss + bce(r_weak[:hw],
-                                            real_weak_target[:hw])
-        strong_loss = bce(syn_strong, syn_target)
-        m = {"weak_class_loss": weak_loss, "strong_class_loss": strong_loss}
+        # supervised BCE (main_baseline.py:431-475 / the ENA variant;
+        # origin: masked slices of the combined real batch)
+        m: Dict = {}
+        if origin_masks:
+            if real_strong_target is None:
+                raise ValueError(
+                    "the origin preset's masked ICT wiring needs the "
+                    "combined real batch's strong targets — build the "
+                    "loader with layout='origin' (batch carries no "
+                    "'real_strong' key)")
+            b34 = 3 * r_weak.shape[0] // 4
+            weak_loss = bce(r_weak[:b34], real_weak_target[:b34])
+            strong_loss = bce(r_strong[b34:], real_strong_target[b34:])
+        elif t.supervise_on == "real" and real_strong_target is not None:
+            weak_loss = bce(r_weak, real_strong_target.amax(dim=-2))
+            if mean_teacher:
+                # the ENA script counts the weak BCE twice under MT
+                # (main_baseline_ena.py:434,437)
+                weak_loss = 2.0 * weak_loss
+            strong_loss = bce(r_strong, real_strong_target)
+        else:
+            weak_loss = bce(syn_weak, syn_target_weak)
+            if real_weak_target is not None:
+                if t.real_weak_bce == "full" and mean_teacher:
+                    # whole real stream (main_baseline.py:435)
+                    weak_loss = weak_loss + bce(r_weak, real_weak_target)
+                elif t.real_weak_bce == "half":
+                    # labelled half only, with or without a teacher
+                    # (main_sct_ada_weak.py:419-423)
+                    hw = real_weak_target.shape[0] // 2
+                    weak_loss = weak_loss + bce(r_weak[:hw],
+                                                real_weak_target[:hw])
+            strong_loss = bce(syn_strong, syn_target)
+        m["weak_class_loss"] = weak_loss
+        m["strong_class_loss"] = strong_loss
         loss = strong_loss + weak_loss
 
-        c_strong = cost * mse(r_strong, t_strong)
-        c_weak = cost * mse(r_weak, t_weak)
-        m["consistency_strong"], m["consistency_weak"] = c_strong, c_weak
-        loss = loss + c_strong + c_weak
+        if mean_teacher:
+            c_strong = cost * mse(r_strong, teacher_out["strong"])
+            c_weak = cost * mse(r_weak, teacher_out["weak"])
+            m["consistency_strong"] = c_strong
+            m["consistency_weak"] = c_weak
+            loss = loss + c_strong + c_weak
 
-        # SCT classification (main_baseline.py:479-480, 445)
-        strong_shift_loss = bce(ss_strong, syn_target_shift)
-        strong_freq_loss = bce(sf_strong, syn_target)
-        m["strong_shift_class_loss"] = strong_shift_loss
-        m["strong_freq_shift_class_loss"] = strong_freq_loss
-        loss = loss + strong_shift_loss + strong_freq_loss
-        weak_freq_loss = bce(sf_weak, syn_target_weak)
-        if real_weak_target is not None:
+        if isp and origin_masks:
+            # masked combined-batch SCT (main.py:363-367,383,422-423):
+            # real shift then real freq forwards; class terms on the
+            # weak/strong row slices; one self-consistency MSE over the
+            # whole combined batch
+            b = r_weak.shape[0]
+            b4, b34 = b // 4, 3 * b // 4
+            if not fused:
+                rs_strong, rs_weak, _ = model(x_real_shift, gen)
+                rf_strong, rf_weak, _ = model(x_real_freq, gen)
+            real_strong_shift = roll_batch(real_strong_target, pool_shift,
+                                           axis=1)
+            strong_shift_loss = bce(rs_strong[b34:],
+                                    real_strong_shift[b34:])
+            strong_freq_loss = bce(rf_strong[b34:], real_strong_target[b34:])
+            weak_freq_loss = bce(rf_weak[:b4], real_weak_target[:b4])
+            m["strong_shift_class_loss"] = strong_shift_loss
+            m["strong_freq_shift_class_loss"] = strong_freq_loss
+            m["weak_freq_shift_class_loss"] = weak_freq_loss
+            loss = (loss + strong_shift_loss + strong_freq_loss
+                    + weak_freq_loss)
+            c_shift = cost / 2 * mse(
+                rs_strong, roll_batch(r_strong.detach(), pool_shift, axis=1))
+            m["consistency_shift"] = c_shift
+            loss = loss + c_shift
+        elif isp:
             half = r_weak.shape[0] // 2
-            weak_freq_loss = weak_freq_loss + bce(rf_weak[:half],
-                                                  real_weak_target[:half])
-        m["weak_freq_shift_class_loss"] = weak_freq_loss
-        loss = loss + weak_freq_loss
+            if not fused:
+                if not isp_syn_only:
+                    real_order = (("freq", "shift") if t.isp_flavor == "sct"
+                                  else ("shift", "freq"))
+                    for kind in real_order:
+                        # sct (main_sct_ada_weak.py:397-400) forwards the
+                        # real freq shift first
+                        if kind == "shift":
+                            rs_strong, rs_weak, _ = model(x_real_shift, gen)
+                        else:
+                            rf_strong, rf_weak, _ = model(x_real_freq, gen)
+                ss_strong, ss_weak, _ = model(x_syn_shift, gen)
+                sf_strong, sf_weak, _ = model(x_syn_freq, gen)
 
-        # self shift consistency, each stream against its own rolled
-        # prediction (main_baseline.py:524-525)
-        syn_pred_shift = roll_batch(syn_strong.detach(), pool_shift, axis=1)
-        real_pred_shift = roll_batch(r_strong.detach(), pool_shift, axis=1)
-        c_shift = cost / 2 * (mse(ss_strong, syn_pred_shift)
-                              + mse(rs_strong, real_pred_shift))
-        m["consistency_shift"] = c_shift
-        loss = loss + c_shift
+            # SCT classification: the strong terms are common to every
+            # lineage
+            strong_shift_loss = bce(ss_strong, syn_target_shift)
+            strong_freq_loss = bce(sf_strong, syn_target)
+            m["strong_shift_class_loss"] = strong_shift_loss
+            m["strong_freq_shift_class_loss"] = strong_freq_loss
+            loss = loss + strong_shift_loss + strong_freq_loss
 
-        # teacher shift consistency: strong only, real shifted student,
-        # half weight (main_baseline.py:501-513, 541)
-        c_ss = cost * mse(rs_strong, t_strong_shift)
-        c_sf = cost * mse(rf_strong, t_strong_freq)
-        m["consistency_strong_shift"] = c_ss
-        m["consistency_strong_freq_shift"] = c_sf
-        loss = loss + 0.5 * (c_ss + c_sf)
+            # the weak-freq term, per lineage
+            if t.isp_flavor == "baseline":
+                # syn + labelled real half (main_baseline.py:445)
+                weak_freq_loss = bce(sf_weak, syn_target_weak)
+                if real_weak_target is not None:
+                    weak_freq_loss = weak_freq_loss + bce(
+                        rf_weak[:half], real_weak_target[:half])
+                m["weak_freq_shift_class_loss"] = weak_freq_loss
+                loss = loss + weak_freq_loss
+            elif t.isp_flavor in ("scmt", "scmt_ada"):
+                # syn only (main_scmt.py:459)
+                weak_freq_loss = bce(sf_weak, syn_target_weak)
+                m["weak_freq_shift_class_loss"] = weak_freq_loss
+                loss = loss + weak_freq_loss
+            elif t.isp_flavor == "sct":
+                # computed, never added (main_sct_ada_weak.py:428 vs :513)
+                m["weak_freq_shift_class_loss"] = bce(sf_weak,
+                                                      syn_target_weak)
+
+            # self shift consistency: the pairing differs per lineage
+            syn_pred_shift = roll_batch(syn_strong.detach(), pool_shift,
+                                        axis=1)
+            if t.isp_flavor == "baseline":
+                # each stream against its own rolled prediction
+                # (main_baseline.py:524-525)
+                real_pred_shift = roll_batch(r_strong.detach(), pool_shift,
+                                             axis=1)
+                c_shift = cost / 2 * (mse(ss_strong, syn_pred_shift)
+                                      + mse(rs_strong, real_pred_shift))
+            elif t.isp_flavor == "scmt":
+                # syn shifted student against the rolled REAL prediction
+                # (main_scmt.py:571)
+                real_pred_shift = roll_batch(r_strong.detach(), pool_shift,
+                                             axis=1)
+                c_shift = cost / 2 * mse(ss_strong, real_pred_shift)
+            else:
+                # scmt_ada (:542-544), sct (main_sct_ada_weak.py:512)
+                c_shift = cost / 2 * mse(ss_strong, syn_pred_shift)
+            m["consistency_shift"] = c_shift
+            loss = loss + c_shift
+
+            # teacher shift consistencies
+            if mean_teacher and t.isp_flavor == "baseline":
+                # strong only, real shifted student, half weight
+                # (main_baseline.py:501-513, 541)
+                c_ss = cost * mse(rs_strong, teacher_out["strong_shift"])
+                c_sf = cost * mse(rf_strong, teacher_out["strong_freq"])
+                m["consistency_strong_shift"] = c_ss
+                m["consistency_strong_freq_shift"] = c_sf
+                loss = loss + 0.5 * (c_ss + c_sf)
+            elif mean_teacher and t.isp_flavor in ("scmt", "scmt_ada"):
+                # four full-weight terms: syn shifted student against the
+                # real-stream shifted teacher (main_scmt.py:529-547, 579)
+                c_ss = cost * mse(ss_strong, teacher_out["strong_shift"])
+                c_ws = cost * mse(ss_weak, teacher_out["weak_shift"])
+                c_sf = cost * mse(sf_strong, teacher_out["strong_freq"])
+                c_wf = cost * mse(sf_weak, teacher_out["weak_freq"])
+                m["consistency_strong_shift"] = c_ss
+                m["consistency_weak_shift"] = c_ws
+                m["consistency_strong_freq_shift"] = c_sf
+                m["consistency_weak_freq_shift"] = c_wf
+                loss = loss + c_ss + c_ws + c_sf + c_wf
+            elif mean_teacher and t.isp_flavor == "sct":
+                # computed, never added (main_sct_ada_weak.py:481-495)
+                m["consistency_strong_shift"] = cost * mse(
+                    rs_strong, teacher_out["strong_shift"])
+                m["consistency_strong_freq_shift"] = cost * mse(
+                    rf_strong, teacher_out["strong_freq"])
+
+        if use_mixup:
+            # ICT mixup in bsed_tpu's forward order (it fixes the order of
+            # the BatchNorm statistics); the λ-weighted BCE pair of
+            # mixup_criterion equals BCE against the λ-blended target
+            if origin_masks:
+                b = r_weak.shape[0]
+                b4, b34 = b // 4, 3 * b // 4
+                # weak mixup on the mask_weak rows (main.py:386-392)
+                mixed_xw, mixed_yw, _ = mixup(
+                    gen, x_real[:b4], real_weak_target[:b4],
+                    alpha=t.mixup_alpha, rng=rng)
+                _, mw_weak, _ = model(mixed_xw, gen)
+                mix_weak_loss = bce(mw_weak, mixed_yw)
+                m["mixup_weak_class_loss"] = mix_weak_loss
+                loss = loss + mix_weak_loss
+                # strong mixup on the mask_strong rows (main.py:426-432)
+                mixed_x, mixed_y, _ = mixup(
+                    gen, x_real[b34:], real_strong_target[b34:],
+                    alpha=t.mixup_alpha, rng=rng)
+                mx_strong, _, _ = model(mixed_x, gen)
+                mix_loss = bce(mx_strong, mixed_y)
+                m["mixup_strong_loss"] = mix_loss
+                loss = loss + mix_loss
+            else:
+                # generic composition: syn strong mixup, labelled real-half
+                # weak mixup, unlabelled-half consistency
+                mixed_x, mixed_y, _ = mixup(gen, x_syn, syn_target,
+                                            alpha=t.mixup_alpha, rng=rng)
+                mx_strong, _, _ = model(mixed_x, gen)
+                mix_loss = bce(mx_strong, mixed_y)
+                m["mixup_strong_loss"] = mix_loss
+                loss = loss + mix_loss
+                if real_weak_target is not None:
+                    w_half = x_real.shape[0] // 2
+                    mixed_xw, mixed_yw, _ = mixup(
+                        gen, x_real[:w_half], real_weak_target[:w_half],
+                        alpha=t.mixup_alpha, rng=rng)
+                    _, mw_weak, _ = model(mixed_xw, gen)
+                    mix_weak_loss = bce(mw_weak, mixed_yw)
+                    m["mixup_weak_class_loss"] = mix_weak_loss
+                    loss = loss + mix_weak_loss
+            # unlabelled mixup-consistency against the EMA teacher
+            # (main.py:459-470), × the ramped consistency cost
+            if mean_teacher:
+                u_strong, u_weak, _ = model(mixed_x_u, gen)
+                c_u_strong = (t.mixup_consistency * cost
+                              * mse(u_strong, mixed_strong_u))
+                c_u_weak = (t.mixup_consistency * cost
+                            * mse(u_weak, mixed_weak_u))
+                m["mixup_cons_strong_loss"] = c_u_strong
+                m["mixup_cons_weak_loss"] = c_u_weak
+                loss = loss + c_u_strong + c_u_weak
         m["loss"] = loss
 
         state.optimizer.zero_grad(set_to_none=True)
@@ -373,12 +672,15 @@ def make_train_step(modules: TrainModules,
             m.update(_grad_abs(model))
         state.optimizer.step()
         state.step += 1
-        ema_update(teacher.parameters(), model.parameters(), state.step,
-                   t.ema_alpha)
-        if t.ema_scope == "state_dict":
-            # the state-dict EMA averages the BatchNorm statistics too
-            ema_update(teacher.buffers(), model.buffers(), state.step,
+        if mean_teacher:
+            ema_update(teacher.parameters(), model.parameters(), state.step,
                        t.ema_alpha)
+            if t.ema_scope == "state_dict":
+                # the state-dict EMA averages the BatchNorm statistics too;
+                # with "params" (main_origin.py:86-89) the teacher's
+                # statistics are those of its own forwards
+                ema_update(teacher.buffers(), model.buffers(), state.step,
+                           t.ema_alpha)
         metrics.update({k: v.detach() for k, v in m.items()})
         return metrics
 
@@ -477,7 +779,8 @@ def make_predict_fn(modules: TrainModules, norm_stats="train"):
         nm = tuple(torch.as_tensor(np.asarray(a, np.float32),
                                    device=dev)[:, None] for a in norm_stats)
     if cfg.model.predictor_head == "crnn":
-        raise NotImplementedError(f"the 'crnn' predictor head {_LATER}")
+        raise NotImplementedError("the 'crnn' predictor head is not ported "
+                                  "yet (ROADMAP.md, open item 8c)")
     built = {}
 
     def models(params, batch_stats):

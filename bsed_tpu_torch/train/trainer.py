@@ -2,7 +2,8 @@
 ``__main__`` blocks (reference src/main_baseline.py:602-1093).
 
 Port of ``bsed_tpu/train/trainer.py``:
-  * build the student, the teacher and Adam (``train/steps.py``)
+  * build the student, the teacher and the optimizer
+    (``train/steps.py``)
   * per epoch: run the train step over the three-stream loader (reference
     :981-1007), then validate the student with ``get_predictions``-style
     decoding and event-F1 / PSDS / tagging-F1 scoring (:1015-1031)
@@ -22,10 +23,14 @@ Randomness: step ``s`` draws from a generator seeded from (seed, s) and
 the loader's epoch ``e`` from (seed, e), so a resumed run draws exactly
 what an uninterrupted run draws.
 
+Dataset normalisation (``TrainConfig.normalize``, the main.py lineage)
+fits the train scaler on the real train streams plus SYN (main.py:681-686)
+and validates with a separate val-fitted one (main.py:696-699); the
+checkpoint's meta records the train scaler.
+
 Not ported: data parallelism and the multi-host evaluation exchange
-(ROADMAP item 9), dataset normalisation and the discriminator's re-init
-at stage boundaries on resume (items 8a, 8b: ``build_modules`` refuses
-those configurations).
+(ROADMAP item 9), and the discriminator's re-init at stage boundaries on
+resume (item 8b: ``build_modules`` refuses domain adaptation).
 """
 from __future__ import annotations
 
@@ -102,10 +107,23 @@ class Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.syn_eval_loader = syn_eval_loader
+        # dataset normalisation: the train scaler over the real train
+        # streams + SYN, a separate one over the val set for validation;
+        # `cli eval` never normalises (TestModel.py:225-231)
+        norm_stats = None
+        self.val_norm_stats = None
+        if cfg.train.normalize:
+            from bsed_tpu_torch.utils.scaler import fit_log_mel_stats
+            norm_stats = fit_log_mel_stats(
+                [train_loader.weak, train_loader.unlab, train_loader.syn])
+            if val_loader is not None:
+                self.val_norm_stats = fit_log_mel_stats([val_loader.dataset])
+        self.norm_stats = norm_stats
         # refuses the configurations the port cannot train yet, before
         # anything else is built
-        self.modules: TrainModules = build_modules(cfg, device=device,
-                                                   use_kernels=use_kernels)
+        self.modules: TrainModules = build_modules(
+            cfg, device=device, use_kernels=use_kernels,
+            norm_stats=norm_stats)
         self.log = create_logger(f"bsed_tpu_torch/{cfg.model_name}")
         self.store_dir = store_dir or os.path.join("stored_data",
                                                    cfg.model_name)
@@ -123,6 +141,11 @@ class Trainer:
         self.scan_epoch = scan_epoch
         self._epoch_runner = None
         self.predict = make_predict_fn(self.modules)
+        # validation uses the val-fitted scaler; without normalisation the
+        # two predict functions are one
+        self.predict_val = (
+            make_predict_fn(self.modules, norm_stats=self.val_norm_stats)
+            if self.val_norm_stats is not None else self.predict)
         self.saver = SaveBest("sup")
         self.early_stopping = (
             EarlyStopping(cfg.train.early_stopping, cfg.train.es_init_wait)
@@ -149,14 +172,17 @@ class Trainer:
             "many_hot_encoder": self.encoder_codec.state_dict(),
             "median_window": cfg.median_window,
             "median_window_classwise": cfg.median_window_classwise,
-            # train+syn scaler stats: normalisation is not ported yet
-            "scaler": None,
+            # the train scaler's statistics (None unless normalize);
+            # recorded for self-description, `cli eval` does not apply them
+            "scaler": ({"mean": np.asarray(norm_stats[0]).tolist(),
+                        "std": np.asarray(norm_stats[1]).tolist()}
+                       if norm_stats is not None else None),
         })
 
     # ------------------------------------------------------------------
     def resume(self, epoch: int) -> None:
-        """Resume from epoch_<epoch-1>: student, teacher, Adam's moments
-        and step count, into the live modules."""
+        """Resume from epoch_<epoch-1>: student, teacher, the optimizer's
+        state and step count, into the live modules."""
         self.ckpt.restore(f"epoch_{epoch - 1}", self.state)
 
     def _sink_metrics(self, meters: AverageMeterSet,
@@ -304,7 +330,8 @@ class Trainer:
                 syn_scores = self.evaluate(self.syn_eval_loader)
                 row.update({f"syn_{k}": v for k, v in syn_scores.items()})
             if self.val_loader is not None:
-                val_scores = self.evaluate(self.val_loader)
+                val_scores = self.evaluate(self.val_loader,
+                                           predict_fn=self.predict_val)
                 row.update({f"val_{k}": v for k, v in val_scores.items()})
                 metric_key = ("val_weak_f1"
                               if cfg.train.best_metric == "weak_f1"

@@ -19,13 +19,19 @@ flax Dense (in, out) becomes ``nn.Linear`` (out, in).
 initializers of ``models/init.py`` (running stats perturbed away from 0/1),
 so the port runs with non-trivial weights and no JAX.
 
+The feature-pyramid encoder (``use_fpn``) adds ``cnn.block_down`` (a conv
+block), ``rnn_2``, ``rnn_4`` (GRUs) and ``fuse_2``, ``fuse_4`` (dense).
+
 The train state (``train/state.py``) travels as a dict of the same trees:
 ``step``, ``params``, ``batch_stats``, ``ema_params``, ``ema_batch_stats``
-and the Adam moments ``mu``, ``nu`` (params' layout) with their ``count``
-— ``trees_from_jax_state`` reads them off a ``bsed_tpu`` TrainState
-(``opt_state.inner_state[0]`` is optax's ScaleByAdamState) without
-importing JAX; ``export_train_state`` writes them back, so tests compare
-the two frameworks leaf by leaf.
+(the two ``ema_*`` trees None without a mean teacher), and the
+optimizer's state in params' layout: Adam's moments ``mu``, ``nu`` with
+their ``count``, or SGD's momentum ``trace`` (optax's TraceState; torch's
+``momentum_buffer``, the same quantity for SGD with Nesterov momentum and
+the weight decay added to the gradient). ``trees_from_jax_state`` reads
+them off a ``bsed_tpu`` TrainState without importing JAX;
+``export_train_state`` writes them back, so tests compare the two
+frameworks leaf by leaf.
 """
 from __future__ import annotations
 
@@ -87,8 +93,14 @@ def load_predictor(pred, pred_params: Mapping) -> None:
 
 
 def load_crnn(crnn, enc_params: Mapping, enc_stats: Mapping) -> None:
-    load_cnn(crnn.cnn, enc_params["cnn"], enc_stats["cnn"])
-    load_gru(crnn.rnn, enc_params["rnn"])
+    """A ``models.crnn.CRNN`` or ``CRNNFPN`` from the encoder's trees."""
+    blocks, grus, denses = encoder_parts(crnn)
+    for name, blk in blocks.items():
+        load_conv_block(blk, enc_params["cnn"][name], enc_stats["cnn"][name])
+    for name, rnn in grus.items():
+        load_gru(rnn, enc_params[name])
+    for name, dense in denses.items():
+        load_dense(dense, enc_params[name])
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -97,15 +109,21 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 def init_params(cfg, seed: int = 0) -> Tuple[Dict, Dict]:
     """(params, batch_stats) in the flax layout, drawn from ``seed``, for
-    the default CRNN + linear/mlp predictor topology of ``cfg``."""
+    the CRNN or CRNNFPN encoder of ``cfg`` with a linear or mlp head."""
     m = cfg.model
-    if m.use_fpn or m.predictor_head == "crnn":
-        raise NotImplementedError("init_params covers the CRNN encoder with "
-                                  "a linear or mlp head")
+    if m.predictor_head == "crnn":
+        raise NotImplementedError(
+            "the 'crnn' predictor head is not ported yet (ROADMAP.md, open "
+            "item 8c)")
     gen = torch.Generator().manual_seed(seed)
     cnn, stats = {}, {}
     cin = m.n_in_channel
-    for i, cout in enumerate(m.nb_filters):
+    names = [f"block{i}" for i in range(len(m.nb_filters))]
+    couts = list(m.nb_filters)
+    if m.use_fpn:
+        names.append("block_down")
+        couts.append(m.nb_filters[-1])
+    for name, cout in zip(names, couts):
         blk = {"conv": {"kernel": _np(I.xavier_uniform_gain(
                             gen, (m.kernel_size, m.kernel_size, cin, cout))),
                         "bias": np.zeros(cout, np.float32)},
@@ -116,27 +134,39 @@ def init_params(cfg, seed: int = 0) -> Tuple[Dict, Dict]:
             blk[key] = {"linear": {
                 "kernel": _np(I.normal_init(gen, (cout, cout))),
                 "bias": np.zeros(cout, np.float32)}}
-        cnn[f"block{i}"] = blk
-        stats[f"block{i}"] = {"bn": {
+        cnn[name] = blk
+        stats[name] = {"bn": {
             "mean": _np(0.1 * torch.randn((cout,), generator=gen)),
             "var": _np(0.5 + torch.rand((cout,), generator=gen))}}
         cin = cout
 
     h = m.n_rnn_cell
-    rnn = {}
-    n_in = m.nb_filters[-1]
-    for layer in range(m.n_layers_rnn):
-        for suffix in ("", "_reverse"):
-            name = f"l{layer}{suffix}"
-            rnn[f"weight_ih_{name}"] = _np(I.orthogonal(gen, (3 * h, n_in)))
-            rnn[f"weight_hh_{name}"] = _np(I.orthogonal(gen, (3 * h, h)))
-            rnn[f"bias_ih_{name}"] = _np(I.uniform_sqrt_h(gen, (3 * h,), h))
-            rnn[f"bias_hh_{name}"] = _np(I.uniform_sqrt_h(gen, (3 * h,), h))
-        n_in = 2 * h
+
+    def gru():
+        rnn = {}
+        n_in = m.nb_filters[-1]
+        for layer in range(m.n_layers_rnn):
+            for suffix in ("", "_reverse"):
+                name = f"l{layer}{suffix}"
+                rnn[f"weight_ih_{name}"] = _np(I.orthogonal(gen,
+                                                            (3 * h, n_in)))
+                rnn[f"weight_hh_{name}"] = _np(I.orthogonal(gen, (3 * h, h)))
+                rnn[f"bias_ih_{name}"] = _np(I.uniform_sqrt_h(gen, (3 * h,),
+                                                              h))
+                rnn[f"bias_hh_{name}"] = _np(I.uniform_sqrt_h(gen, (3 * h,),
+                                                              h))
+            n_in = 2 * h
+        return rnn
 
     def dense(n_i, n_o):
         return {"kernel": _np(I.normal_init(gen, (n_i, n_o))),
                 "bias": np.zeros(n_o, np.float32)}
+
+    encoder = {"cnn": cnn, "rnn": gru()}
+    if m.use_fpn:
+        encoder["rnn_2"], encoder["rnn_4"] = gru(), gru()
+        encoder["fuse_2"] = dense(4 * h, 2 * h)
+        encoder["fuse_4"] = dense(4 * h, 2 * h)
 
     enc_dim, ncls = 2 * h, cfg.nclass
     if m.predictor_head == "mlp":
@@ -146,7 +176,7 @@ def init_params(cfg, seed: int = 0) -> Tuple[Dict, Dict]:
         pred = {"dense": dense(enc_dim, ncls)}
     if m.attention:
         pred["dense_softmax"] = dense(enc_dim, ncls)
-    params = {"encoder": {"cnn": cnn, "rnn": rnn}, "predictor": pred}
+    params = {"encoder": encoder, "predictor": pred}
     return params, {"encoder": {"cnn": stats}}
 
 
@@ -161,9 +191,22 @@ _TO_FLAX = {"conv": lambda a: a.transpose(2, 3, 1, 0),
             "dense": lambda a: a.T, "plain": lambda a: a}
 
 
-def _train_blocks(model) -> Dict[str, ConvBlock]:
-    enc = model.encoder
-    return {**dict(enc.stem.items()), **dict(enc.rest.blocks.items())}
+def encoder_parts(encoder):
+    """(conv blocks, GRUs, dense layers) of a train encoder, each a dict
+    by flax name: the folded encoder (``stem`` and ``rest``), ``CRNN`` or
+    ``CRNNFPN``."""
+    if hasattr(encoder, "stem"):
+        rest = encoder.rest
+        return ({**dict(encoder.stem.items()), **dict(rest.blocks.items())},
+                {"rnn": rest.rnn}, {})
+    blocks = dict(encoder.cnn.blocks.items())
+    if hasattr(encoder.cnn, "block_down"):
+        blocks["block_down"] = encoder.cnn.block_down
+    grus = {n: getattr(encoder, n) for n in ("rnn", "rnn_2", "rnn_4")
+            if hasattr(encoder, n)}
+    denses = {n: getattr(encoder, n) for n in ("fuse_2", "fuse_4")
+              if hasattr(encoder, n)}
+    return blocks, grus, denses
 
 
 def train_param_map(model) -> List[Tuple[Tuple[str, ...], nn.Parameter,
@@ -171,7 +214,8 @@ def train_param_map(model) -> List[Tuple[Tuple[str, ...], nn.Parameter,
     """(flax path, parameter, layout kind) for every parameter of a
     ``train.steps.TrainModel``."""
     out = []
-    for name, blk in _train_blocks(model).items():
+    blocks, grus, denses = encoder_parts(model.encoder)
+    for name, blk in blocks.items():
         base = ("encoder", "cnn", name)
         out += [(base + ("conv", "kernel"), blk.conv.weight, "conv"),
                 (base + ("conv", "bias"), blk.conv.bias, "plain"),
@@ -184,8 +228,12 @@ def train_param_map(model) -> List[Tuple[Tuple[str, ...], nn.Parameter,
                      blk.act.linear.weight, "dense"),
                     (base + (key, "linear", "bias"), blk.act.linear.bias,
                      "plain")]
-    for name, param in model.encoder.rest.rnn.gru.named_parameters():
-        out.append((("encoder", "rnn", name), param, "plain"))
+    for gname, rnn in grus.items():
+        for name, param in rnn.gru.named_parameters():
+            out.append((("encoder", gname, name), param, "plain"))
+    for name, mod in denses.items():
+        out += [(("encoder", name, "kernel"), mod.weight, "dense"),
+                (("encoder", name, "bias"), mod.bias, "plain")]
     for name, mod in model.predictor.named_children():
         if mod is not None:
             out += [(("predictor", name, "kernel"), mod.weight, "dense"),
@@ -196,7 +244,7 @@ def train_param_map(model) -> List[Tuple[Tuple[str, ...], nn.Parameter,
 def train_stat_map(model) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
     """(flax batch_stats path, running-stat buffer) of a TrainModel."""
     out = []
-    for name, blk in _train_blocks(model).items():
+    for name, blk in encoder_parts(model.encoder)[0].items():
         base = ("encoder", "cnn", name, "bn")
         out += [(base + ("mean",), blk.bn.running_mean),
                 (base + ("var",), blk.bn.running_var)]
@@ -233,46 +281,65 @@ def export_train_model(model) -> Tuple[Dict, Dict]:
     return params, stats
 
 
+def _opt_kind(opt) -> str:
+    return "sgd" if isinstance(opt, torch.optim.SGD) else "adam"
+
+
 def load_train_state(state, trees: Mapping) -> None:
     """Fill a ``train.state.TrainState`` from flax-layout trees (see the
-    module docstring); the Adam moments only where ``mu`` is given."""
+    module docstring); the optimizer's state only where the trees hold
+    it (Adam: ``mu``; SGD: ``trace``)."""
     state.step = int(trees["step"])
     load_train_model(state.model, trees["params"], trees["batch_stats"])
-    load_train_model(state.ema_model, trees["ema_params"],
-                     trees["ema_batch_stats"])
-    if trees.get("mu") is None:
-        return
+    if state.ema_model is not None:
+        load_train_model(state.ema_model, trees["ema_params"],
+                         trees["ema_batch_stats"])
     opt = state.optimizer
-    count = float(np.asarray(trees["count"]))
-    for path, param, kind in train_param_map(state.model):
+    kind = _opt_kind(opt)
+    if trees.get("trace" if kind == "sgd" else "mu") is None:
+        return
+    count = float(np.asarray(trees.get("count", 0)))
+    for path, param, lk in train_param_map(state.model):
         as_t = lambda tree: torch.from_numpy(np.array(  # noqa: E731
-            _TO_TORCH[kind](np.asarray(_get(tree, path), np.float32)))
+            _TO_TORCH[lk](np.asarray(_get(tree, path), np.float32)))
         ).to(param.device)
-        opt.state[param] = {"step": torch.tensor(count),
-                            "exp_avg": as_t(trees["mu"]),
-                            "exp_avg_sq": as_t(trees["nu"])}
+        if kind == "sgd":
+            opt.state[param] = {"momentum_buffer": as_t(trees["trace"])}
+        else:
+            opt.state[param] = {"step": torch.tensor(count),
+                                "exp_avg": as_t(trees["mu"]),
+                                "exp_avg_sq": as_t(trees["nu"])}
 
 
 def export_train_state(state) -> Dict:
     """The train state as flax-layout numpy trees (see the module
     docstring)."""
     params, stats = export_train_model(state.model)
-    ema_params, ema_stats = export_train_model(state.ema_model)
-    mu, nu, count = {}, {}, 0.0
-    for path, param, kind in train_param_map(state.model):
-        st = state.optimizer.state.get(param, {})
-        if "exp_avg" in st:
+    ema_params = ema_stats = None
+    if state.ema_model is not None:
+        ema_params, ema_stats = export_train_model(state.ema_model)
+    out = {"step": state.step, "params": params, "batch_stats": stats,
+           "ema_params": ema_params, "ema_batch_stats": ema_stats}
+    opt = state.optimizer
+    kind = _opt_kind(opt)
+    slots = (("trace", "momentum_buffer"),) if kind == "sgd" else (
+        ("mu", "exp_avg"), ("nu", "exp_avg_sq"))
+    trees = {name: {} for name, _ in slots}
+    count = 0.0
+    for path, param, lk in train_param_map(state.model):
+        st = opt.state.get(param, {})
+        for name, key in slots:
+            if st.get(key) is not None:
+                value = _np(st[key].cpu())
+            else:
+                value = np.zeros(tuple(param.shape), np.float32)
+            _put(trees[name], path, _TO_FLAX[lk](value))
+        if "step" in st:
             count = float(st["step"])
-            _put(mu, path, _TO_FLAX[kind](_np(st["exp_avg"].cpu())))
-            _put(nu, path, _TO_FLAX[kind](_np(st["exp_avg_sq"].cpu())))
-        else:
-            zero = np.zeros(_TO_FLAX[kind](_np(param.detach().cpu())).shape,
-                            np.float32)
-            _put(mu, path, zero)
-            _put(nu, path, zero)
-    return {"step": state.step, "params": params, "batch_stats": stats,
-            "ema_params": ema_params, "ema_batch_stats": ema_stats,
-            "mu": mu, "nu": nu, "count": count}
+    out.update(trees)
+    if kind == "adam":
+        out["count"] = count
+    return out
 
 
 def _tree_np(tree):
@@ -282,13 +349,21 @@ def _tree_np(tree):
 
 
 def trees_from_jax_state(jax_state) -> Dict:
-    """A ``bsed_tpu.train.state.TrainState`` (Adam through
-    ``optax.inject_hyperparams``) as the trees ``load_train_state`` takes."""
-    adam = jax_state.opt_state.inner_state[0]
-    return {"step": int(np.asarray(jax_state.step)),
-            "params": _tree_np(jax_state.params),
-            "batch_stats": _tree_np(jax_state.batch_stats),
-            "ema_params": _tree_np(jax_state.ema_params),
-            "ema_batch_stats": _tree_np(jax_state.ema_batch_stats),
-            "mu": _tree_np(adam.mu), "nu": _tree_np(adam.nu),
-            "count": int(np.asarray(adam.count))}
+    """A ``bsed_tpu.train.state.TrainState`` (optimizer through
+    ``optax.inject_hyperparams``) as the trees ``load_train_state`` takes:
+    Adam's ``inner_state[0]`` is a ScaleByAdamState; SGD's chain
+    (decayed weights, (trace, scale)) holds its TraceState at
+    ``inner_state[1][0]``."""
+    inner = jax_state.opt_state.inner_state
+    ema = lambda tree: None if tree is None else _tree_np(tree)  # noqa: E731
+    out = {"step": int(np.asarray(jax_state.step)),
+           "params": _tree_np(jax_state.params),
+           "batch_stats": _tree_np(jax_state.batch_stats),
+           "ema_params": ema(jax_state.ema_params),
+           "ema_batch_stats": ema(jax_state.ema_batch_stats)}
+    if hasattr(inner[0], "mu"):
+        out.update(mu=_tree_np(inner[0].mu), nu=_tree_np(inner[0].nu),
+                   count=int(np.asarray(inner[0].count)))
+    else:
+        out["trace"] = _tree_np(inner[1][0].trace)
+    return out

@@ -62,15 +62,29 @@ use, all sources in parallel) and drives every slice of the port:
     epoch by part, ms a step, busy share, checkpoint bytes and save ms;
   * K2's and K3's group-pool form (on no path of either package) against
     their plain versions at the shapes of blocks 3-6 (B=72, G=16/8/4/2),
-    with the body that served each dtype (bfloat16: wgmma for both).
+    with the body that served each dtype (bfloat16: wgmma for both);
+  * every preset that trains without a discriminator (``presets_path``):
+    12 SYN + 12 real full-width clips (origin: a combined real batch of
+    24), random weights from seed 0, 2 warm-up and 3 timed steps of each
+    in its reference-parity form (float32, unfolded, stream by stream:
+    no kernel may launch) and of each foldable one in its --perf form,
+    bf16 (K2's train form and K3 exactly ``PERF_LAUNCHES`` a step: origin
+    18 / 12, the others 6 / 3 or 3 / 3); origin's and scmt's float32
+    kernel step against the plain step at ``train_equality``'s gates;
+    ``make_predict_fn`` on an FPN tree at B=64 (K4 6 times a batch at
+    T = 313, 156 and 78) within 2e-3 of the plain versions; ``train
+    --preset origin --perf -s 96`` and ``train --preset
+    baseline_fpn_mt_isp -s 48`` for one epoch, each with ``eval
+    --store-dir``, with exact launches and finite results.
 
 One JSON line per phase; then the card's name and power limit as
 nvidia-smi gives them, the kernels line, and last ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero before the last line. Needs
 one CUDA device; imports no JAX. ``--profile-dir`` also writes the
-torch.profiler tables of one serving batch, one fused-stem batch and one
-train step to ``DIR/serve_profile.txt``, ``DIR/fused_stem_profile.txt``
-and ``DIR/train_profile.txt``.
+torch.profiler tables of one serving batch, one fused-stem batch, one
+train step and one step of each of ``PROFILED_PRESETS`` to
+``DIR/serve_profile.txt``, ``DIR/fused_stem_profile.txt``,
+``DIR/train_profile.txt`` and ``DIR/<preset>_<form>_profile.txt``.
 """
 from __future__ import annotations
 
@@ -1910,6 +1924,321 @@ def check_fit_launches(rec, totals_a):
     return launches
 
 
+# --- the presets that need no discriminator ------------------------------
+
+TRAIN_PRESETS = ("baseline", "baseline_mt", "baseline_mt_isp",
+                 "baseline_ena", "baseline_fpn_mt_isp", "scmt", "scmt_ada",
+                 "scmt_ada_origin", "scmt_ada_weak", "sct_ada_weak",
+                 "pseudo_labeling", "origin")
+# K2's train form and K3 a step of each preset's --perf form. The folded
+# stem runs 3 blocks a forward, K2 in every forward and K3 in the backward
+# of every student forward; fused streams batch the student into one
+# forward and the ISP teacher into one. Teacher forwards: 0 without a mean
+# teacher, else 1, plus origin's unlabelled-rows forward for mixup.
+# Student forwards: 1, plus origin's three mixups (weak, strong,
+# unlabelled). FPN does not fold (no --perf form).
+PERF_LAUNCHES = {p: (6, 3) for p in TRAIN_PRESETS}
+PERF_LAUNCHES.update({"baseline": (3, 3), "baseline_ena": (3, 3),
+                      "origin": (18, 12)})
+del PERF_LAUNCHES["baseline_fpn_mt_isp"]
+N_PRESET_WARMUP, N_PRESET_TIMED = 2, 3
+# (preset, --perf form) whose step is profiled after its timed steps
+PROFILED_PRESETS = (("baseline_mt_isp", False), ("origin", False),
+                    ("origin", True))
+B_FPN = 64
+N_FPN_BATCHES = 3
+
+
+def preset_setup(torch, dev, preset, perf, compute_dtype, use_kernels,
+                 batch_size):
+    """(cfg, state, step, batch) of ``preset`` on ``dev`` in its
+    reference-parity form (``perf=False``: float32, unfolded, stream by
+    stream) or its --perf form in ``compute_dtype``; random weights from
+    seed 0; a random full-width batch made on the card: ``batch_size`` SYN
+    and real clips (origin: a combined real batch of twice that), strong
+    and weak targets; origin's normalisation statistics are the real
+    batch's log-mel mean and std per bin."""
+    from bsed_tpu_torch.config import get_config, perf_config
+    from bsed_tpu_torch.ops.mel import amplitude_to_db
+    from bsed_tpu_torch.train import steps
+
+    cfg = get_config(preset)
+    if perf:
+        cfg = perf_config(cfg)
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, compute_dtype=compute_dtype))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t_in, f = cfg.audio.max_frames, cfg.audio.n_mels
+    n_real = 2 * batch_size if cfg.train.isp_flavor == "origin" \
+        else batch_size
+
+    def strong(n):
+        return (torch.rand((n, cfg.n_frames, cfg.nclass), generator=gen,
+                           device=dev) > 0.9).float()
+    batch = {"syn": torch.randn((batch_size, t_in, f), generator=gen,
+                                device=dev).abs(),
+             "syn_strong": strong(batch_size),
+             "real": torch.randn((n_real, t_in, f), generator=gen,
+                                 device=dev).abs(),
+             "real_strong": strong(n_real)}
+    batch["real_weak"] = batch["real_strong"].amax(dim=1)
+    norm = None
+    if cfg.train.normalize:
+        log = amplitude_to_db(batch["real"]).flatten(0, 1)
+        norm = (log.mean(0).cpu().numpy(), log.std(0).cpu().numpy())
+    modules = steps.build_modules(cfg, device=dev, use_kernels=use_kernels,
+                                  norm_stats=norm)
+    state = steps.create_train_state(cfg, modules, 0)
+    return cfg, state, steps.make_train_step(modules, steps_per_epoch=8), \
+        batch
+
+
+def preset_steps(torch, dev, preset, perf, profile_dir=None):
+    """Warm-up and timed steps of one preset at epoch 30 (the exp_step
+    presets' cost ramps from their step count): ms a step, finite
+    metrics, the kernels' launches in the timed steps; then, for
+    ``PROFILED_PRESETS``, one step under the profiler (``profile``)."""
+    from bsed_tpu_torch.ops import gru_kernel, stem_epilogue as se
+
+    cfg, state, step, batch = preset_setup(torch, dev, preset, perf,
+                                           "bfloat16", True, B_TRAIN)
+    for _ in range(N_PRESET_WARMUP):
+        step(state, batch, 1, 30.0)
+    torch.cuda.synchronize()
+    c0 = (se.stem_epilogue_fwd.launches, se.stem_epilogue_bwd.launches,
+          gru_kernel.gru_bidir_recurrence.launches)
+    t0 = time.perf_counter()
+    for _ in range(N_PRESET_TIMED):
+        metrics = step(state, batch, 1, 30.0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / N_PRESET_TIMED * 1e3
+    k2, k3, k4 = (b - a for a, b in zip(c0, (
+        se.stem_epilogue_fwd.launches, se.stem_epilogue_bwd.launches,
+        gru_kernel.gru_bidir_recurrence.launches)))
+    values = {k: float(v) for k, v in metrics.items()}
+    assert all(math.isfinite(v) for v in values.values()), (preset, values)
+    form = "perf" if perf else "reference"
+    if perf:
+        want = tuple(n * N_PRESET_TIMED for n in PERF_LAUNCHES[preset])
+        assert (k2, k3, k4) == want + (0,), (preset, (k2, k3, k4), want)
+    else:
+        assert (k2, k3, k4) == (0, 0, 0), (preset, (k2, k3, k4))
+    out = {"preset": preset, "form": form, "ms_per_step": ms,
+           "loss": values["loss"], "n_metrics": len(values),
+           "batch_real": int(batch["real"].shape[0]),
+           "launches": {"stem_epilogue_train": k2, "stem_epilogue_bwd": k3,
+                        "gru_kernel": k4}}
+    if (preset, perf) in PROFILED_PRESETS:
+        profile(torch, lambda: step(state, batch, 1, 30.0), ms / 1e3,
+                profile_dir, "preset_profile", f"{preset}_{form}_profile.txt",
+                preset=preset, form=form)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def preset_equality(torch, dev, preset):
+    """The float32 --perf step of ``preset`` with the kernels against the
+    same step on their plain versions, 4 + 4 full-width clips (origin's
+    combined batch 8), dropout 0.5 with the same bits, cuDNN
+    deterministic: train_equality's gates."""
+    import numpy as np
+    from bsed_tpu_torch.utils import weights
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for use_kernels in (True, False):
+            _, state, step, batch = preset_setup(torch, dev, preset, True,
+                                                 "float32", use_kernels, 4)
+            metrics = step(state, batch, 7, 30.0)
+            torch.cuda.synchronize()
+            out[use_kernels] = ({k: float(v) for k, v in metrics.items()},
+                                state_leaves(
+                                    weights.export_train_state(state)))
+            del state, step, batch
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (mk, tk), (mp, tp) = out[True], out[False]
+    loss_rel = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mp)
+
+    def worst(key, rtol):
+        return max(float((np.abs(tk[p] - v) - rtol * np.abs(v)).max())
+                   for p, v in tp.items() if p[0] == key)
+    mu_err = worst("mu", 0.0)
+    stats_err = max(worst("batch_stats", 1e-5),
+                    worst("ema_batch_stats", 1e-5))
+    assert loss_rel <= 1e-4, (preset, loss_rel)
+    assert mu_err <= 3e-5, (preset, mu_err)
+    assert stats_err <= 1e-5, (preset, stats_err)
+    return {"preset": preset, "metrics_max_rel_err": loss_rel,
+            "adam_mu_max_abs_err": mu_err, "bn_stats_max_err": stats_err}
+
+
+def fpn_predict(torch, dev):
+    """``make_predict_fn`` on an FPN tree (preset baseline_fpn_mt_isp,
+    float32, random weights from seed 0) at B=64 full-width clips: the
+    three BiGRUs hoisted on K4, 6 launches a batch (T = 313, 156, 78),
+    against the plain versions within 2e-3."""
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.ops import gru_kernel
+    from bsed_tpu_torch.train import steps
+    from bsed_tpu_torch.utils.weights import init_params
+
+    cfg = get_config("baseline_fpn_mt_isp")
+    params, stats = init_params(cfg, 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mel = torch.randn((B_FPN, cfg.audio.max_frames, cfg.audio.n_mels),
+                      generator=gen, device=dev).abs()
+    kern = steps.make_predict_fn(steps.TrainModules(cfg, dev))
+    plain = steps.make_predict_fn(steps.TrainModules(cfg, dev,
+                                                     use_kernels=False))
+    kern(params, stats, mel, inference=True)            # build, warm up
+    torch.cuda.synchronize()
+    gru_kernel.gru_bidir_recurrence.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(N_FPN_BATCHES):
+        sk, wk = kern(params, stats, mel, inference=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / N_FPN_BATCHES * 1e3
+    launches = gru_kernel.gru_bidir_recurrence.launches
+    sp, wp = plain(params, stats, mel, inference=True)
+    torch.cuda.synchronize()
+    err = max(float((sk - sp).abs().max()), float((wk - wp).abs().max()))
+    assert launches == 6 * N_FPN_BATCHES, launches
+    assert sk.shape == (B_FPN, cfg.n_frames, cfg.nclass), sk.shape
+    assert torch.isfinite(sk).all() and torch.isfinite(wk).all()
+    assert err <= 2e-3, f"FPN kernel posteriors differ by {err}"
+    return {"batch": B_FPN, "batches": N_FPN_BATCHES, "ms_per_batch": ms,
+            "clips_per_s": B_FPN / ms * 1e3, "gru_kernel": launches,
+            "gru_lengths": [cfg.n_frames, cfg.n_frames // 2,
+                            cfg.n_frames // 4],
+            "max_abs_err_posteriors": err, "gate": 2e-3}
+
+
+def preset_cli_runs(torch):
+    """``train --preset origin --perf -s 96 --epochs 1`` and ``train
+    --preset baseline_fpn_mt_isp -s 48 --epochs 1`` through the CLI's
+    ``main``, each followed by ``eval --store-dir``. origin: 8 steps of 18
+    K2-train and 12 K3 launches, one evaluate of 2 val batches (K2 eval 3
+    and K4 2 a batch), the store's evaluation the same; FPN (unfolded
+    float32): 4 steps with no kernel, evaluate and the store's evaluation
+    of 1 batch with K4 6 times. Results finite; the FPN store's
+    evaluation equals its best row (origin validates with the val-fitted
+    scaler, which ``eval`` does not apply)."""
+    import os
+    import tempfile
+
+    from bsed_tpu_torch import cli
+
+    out, totals = {}, {"stem_epilogue_train": 0, "stem_epilogue_bwd": 0,
+                       "stem_epilogue": 0, "gru_kernel": 0}
+    runs = (("origin", ["--preset", "origin", "--perf", "-s", "96"],
+             (18 * 8, 12 * 8, 0), (6, 0, 4)),
+            ("fpn", ["--preset", "baseline_fpn_mt_isp", "-s", "48"],
+             (0, 0, 0), (0, 0, 6)))
+    rec = FitRecorder(torch)
+    with tempfile.TemporaryDirectory() as tmp, rec:
+        for name, argv, want_train, want_eval in runs:
+            store = os.path.join(tmp, name)
+            rec.run = name
+            t0 = time.perf_counter()
+            best = cli.main(["train", *argv, "--epochs", "1",
+                             "--store-dir", store])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            rows = read_results(os.path.join(store, "results.tsv"))
+            c0 = _launch_counts()
+            t0 = time.perf_counter()
+            scores = cli.main(["eval", "--store-dir", store, *argv[-2:]])
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            store_eval = tuple(b - a for a, b in zip(c0, _launch_counts()))
+            (epoch,), (evaluate,) = rec.of(name, "train_epoch"), \
+                rec.of(name, "evaluate")
+            assert (epoch["k2"], epoch["k3"], epoch["k4"]) == want_train, \
+                (name, epoch)
+            assert (evaluate["k2"], evaluate["k3"], evaluate["k4"]) == \
+                want_eval, (name, evaluate)
+            assert store_eval == want_eval, (name, store_eval)
+            assert [r["epoch"] for r in rows] == [0], rows
+            assert all(math.isfinite(v) for v in rows[0].values()), rows
+            assert math.isfinite(scores["event_f1"]) and \
+                math.isfinite(scores["psds_f1"]), scores
+            err = max(abs(scores["event_f1"] - rows[0]["val_event_f1"]),
+                      abs(scores["psds_f1"] - rows[0]["val_psds_f1"]))
+            if name == "fpn":
+                assert err <= 1e-6, f"FPN eval --store-dir differs by {err}"
+            totals["stem_epilogue_train"] += epoch["k2"]
+            totals["stem_epilogue_bwd"] += epoch["k3"]
+            totals["stem_epilogue"] += evaluate["k2"] + store_eval[0]
+            totals["gru_kernel"] += evaluate["k4"] + store_eval[2]
+            out[name] = {"argv": argv, "train_s": train_s, "eval_s": eval_s,
+                         "epoch_train_s": epoch["s"],
+                         "ms_per_step": epoch["s"] * 1e3 / (
+                             8 if name == "origin" else 4),
+                         "loss": rows[0]["loss"],
+                         "val_event_f1": rows[0]["val_event_f1"],
+                         "eval_scores": {"event_f1": scores["event_f1"],
+                                         "psds_f1": scores["psds_f1"]},
+                         "eval_vs_best_row": err,
+                         "launches_epoch": want_train,
+                         "launches_evaluate": want_eval,
+                         "best_epoch": best["epoch"]}
+    return out, totals
+
+
+def presets_path(torch, dev, card, profile_dir=None):
+    """Every preset that trains without a discriminator, on the card
+    (``preset_steps``): each in its reference-parity form (no kernel may
+    launch) and each foldable one in its --perf form, bf16 (the exact K2
+    and K3 launches of ``PERF_LAUNCHES``); the float32 kernel step against
+    the plain step for origin and scmt; FPN serving through
+    ``make_predict_fn``; and two short CLI runs with their store's
+    evaluation (``preset_cli_runs``); one step of each of
+    ``PROFILED_PRESETS`` is profiled. Returns the launches of the phase's
+    driven runs (the timed --perf steps, the FPN batches and the CLI
+    runs; not the comparisons') by kernel entry."""
+    from bsed_tpu_torch.ops import gru_kernel, stem_epilogue as se
+
+    t_phase = time.perf_counter()
+    reference = [preset_steps(torch, dev, p, False, profile_dir)
+                 for p in TRAIN_PRESETS]
+    perf = [preset_steps(torch, dev, p, True, profile_dir)
+            for p in TRAIN_PRESETS if p in PERF_LAUNCHES]
+    equality = [preset_equality(torch, dev, p) for p in ("origin", "scmt")]
+    torch.cuda.empty_cache()
+    se.stem_epilogue_fwd.launches = 0
+    se.stem_epilogue_bwd.launches = 0
+    gru_kernel.gru_bidir_recurrence.launches = 0
+    fpn = fpn_predict(torch, dev)
+    torch.cuda.empty_cache()
+    cli_runs, cli_launches = preset_cli_runs(torch)
+    launches = {
+        "stem_epilogue_train": sum(r["launches"]["stem_epilogue_train"]
+                                   for r in perf)
+        + cli_launches["stem_epilogue_train"],
+        "stem_epilogue_bwd": sum(r["launches"]["stem_epilogue_bwd"]
+                                 for r in perf)
+        + cli_launches["stem_epilogue_bwd"],
+        "stem_epilogue": cli_launches["stem_epilogue"],
+        "gru_kernel": fpn["gru_kernel"] + cli_launches["gru_kernel"]}
+    emit(phase="presets_path", batch_syn=B_TRAIN, batch_real=B_TRAIN,
+         batch_real_origin=2 * B_TRAIN, epoch=30.0,
+         warmup_steps=N_PRESET_WARMUP, timed_steps=N_PRESET_TIMED,
+         perf_compute_dtype="bfloat16", reference_form=reference,
+         perf_form=perf,
+         perf_launches_per_step={p: {"stem_epilogue_train": a,
+                                     "stem_epilogue_bwd": b}
+                                 for p, (a, b) in PERF_LAUNCHES.items()},
+         f32_kernels_vs_plain=equality,
+         equality_gates={"metrics": 1e-4, "mu": 3e-5, "bn_stats": 1e-5},
+         fpn_predict=fpn, cli=cli_runs, launches=launches,
+         seconds=time.perf_counter() - t_phase, card=card)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-dir", default=None,
@@ -1972,6 +2301,8 @@ def main() -> int:
     train_equality(torch, dev)
     torch.cuda.empty_cache()
     k2pg, k3pg = check_stem_epilogue_pg(torch, dev)
+    torch.cuda.empty_cache()
+    preset_launches = presets_path(torch, dev, smi, args.profile_dir)
 
     for k in (k1, k2, k2t, k3):
         k["launches"] = launches[k["name"]]
@@ -1979,6 +2310,8 @@ def main() -> int:
         k["launches_eval_path"] = eval_launches[k["name"]]
     for k in (k2, k2t, k3, k4):  # run A of trainer_path: 2 epochs, 2 evals
         k["launches_trainer_path"] = fit_launches[k["name"]]
+    for k in (k2, k2t, k3, k4):  # presets_path's driven runs
+        k["launches_presets_path"] = preset_launches[k["name"]]
     kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)

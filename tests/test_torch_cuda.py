@@ -713,3 +713,134 @@ def test_epoch_runner_matches_loop_on_card(dev, tmp_path,
     a, b = _state_leaves(runner.state), _state_leaves(loop.state)
     for path, v in a.items():
         assert np.array_equal(b[path], v), path
+
+
+# --- the presets that need no discriminator ------------------------------
+
+# K2's train form and K3 per step of each preset's --perf form: 3 folded
+# blocks a forward. origin: 2 teacher forwards (the noisy real batch, the
+# unlabelled rows for mixup) and 4 student forwards (the fused 3-stream
+# batch, the weak, strong and unlabelled mixups), each backpropagated;
+# scmt: one fused teacher forward and one fused 4-stream student forward.
+PRESET_LAUNCHES = {"origin": (18, 12), "scmt": (6, 3)}
+
+
+def _preset_step_on_card(dev, preset, use_kernels):
+    from bsed_tpu_torch.config import perf_config
+    from bsed_tpu_torch.train import steps
+    from bsed_tpu_torch.utils.weights import export_train_state
+
+    cfg = perf_config(get_config(preset))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype="float32"))
+    ns = None
+    if cfg.train.normalize:
+        ns = (np.full(cfg.audio.n_mels, -20.0, np.float32),
+              np.full(cfg.audio.n_mels, 10.0, np.float32))
+    modules = steps.build_modules(cfg, device=dev, use_kernels=use_kernels,
+                                  norm_stats=ns)
+    state = steps.create_train_state(cfg, modules, 0)
+    n_real = 8 if preset == "origin" else 4
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t_in, f = cfg.audio.max_frames, cfg.audio.n_mels
+    strong = lambda n: (torch.rand((n, cfg.n_frames, cfg.nclass),  # noqa
+                                   generator=gen, device=dev) > 0.9).float()
+    batch = {"syn": torch.randn((4, t_in, f), generator=gen,
+                                device=dev).abs(),
+             "syn_strong": strong(4),
+             "real": torch.randn((n_real, t_in, f), generator=gen,
+                                 device=dev).abs(),
+             "real_strong": strong(n_real)}
+    batch["real_weak"] = batch["real_strong"].amax(dim=1)
+    counts = (stem_epilogue.stem_epilogue_fwd.launches,
+              stem_epilogue.stem_epilogue_bwd.launches)
+    metrics = steps.make_train_step(modules, steps_per_epoch=8)(
+        state, batch, 7, 30.0)
+    torch.cuda.synchronize()
+    launched = (stem_epilogue.stem_epilogue_fwd.launches - counts[0],
+                stem_epilogue.stem_epilogue_bwd.launches - counts[1])
+    return ({k: float(v) for k, v in metrics.items()},
+            export_train_state(state), launched)
+
+
+@pytest.mark.parametrize("preset", sorted(PRESET_LAUNCHES))
+def test_preset_f32_step_kernels_match_plain(dev, preset,
+                                             deterministic_cudnn):
+    """The float32 --perf step of origin (3-stream fused student, three
+    mixups) and scmt (4-stream fused student) with the kernels against
+    the same step on their plain versions, full width, dropout 0.5 with
+    the same bits: chip_smoke's train_equality gates (metrics 1e-4
+    relative, Adam moments 3e-5, BN statistics 1e-5 + 1e-5 relative); K2
+    and K3 launch the preset's count."""
+    mk, tk, launched = _preset_step_on_card(dev, preset, True)
+    mp, tp, plain_launched = _preset_step_on_card(dev, preset, False)
+    assert launched == PRESET_LAUNCHES[preset]
+    assert plain_launched == (0, 0)
+    assert mk.keys() == mp.keys()
+    for k, v in mp.items():
+        assert np.isfinite(mk[k]) and abs(mk[k] - v) <= 1e-4 * abs(v), k
+
+    def leaves(tree, prefix=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, prefix + (k,))
+        else:
+            yield prefix, np.asarray(tree)
+    a = dict(leaves({k: tk[k] for k in ("mu", "batch_stats",
+                                        "ema_batch_stats")}))
+    for path, v in leaves({k: tp[k] for k in ("mu", "batch_stats",
+                                              "ema_batch_stats")}):
+        rtol = 0 if path[0] == "mu" else 1e-5
+        atol = 3e-5 if path[0] == "mu" else 1e-5
+        np.testing.assert_allclose(a[path], v, rtol=rtol, atol=atol,
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("t", [156, 78])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_kernel_matches_plain_at_fpn_lengths(dev, t, dtype):
+    """K4 at the FPN pyramid's coarse lengths (313 is
+    test_gru_kernel_matches_plain's), B = 64: float32 1e-5; bfloat16 the
+    plain version in bfloat16 within 2e-2."""
+    rng = np.random.default_rng(t)
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).to(dev)
+    xp2, w, bias = g(2, 64, t, 384), g(2, 384, 128) * 0.1, g(2, 384) * 0.1
+    before = gru_kernel.gru_bidir_recurrence.launches
+    got = gru_kernel.gru_bidir_recurrence(xp2.to(dtype), w.to(dtype), bias)
+    want = gru_kernel.gru_bidir_recurrence_plain(xp2.to(dtype), w.to(dtype),
+                                                 bias)
+    torch.cuda.synchronize()
+    assert gru_kernel.gru_bidir_recurrence.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_cnn_fpn_tied_block_stats_card_equals_cpu(dev):
+    """CNNFPN's training forward on the card: its outputs and every
+    block's new running statistics, block_down's after its two calls,
+    equal the CPU's (1e-5 + 1e-4 relative)."""
+    from bsed_tpu_torch.models.cnn import CNNFPN
+    from bsed_tpu_torch.utils.weights import load_cnn, load_conv_block
+
+    cfg = get_config("baseline_fpn_mt_isp")
+    params, stats = init_params(cfg, 0)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        -4.0, 3.0, (4, 1255, 128, 1)).astype(np.float32))
+    out, new = {}, {}
+    for where in ("cpu", dev):
+        cnn = CNNFPN(dropout=0.0)
+        load_cnn(cnn, params["encoder"]["cnn"], stats["encoder"]["cnn"])
+        load_conv_block(cnn.block_down, params["encoder"]["cnn"]["block_down"],
+                        stats["encoder"]["cnn"]["block_down"])
+        cnn.to(where).train()
+        with torch.no_grad():
+            out[str(where)] = [o.cpu() for o in cnn(x.to(where))]
+        new[str(where)] = {n: b.cpu() for n, b in cnn.named_buffers()}
+    assert any("block_down" in n for n in new["cpu"])
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for name, want in new["cpu"].items():
+        torch.testing.assert_close(new[str(dev)][name], want, rtol=1e-4,
+                                   atol=1e-5, msg=name)

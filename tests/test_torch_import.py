@@ -34,7 +34,10 @@ def test_imports_with_jax_blocked():
         "for m in ('train.steps', 'data.pipeline', 'eval.test_model',\n"
         "          'eval.psds', 'ops.median', 'utils.torch_compat',\n"
         "          'train.trainer', 'utils.checkpoint', 'utils.meters',\n"
-        "          'utils.profiling', 'eval.features', 'cli'):\n"
+        "          'utils.profiling', 'eval.features', 'cli',\n"
+        "          'train.ramps', 'train.losses', 'train.state',\n"
+        "          'ops.augment', 'utils.weights', 'models.layers',\n"
+        "          'models.cnn', 'models.crnn', 'serve'):\n"
         "    assert 'bsed_tpu_torch.' + m in mods, m\n"
         "for m in ('torch.utils.tensorboard', 'tensorboard', 'matplotlib'):\n"
         "    assert m not in sys.modules, m + ' imported at module import'\n"

@@ -442,7 +442,7 @@ def test_nan_guard_names_step_range(tmp_path, bad):
 def test_unsupported_preset_is_refused(tmp_path):
     """Configurations the train step cannot run yet fail in build_modules
     with their ROADMAP item, before anything is built."""
-    cfg = get_config("baseline")
+    cfg = get_config("baseline_adaptation")
     syn, weak, unlab, _ = _sources(SyntheticDataSource, cfg, 2 * BS)
     loader = ThreeStreamLoader(syn, weak, unlab, batch_size=BS,
                                device="cpu")
