@@ -20,6 +20,7 @@ import torch.nn as nn
 
 from bsed_tpu_torch.config import ModelConfig
 from bsed_tpu_torch.models.cnn import CNN, CNNFPN
+from bsed_tpu_torch.models.discriminators import FrameDiscriminatorGRL
 from bsed_tpu_torch.models.layers import time_interp_matrix
 from bsed_tpu_torch.models.rnn import BidirectionalGRU
 from bsed_tpu_torch.ops.dropout import FastDropout
@@ -108,3 +109,23 @@ class CRNNFPN(nn.Module):
 def make_encoder(cfg: ModelConfig, cast_weights: bool = True) -> nn.Module:
     return (CRNNFPN(cfg, cast_weights) if cfg.use_fpn
             else CRNN(cfg, cast_weights))
+
+
+class CRNNDA(nn.Module):
+    """CRNN with a built-in gradient-reversed frame discriminator
+    (``FrameDiscriminatorGRL``, dropout 0.5): ``forward(x, gen,
+    grl_coeff) -> (encoded, d_input, domain_pred)``. Port of
+    ``bsed_tpu.models.crnn.CRNNDA``; ``utils/weights.load_crnnda`` carries
+    its tree ({"crnn": …, "discriminator": …})."""
+
+    def __init__(self, cfg: ModelConfig = ModelConfig(),
+                 cast_weights: bool = True):
+        super().__init__()
+        self.crnn = CRNN(cfg, cast_weights)
+        self.discriminator = FrameDiscriminatorGRL(2 * cfg.n_rnn_cell,
+                                                   dropout=0.5)
+
+    def forward(self, x, gen: Optional[torch.Generator] = None,
+                grl_coeff=1.0):
+        x, d_input = self.crnn(x, gen)
+        return x, d_input, self.discriminator(d_input, gen, grl_coeff)

@@ -136,11 +136,12 @@ def batch_stats(x: torch.Tensor, groups: int = 1):
 
 
 @torch.no_grad()
-def update_running(running_mean, running_var, mean, var, n: int) -> None:
-    """ra = m·ra + (1−m)·batch in place with m = BN_MOMENTUM,
-    accumulating the UNBIASED variance (× n/(n−1)) as torch does while
-    normalising with the biased one."""
-    m = BN_MOMENTUM
+def update_running(running_mean, running_var, mean, var, n: int,
+                   momentum: float = BN_MOMENTUM) -> None:
+    """ra = m·ra + (1−m)·batch in place with m = ``momentum`` (flax's
+    convention), accumulating the UNBIASED variance (× n/(n−1)) as torch
+    does while normalising with the biased one."""
+    m = momentum
     corr = n / (n - 1) if n > 1 else 1.0
     running_mean.copy_(m * running_mean + (1.0 - m) * mean)
     running_var.copy_(m * running_var + (1.0 - m) * (var * corr))
@@ -151,10 +152,13 @@ class TorchBatchNorm(nn.Module):
     + bias``, computed in the layer dtype (or x's) as ``bsed_tpu``'s
     TorchBatchNorm does (layers.py:95-147). Eval mode uses the running
     statistics; training mode the batch statistics, always in float32,
-    and updates the running ones (``update_running``)."""
+    and updates the running ones (``update_running``, with ``momentum``
+    in flax's convention: the conv blocks' 0.01 is torch's 0.99, the
+    discriminators' 0.9 torch's 0.1)."""
 
     def __init__(self, features: int, eps: float = 1e-3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -162,13 +166,14 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.eps = eps
         self.dtype = dtype
+        self.momentum = momentum
 
     def forward(self, x):
         dt = self.dtype or x.dtype
         if self.training:
             mean, var, n = batch_stats(x)
             update_running(self.running_mean, self.running_var,
-                           mean.detach(), var.detach(), n)
+                           mean.detach(), var.detach(), n, self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
         inv = (torch.rsqrt(var + self.eps) * self.weight).to(dt)

@@ -1,0 +1,167 @@
+"""Domain-adaptation losses: DANN, CDAN (clip), frame-CDAN, ADDA. Port of
+``bsed_tpu/train/da.py`` (reference src/DA/dan.py, cdan.py,
+cdan_frame.py and main_scmt.py:312-369; that module's docstrings carry
+the file:line trail of each flavour):
+
+  * ``dann_loss``: BCE of the discriminator on gradient-reversed features,
+    source 1 / target 0;
+  * ``cdan_loss``: CDAN with the multilinear, or randomized multilinear,
+    map of features × detached softmaxed predictions, optionally with
+    entropy weights w = 1 + e^(−H(g)) (normalised to sum to the batch);
+  * ``cdan_frame_loss``: the frame-CDAN variant as the reference wires it:
+    the discriminator sees the gradient-reversed (B, T, C) features only,
+    and the clip labels broadcast over its frame axis;
+  * ``adda_discriminator_loss`` / ``adda_confusion_loss``: the alternating
+    updates' two losses on precomputed discriminator outputs.
+
+``disc_apply`` is any callable that applies the discriminator (the train
+step passes one that threads its BatchNorm statistics in call order).
+
+The random matrices (R_f, R_g) of the randomized map: ``bsed_tpu`` draws
+them with ``jax.random.normal`` from ``cfg.train.seed``, which this package
+cannot reproduce without JAX. ``make_randomized_maps`` draws its own
+standard normal pair from a ``torch.Generator`` seeded by the same seed,
+on the device that will use them (at full width R_f is (80128, 8192)
+float32, 2.63 GB); the tests inject JAX's pair through
+``train.steps.TrainModules.rand_maps``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from bsed_tpu_torch.ops.grl import grad_reverse
+from bsed_tpu_torch.train.losses import bce, entropy
+
+
+def multilinear_map(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """T(f, g) = flatten(g ⊗ f): (B, F), (B, C) → (B, C·F)."""
+    return torch.einsum("bc,bf->bcf", g, f).reshape(f.shape[0], -1)
+
+
+def make_randomized_maps(features_dim: int, num_classes: int,
+                         output_dim: int, seed: int = 0, device="cpu"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R_f (features_dim, output_dim), R_g (num_classes, output_dim)),
+    standard normal float32 drawn on ``device`` from ``seed``."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rf = torch.randn((features_dim, output_dim), generator=gen,
+                     device=device)
+    rg = torch.randn((num_classes, output_dim), generator=gen,
+                     device=device)
+    return rf, rg
+
+
+def randomized_multilinear_map(f: torch.Tensor, g: torch.Tensor,
+                               rf: torch.Tensor,
+                               rg: torch.Tensor) -> torch.Tensor:
+    """(R_f f) ⊙ (R_g g) / sqrt(d)   (cdan.py:129-133)."""
+    return (f @ rf) * (g @ rg) / math.sqrt(float(rf.shape[1]))
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """jnp's promotion of an activation against float32 operands."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def dann_loss(disc_apply: Callable, f_s: torch.Tensor, f_t: torch.Tensor,
+              grl_coeff=1.0) -> torch.Tensor:
+    """Plain DANN over flattened features; source label 1, target 0."""
+    f = torch.cat([f_s, f_t], dim=0)
+    d = disc_apply(grad_reverse(f, grl_coeff))
+    labels = torch.cat([
+        torch.ones((f_s.shape[0],) + d.shape[1:], dtype=d.dtype,
+                   device=d.device),
+        torch.zeros((f_t.shape[0],) + d.shape[1:], dtype=d.dtype,
+                    device=d.device)], dim=0)
+    return bce(d, labels)
+
+
+def cdan_loss(disc_apply: Callable, g_s, f_s, g_t, f_t,
+              rf: Optional[torch.Tensor] = None,
+              rg: Optional[torch.Tensor] = None,
+              entropy_conditioning: bool = False,
+              grl_coeff=1.0) -> torch.Tensor:
+    """CDAN with multilinear conditioning (cdan.py:89-103). g_* are raw
+    predictions, softmaxed and detached here (:92)."""
+    f = _f32(torch.cat([f_s, f_t], dim=0))
+    g = torch.softmax(torch.cat([g_s, g_t], dim=0), dim=1).detach()
+    if rf is not None:
+        h = randomized_multilinear_map(f, g, rf, rg)
+    else:
+        h = multilinear_map(f, g)
+    d = disc_apply(grad_reverse(h, grl_coeff))
+    labels = torch.cat([
+        torch.ones((g_s.shape[0], 1), dtype=d.dtype, device=d.device),
+        torch.zeros((g_t.shape[0], 1), dtype=d.dtype, device=d.device)],
+        dim=0)
+    if entropy_conditioning:
+        w = 1.0 + torch.exp(-entropy(g))
+        w = w / torch.sum(w) * f.shape[0]
+        return bce(d, labels, weight=w.reshape(d.shape))
+    return bce(d, labels)
+
+
+def cdan_frame_loss(disc_apply: Callable, g_s, f_s, g_t, f_t,
+                    grl_coeff=1.0) -> torch.Tensor:
+    """Frame-CDAN as the reference wires it (cdan_frame.py:89-119): the
+    multilinear conditioning is computed and discarded there, so the
+    discriminator sees only the gradient-reversed features; the domain
+    labels broadcast over its frame axis."""
+    f = torch.cat([f_s, f_t], dim=0)
+    d = disc_apply(grad_reverse(f, grl_coeff)).squeeze(-1)
+    labels = torch.cat([
+        torch.ones((g_s.shape[0],), dtype=d.dtype, device=d.device),
+        torch.zeros((g_t.shape[0],), dtype=d.dtype, device=d.device)],
+        dim=0)
+    labels = labels.reshape((-1,) + (1,) * (d.ndim - 1))
+    return bce(d, labels.expand(d.shape))
+
+
+def take_rows(d: torch.Tensor, choice: torch.Tensor) -> torch.Tensor:
+    """``d[choice]`` as JAX's gather computes it for an index past d's
+    rows: the forward clamps it to the last row, and the gradient of such
+    a row is dropped (XLA's scatter skips out-of-range updates). Origin's
+    choice is drawn over its combined real batch, which may have more
+    rows than the syn stream it also indexes."""
+    n = d.shape[0]
+    rows = d[choice.clamp(max=n - 1)]
+    past = (choice >= n).reshape((-1,) + (1,) * (d.ndim - 1))
+    return torch.where(past, rows.detach(), rows)
+
+
+def _unit_labels(d: torch.Tensor, unit: int) -> torch.Tensor:
+    labels = torch.zeros_like(d)
+    labels[..., unit] = 1.0
+    return labels
+
+
+def adda_discriminator_loss(d_real: torch.Tensor, d_syn: torch.Tensor,
+                            choice: torch.Tensor, adv_weight: float = 2.5,
+                            disc_labels: str = "split") -> torch.Tensor:
+    """The discriminator update on outputs of detached features:
+    ``cat(d_real[choice], d_syn[choice])`` against the lineage's domain
+    labels, × adv_weight. "split": real → unit 1, syn → unit 0;
+    "all_target": every row unit 1 (main_scmt.py:276-278)."""
+    real, syn = take_rows(d_real, choice), take_rows(d_syn, choice)
+    d = torch.cat([real, syn], dim=0)
+    if disc_labels == "all_target":
+        labels = _unit_labels(d, 1)
+    else:
+        labels = torch.cat([_unit_labels(real, 1), _unit_labels(syn, 0)],
+                           dim=0)
+    return adv_weight * bce(d, labels)
+
+
+def adda_confusion_loss(d_conf: torch.Tensor,
+                        choice: Optional[torch.Tensor],
+                        adv_weight: float = 2.5,
+                        flipped: bool = False) -> torch.Tensor:
+    """The feature extractor's confusion step on a non-detached
+    discriminator output: the rows of ``choice`` (all rows when None)
+    against unit 0 ("source"), or unit 1 when ``flipped``."""
+    d = d_conf if choice is None else take_rows(d_conf, choice)
+    return adv_weight * bce(d, _unit_labels(d, 1 if flipped else 0))

@@ -1,5 +1,6 @@
-"""The config-driven train step. Port of ``bsed_tpu/train/steps.py`` for
-every preset that trains without a discriminator (the ``pretrain`` stage):
+"""The config-driven train step. Port of ``bsed_tpu/train/steps.py``:
+every preset, in the ``pretrain`` stage and, with a discriminator, in the
+``adaptation`` stage:
 
   * supervised BCE on the SYN strong+weak targets, with the real stream's
     weak term per ``TrainConfig.real_weak_bce``, or on the real stream
@@ -12,7 +13,14 @@ every preset that trains without a discriminator (the ``pretrain`` stage):
     'scmt', 'scmt_ada', 'sct', and 'origin' with its masked combined
     batch), and ICT mixup (the masked 'origin' branch and the generic one);
   * dataset normalisation of the log-mel (``TrainConfig.normalize``);
-  * Adam or SGD (``train/state.make_optimizer``).
+  * Adam or SGD (``train/state.make_optimizer``);
+  * domain adaptation in the ``adaptation`` stage (``train/da.py``,
+    ``models/discriminators.py``): a GRL pre-step (DANN, CDAN, frame-CDAN:
+    one backward through the gradient-reversed domain loss steps the
+    encoder's aux optimizer and the discriminator's), the same losses
+    added to the main loss × ``da.adv_weight`` with one backward for model
+    and discriminator (``da.joint_backward``), or ADDA's alternating
+    discriminator and confusion updates every ``da.update_step`` steps.
 
 Forwards run in ``bsed_tpu``'s order, which fixes the order in which the
 BatchNorm running statistics advance. The encoder is the folded train
@@ -29,16 +37,17 @@ randomness — teacher noise, ISP shifts, dropout bits, mixup permutations —
 comes from one ``torch.Generator`` per step, seeded from (seed, step) as
 the JAX step folds the step count into its key, and mixup's λ from a
 numpy generator seeded the same way; the draws differ from JAX's, so
-parity tests inject them.
+parity tests inject them (ADDA's half-batch draws through
+``sample_adda_choice``, the randomized map's matrices through
+``TrainModules.rand_maps``).
 
 ``make_epoch_runner`` runs an epoch of steps on loader arrays resident on
 the device (the port of the JAX package's ``lax.scan`` over the epoch, as
 a plain loop), and ``make_predict_fn`` is the port of the JAX package's
 inference function; ``train/trainer.py`` drives both.
 
-Not ported: domain adaptation in the ``adaptation`` stage (ROADMAP item
-8b), the 'crnn' predictor head and recurrent dropout in training (item
-8c); ``build_modules`` refuses them.
+Not ported: the 'crnn' predictor head and recurrent dropout in training
+(ROADMAP item 8c); ``build_modules`` refuses them.
 """
 from __future__ import annotations
 
@@ -52,6 +61,10 @@ import torch.nn as nn
 
 from bsed_tpu_torch.config import Config
 from bsed_tpu_torch.models.crnn import compute_dtype, make_encoder
+from bsed_tpu_torch.models.discriminators import (ClipDiscriminator,
+                                                  ClipDiscriminatorSoftmax,
+                                                  FrameDiscriminator,
+                                                  FrameDiscriminatorGRL)
 from bsed_tpu_torch.models.layers import ConvBlock
 from bsed_tpu_torch.models.predictor import make_predictor_head
 from bsed_tpu_torch.models.rnn import BidirectionalGRU
@@ -60,7 +73,9 @@ from bsed_tpu_torch.ops.augment import (gaussian_snr_noise, mixup,
 from bsed_tpu_torch.ops.dropout import FastDropout
 from bsed_tpu_torch.ops.folded_stem import (folded_train_eligible,
                                             make_folded_train_stem)
+from bsed_tpu_torch.ops.grl import warm_start_lambda
 from bsed_tpu_torch.ops.mel import amplitude_to_db
+from bsed_tpu_torch.train import da as da_losses
 from bsed_tpu_torch.train.ema import ema_update
 from bsed_tpu_torch.train.losses import bce, mse
 from bsed_tpu_torch.train.ramps import exp_rampup, sigmoid_rampdown
@@ -153,29 +168,97 @@ class TrainModel(nn.Module):
         return strong, weak, enc
 
 
+def _effective_da_mode(cfg: Config) -> str:
+    """DA is active only in the adaptation stage (the reference builds no
+    discriminator in pretrain, main_baseline.py:789-799)."""
+    return cfg.da.mode if cfg.train.stage == "adaptation" else "none"
+
+
+def sample_adda_choice(gen: torch.Generator, batch_size: int
+                       ) -> torch.Tensor:
+    """The reference's ``np.random.choice(batch_size, batch_size//2,
+    replace=False)`` half-batch subset (main_scmt.py:325) on the step's
+    generator. Module-level so parity tests can replay the draws."""
+    return torch.randperm(batch_size, generator=gen,
+                          device=gen.device)[: batch_size // 2]
+
+
+def _make_discriminator(cfg: Config) -> Optional[nn.Module]:
+    """The discriminator of the DA mode and level
+    (``bsed_tpu/train/steps.py:107-141``), sized for its input: the
+    (B, T, 2H) encoding (frame flavours per frame, clip flavours as an
+    image), the randomized CDAN map (B, randomized_dim) or DANN's
+    flattened (B, T·2H)."""
+    mode, level, da = _effective_da_mode(cfg), cfg.da.level, cfg.da
+    enc_dim = 2 * cfg.model.n_rnn_cell
+    if mode == "none":
+        return None
+    if mode == "adda":
+        if level == "clip":
+            # main_scmt.py's runnable adaptation (CRNN.py:16-51)
+            return ClipDiscriminatorSoftmax()
+        # scmt_ada_origin's CRNN_GRL flavour has no internal GRL; the
+        # main.py lineage's reverses the confusion gradient at its input
+        return FrameDiscriminatorGRL(
+            enc_dim, da.disc_dropout, n_out=2,
+            apply_grl=da.adda_confusion != "syn_flipped")
+    if mode == "cdan_frame":
+        return FrameDiscriminator(enc_dim, da.disc_dropout)
+    if mode == "cdan":
+        if level == "clip":
+            return ClipDiscriminator()
+        # 1 unit over the randomized map; the loss reverses the gradient
+        return FrameDiscriminatorGRL(da.randomized_dim, da.disc_dropout,
+                                     n_out=1, apply_grl=False)
+    if mode == "dann":
+        return FrameDiscriminatorGRL(cfg.n_frames * enc_dim,
+                                     da.disc_dropout, n_out=1,
+                                     apply_grl=False)
+    raise ValueError(mode)
+
+
 @dataclasses.dataclass
 class TrainModules:
     """What the train step and the predict function build their models
     from. ``build_modules`` also checks that the train step supports the
     configuration; inference (``make_predict_fn``) needs no such check, so
     evaluation builds this directly. ``norm_stats``: the dataset's
-    (mean, std) of the log-mel per mel bin, as (F,) arrays, or None."""
+    (mean, std) of the log-mel per mel bin, as (F,) arrays, or None.
+    ``rand_maps``: frame-level CDAN's (R_f, R_g) on ``device``, or None."""
     cfg: Config
     device: torch.device
     use_kernels: bool = True
     norm_stats: Optional[tuple] = None
+    rand_maps: Optional[tuple] = None
 
     def make_model(self) -> TrainModel:
         return TrainModel(self.cfg, self.device,
                           self.use_kernels).to(self.device)
 
+    def make_discriminator(self) -> Optional[nn.Module]:
+        disc = _make_discriminator(self.cfg)
+        return disc.to(self.device) if disc is not None else None
+
 
 def _check_supported(cfg: Config) -> None:
     t, m = cfg.train, cfg.model
-    if t.stage == "adaptation" and cfg.da.mode != "none":
-        raise NotImplementedError(
-            f"domain adaptation (stage 'adaptation', da.mode="
-            f"{cfg.da.mode!r}) is not ported yet (ROADMAP.md, open item 8b)")
+    mode = _effective_da_mode(cfg)
+    if t.isp and t.isp_flavor == "origin" and cfg.da.joint_backward and \
+            mode in ("dann", "cdan", "cdan_frame"):
+        # the origin forward never computes the syn-stream predictions
+        # the joint domain loss conditions on (its DA is ADDA, main.py)
+        raise ValueError(
+            "isp_flavor='origin' is incompatible with da.joint_backward "
+            "GRL modes: the origin lineage uses alternating (ADDA-style) "
+            "updates; set da.joint_backward=False or da.mode='adda'")
+    if mode == "cdan" and cfg.da.level != "clip" and \
+            cfg.da.randomized_dim <= 0:
+        # the un-randomized map over flattened frame features would be
+        # (2·n_rnn_cell·n_frames)·nclass ≈ 3.2 M dims
+        raise ValueError(
+            "frame-level CDAN requires da.randomized_dim > 0 (the "
+            "full multilinear map over flattened frame features is "
+            "infeasibly large; the reference always randomizes)")
     if m.predictor_head == "crnn":
         raise NotImplementedError(
             "the 'crnn' predictor head is not ported yet (ROADMAP.md, open "
@@ -190,29 +273,52 @@ def _check_supported(cfg: Config) -> None:
 
 
 def build_modules(cfg: Config, device="cuda", use_kernels: bool = True,
-                  norm_stats=None) -> TrainModules:
+                  norm_stats=None, rand_maps=None) -> TrainModules:
     """What the step needs to build its models on ``device``;
     ``use_kernels=False`` runs the stem epilogue's plain versions;
     ``norm_stats`` is the train scaler's (mean, std) for
-    ``TrainConfig.normalize``."""
+    ``TrainConfig.normalize``. Frame-level CDAN's randomized map gets
+    ``rand_maps`` if given (moved to ``device``), else its own pair drawn
+    there from ``cfg.train.seed`` (``train/da.make_randomized_maps``)."""
     _check_supported(cfg)
-    return TrainModules(cfg, resolve_device(device), use_kernels,
-                        norm_stats)
+    dev = resolve_device(device)
+    if _effective_da_mode(cfg) == "cdan" and cfg.da.level != "clip":
+        if rand_maps is None:
+            rand_maps = da_losses.make_randomized_maps(
+                2 * cfg.model.n_rnn_cell * cfg.n_frames, cfg.nclass,
+                cfg.da.randomized_dim, seed=cfg.train.seed, device=dev)
+        rand_maps = tuple((r if torch.is_tensor(r) else
+                           torch.from_numpy(np.array(r, np.float32)))
+                          .to(dev) for r in rand_maps)
+    else:
+        rand_maps = None
+    return TrainModules(cfg, dev, use_kernels, norm_stats, rand_maps)
 
 
 def load_train_state(modules: TrainModules, trees: Dict) -> TrainState:
     """A train state from flax-layout trees (``utils/weights``): step,
     params, batch_stats, with a mean teacher ema_params and
     ema_batch_stats, and optionally the optimizer's state (Adam: mu, nu
-    and their count; SGD: trace)."""
+    and their count; SGD: trace). In the adaptation stage the state also
+    holds the discriminator and the aux optimizers (the family of
+    ``da.aux_optimizer``, else the main one), loaded from the trees'
+    ``disc_*`` and ``enc_opt_state`` where they hold them."""
+    cfg = modules.cfg
     model = modules.make_model()
     teacher = None
-    if modules.cfg.train.mean_teacher:
+    if cfg.train.mean_teacher:
         teacher = modules.make_model()
         for p in teacher.parameters():
             p.requires_grad_(False)
-    opt = make_optimizer(modules.cfg, model.parameters())
+    opt = make_optimizer(cfg, model.parameters())
     state = TrainState(step=0, model=model, ema_model=teacher, optimizer=opt)
+    disc = modules.make_discriminator()
+    if disc is not None:
+        family = cfg.da.aux_optimizer or None
+        state.discriminator = disc
+        state.disc_optimizer = make_optimizer(cfg, disc.parameters(), family)
+        state.enc_optimizer = make_optimizer(cfg, model.encoder.parameters(),
+                                             family)
     weights.load_train_state(state, trees)
     return state
 
@@ -221,17 +327,22 @@ def create_train_state(cfg: Config, modules: TrainModules,
                        seed: int = 0) -> TrainState:
     """Student and, with a mean teacher, teacher from their own random
     inits, drawn from ``seed`` (the teacher's init differs from the
-    student's, as in the reference, main_baseline.py:817-818); a fresh
-    optimizer."""
-    s_seed, t_seed = (int(v) for v in
-                      np.random.SeedSequence(seed).generate_state(2))
+    student's, as in the reference, main_baseline.py:817-818), and the
+    discriminator's from a third draw; fresh optimizers."""
+    s_seed, t_seed, d_seed = (int(v) for v in
+                              np.random.SeedSequence(seed).generate_state(3))
     params, stats = weights.init_params(cfg, s_seed)
     ema_params = ema_stats = None
     if cfg.train.mean_teacher:
         ema_params, ema_stats = weights.init_params(cfg, t_seed)
-    return load_train_state(modules, {
+    state = load_train_state(modules, {
         "step": 0, "params": params, "batch_stats": stats,
         "ema_params": ema_params, "ema_batch_stats": ema_stats})
+    if state.discriminator is not None:
+        weights.load_disc(state.discriminator,
+                          *weights.init_disc_params(state.discriminator,
+                                                    d_seed))
+    return state
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -280,11 +391,18 @@ def make_train_step(modules: TrainModules,
     ``grad_flow=True`` adds the mean |grad| of every non-bias parameter
     as ``grad_abs/<name>``, ``<name>`` being the parameter's flax path
     joined by dots, as the JAX step names them (the reference's
-    plot_grad_flow diagnostic, main_baseline.py:108-123)."""
+    plot_grad_flow diagnostic, main_baseline.py:108-123).
+
+    In the adaptation stage the metrics add ``domain_loss``: the GRL
+    pre-step's or ADDA's (0 on a step that skips ADDA's update), or the
+    joint domain loss before its ``adv_weight``."""
     cfg = modules.cfg
-    t = cfg.train
+    t, da = cfg.train, cfg.da
     dev = modules.device
     mean_teacher, isp, use_mixup = t.mean_teacher, t.isp, t.mixup
+    da_mode = _effective_da_mode(cfg)
+    joint_da = da.joint_backward and da_mode in ("dann", "cdan",
+                                                 "cdan_frame")
     if t.cost_ramp == "exp_step" and steps_per_epoch is None:
         raise ValueError(
             "cfg.train.cost_ramp='exp_step' needs steps_per_epoch "
@@ -314,6 +432,82 @@ def make_train_step(modules: TrainModules,
             x = (x - nm[0]) / nm[1]
         return x
 
+    def grl_coeff(step: int) -> float:
+        return warm_start_lambda(step, da.grl_alpha, da.grl_lo, da.grl_hi,
+                                 da.grl_max_iters)
+
+    def grl_domain_loss(disc, gen, syn_s, syn_w, syn_f, r_s, r_w, r_f,
+                        coeff):
+        """The configured GRL domain loss (``_grl_domain_loss``, steps.py
+        445-472). The live cdan/dann callers pass the WEAK predictions as
+        g; the frame-CDAN flavour discards g, and the clip CDAN runs it on
+        the full (B, T, C) encoding (main_scmt_ada_weak.py:331)."""
+        def dapply(h):
+            return disc(h, gen)
+        if da_mode == "cdan_frame" or (da_mode == "cdan"
+                                       and da.level == "clip"):
+            return da_losses.cdan_frame_loss(dapply, syn_s, syn_f, r_s, r_f,
+                                             coeff)
+        fs = syn_f.reshape(syn_f.shape[0], -1)
+        ft = r_f.reshape(r_f.shape[0], -1)
+        if da_mode == "cdan":
+            rf, rg = modules.rand_maps
+            return da_losses.cdan_loss(dapply, syn_w, fs, r_w, ft, rf, rg,
+                                       da.entropy_conditioning, coeff)
+        return da_losses.dann_loss(dapply, fs, ft, coeff)
+
+    def grl_pre_step(state: TrainState, x_syn, x_real, gen):
+        """The discriminator pre-step (main_baseline.py:314-335): one
+        backward through the reversed domain loss steps the encoder's aux
+        optimizer and the discriminator's."""
+        model, disc = state.model, state.discriminator
+        syn_s, syn_w, syn_f = model(x_syn, gen)
+        r_s, r_w, r_f = model(x_real, gen)
+        dl = grl_domain_loss(disc, gen, syn_s, syn_w, syn_f, r_s, r_w, r_f,
+                             grl_coeff(state.step))
+        state.enc_optimizer.zero_grad(set_to_none=True)
+        state.disc_optimizer.zero_grad(set_to_none=True)
+        dl.backward(inputs=list(model.encoder.parameters())
+                    + list(disc.parameters()))
+        state.enc_optimizer.step()
+        state.disc_optimizer.step()
+        return dl.detach()
+
+    def adda_steps(state: TrainState, x_syn, x_real, gen):
+        """ADDA's alternating updates every ``da.update_step`` steps
+        (main_scmt.py:312-371, main.py:262-332,
+        main_scmt_ada_origin.py:369-466): the discriminator on detached
+        real then syn features, then the encoder's confusion step against
+        the updated discriminator. The encoder forwards of the first step
+        compute no encoder gradient."""
+        if state.step % da.update_step != 0:
+            return torch.zeros((), device=dev)
+        model, disc = state.model, state.discriminator
+        choice_d = sample_adda_choice(gen, x_real.shape[0])
+        with torch.no_grad():
+            _, _, r_f = model(x_real, gen)
+            _, _, syn_f = model(x_syn, gen)
+        d_real, d_syn = disc(r_f, gen), disc(syn_f, gen)
+        dl = da_losses.adda_discriminator_loss(d_real, d_syn, choice_d,
+                                               da.adv_weight,
+                                               da.adda_disc_labels)
+        state.disc_optimizer.zero_grad(set_to_none=True)
+        dl.backward()
+        state.disc_optimizer.step()
+        # the confusion step: main_scmt forwards the real stream and takes
+        # a fresh half batch; main.py the whole real stream;
+        # scmt_ada_origin the syn stream against flipped labels
+        syn_conf = da.adda_confusion == "syn_flipped"
+        conf_choice = (sample_adda_choice(gen, x_real.shape[0])
+                       if da.adda_confusion == "half" else None)
+        _, _, f = model(x_syn if syn_conf else x_real, gen)
+        cl = da_losses.adda_confusion_loss(disc(f, gen), conf_choice,
+                                           da.adv_weight, flipped=syn_conf)
+        state.enc_optimizer.zero_grad(set_to_none=True)
+        cl.backward(inputs=list(model.encoder.parameters()))
+        state.enc_optimizer.step()
+        return (dl + cl).detach()
+
     def train_step(state: TrainState, batch: Dict, seed: int,
                    epoch) -> Dict:
         model, teacher = state.model, state.ema_model
@@ -331,6 +525,13 @@ def make_train_step(modules: TrainModules,
                            t.rampdown_epochs)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
+        if state.discriminator is not None:
+            # the aux optimizers stay at their constant construction lr:
+            # the reference's "aux = lr × 0.1" block is dead in every live
+            # path (steps.py:632-642)
+            for opt in (state.enc_optimizer, state.disc_optimizer):
+                for group in opt.param_groups:
+                    group["lr"] = t.max_learning_rate * da.aux_lr_factor
 
         get = lambda k: (torch.as_tensor(batch[k], device=dev)  # noqa: E731
                          if batch.get(k) is not None else None)
@@ -342,11 +543,21 @@ def make_train_step(modules: TrainModules,
             raise KeyError("the batch needs 'syn' and 'syn_strong'")
         syn_target_weak = (syn_target.amax(dim=-2)
                            if syn_target is not None else None)
-        # origin trains on the combined real batch only
-        x_syn = (_inp(syn_lin) if syn_lin is not None and not origin_masks
-                 else None)
+        # origin's main step trains on the combined real batch only; its
+        # ADDA updates read the syn stream too
+        x_syn = (_inp(syn_lin) if syn_lin is not None
+                 and (not origin_masks or da_mode != "none") else None)
         x_real = _inp(real_lin) if real_lin is not None else None
         metrics: Dict = {"lr": lr, "consistency_cost": cost}
+
+        # the domain-adaptation updates that precede the main step
+        if da_mode != "none":
+            model.train()
+            state.discriminator.train()
+        if da_mode in ("dann", "cdan", "cdan_frame") and not joint_da:
+            metrics["domain_loss"] = grl_pre_step(state, x_syn, x_real, gen)
+        elif da_mode == "adda":
+            metrics["domain_loss"] = adda_steps(state, x_syn, x_real, gen)
         if (mean_teacher or isp) and real_lin is None:
             raise ValueError(
                 "mean_teacher/isp presets need the real streams — build "
@@ -432,8 +643,8 @@ def make_train_step(modules: TrainModules,
                 r_strong, r_weak, _ = outs[0]
                 (rs_strong, rs_weak, _), (rf_strong, rf_weak, _) = outs[1:3]
             else:
-                syn_strong, syn_weak, _ = outs[0]
-                r_strong, r_weak, _ = outs[1]
+                syn_strong, syn_weak, syn_enc = outs[0]
+                r_strong, r_weak, r_enc = outs[1]
                 if isp and not isp_syn_only:
                     ((rs_strong, rs_weak, _), (rf_strong, rf_weak, _),
                      (ss_strong, ss_weak, _), (sf_strong, sf_weak, _)) = \
@@ -446,9 +657,9 @@ def make_train_step(modules: TrainModules,
         else:
             # the syn forward runs (and advances the BatchNorm statistics)
             # even when supervise_on == "real" (main_baseline_ena.py:338)
-            syn_strong, syn_weak, _ = model(x_syn, gen)
+            syn_strong, syn_weak, syn_enc = model(x_syn, gen)
             if x_real is not None:
-                r_strong, r_weak, _ = model(x_real, gen)
+                r_strong, r_weak, r_enc = model(x_real, gen)
 
         # supervised BCE (main_baseline.py:431-475 / the ENA variant;
         # origin: masked slices of the combined real batch)
@@ -664,13 +875,26 @@ def make_train_step(modules: TrainModules,
                 m["mixup_cons_strong_loss"] = c_u_strong
                 m["mixup_cons_weak_loss"] = c_u_weak
                 loss = loss + c_u_strong + c_u_weak
+        if joint_da:
+            # the domain loss on the MAIN forwards' features, added to the
+            # loss (main_scmt_ada_weak.py:312-331, 527-528); one backward
+            # then steps the model and the discriminator
+            dl = grl_domain_loss(state.discriminator, gen, syn_strong,
+                                 syn_weak, syn_enc, r_strong, r_weak, r_enc,
+                                 grl_coeff(state.step))
+            m["domain_loss"] = dl
+            loss = loss + da.adv_weight * dl
         m["loss"] = loss
 
         state.optimizer.zero_grad(set_to_none=True)
+        if joint_da:
+            state.disc_optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if grad_flow:
             m.update(_grad_abs(model))
         state.optimizer.step()
+        if joint_da:
+            state.disc_optimizer.step()
         state.step += 1
         if mean_teacher:
             ema_update(teacher.parameters(), model.parameters(), state.step,

@@ -28,12 +28,16 @@ fits the train scaler on the real train streams plus SYN (main.py:681-686)
 and validates with a separate val-fitted one (main.py:696-699); the
 checkpoint's meta records the train scaler.
 
+In the adaptation stage the state holds a discriminator; a resume at a
+stage boundary keeps its fresh init (``Trainer.resume``), and the domain
+loss reaches the meters, results.tsv and TensorBoard as ``domain_loss``.
+
 Not ported: data parallelism and the multi-host evaluation exchange
-(ROADMAP item 9), and the discriminator's re-init at stage boundaries on
-resume (item 8b: ``build_modules`` refuses domain adaptation).
+(ROADMAP item 9).
 """
 from __future__ import annotations
 
+import copy
 import csv
 import os
 import time
@@ -181,9 +185,21 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def resume(self, epoch: int) -> None:
-        """Resume from epoch_<epoch-1>: student, teacher, the optimizer's
-        state and step count, into the live modules."""
-        self.ckpt.restore(f"epoch_{epoch - 1}", self.state)
+        """Resume from epoch_<epoch-1>: student, teacher, the optimizers'
+        states and step count, into the live modules. At the adaptation
+        stage's boundaries (epoch 1 / 51, main_baseline.py:836-840) the
+        discriminator, its statistics and its optimizer keep the live
+        (fresh) state."""
+        st = self.state
+        keep = None
+        if self.cfg.train.stage == "adaptation" and epoch in (1, 51) and \
+                st.discriminator is not None:
+            keep = (copy.deepcopy(st.discriminator.state_dict()),
+                    copy.deepcopy(st.disc_optimizer.state_dict()))
+        self.ckpt.restore(f"epoch_{epoch - 1}", st)
+        if keep is not None:
+            st.discriminator.load_state_dict(keep[0])
+            st.disc_optimizer.load_state_dict(keep[1])
 
     def _sink_metrics(self, meters: AverageMeterSet,
                       stacked: Dict[str, np.ndarray], base_step: int,

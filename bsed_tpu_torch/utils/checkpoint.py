@@ -9,7 +9,9 @@ here), in the same directory layout:
 
 A state file holds the train state as ``utils/weights.export_train_state``
 gives it (step; student and teacher params and BatchNorm statistics; Adam
-``mu``, ``nu`` and ``count``), in the flax layout, as CPU tensors, so
+``mu``, ``nu`` and ``count`` or SGD's ``trace``; in the adaptation stage
+the discriminator's params and statistics and the two aux optimizers'
+states), in the flax layout, as CPU tensors, so
 ``torch.load(weights_only=True)`` reads it and ``bsed_tpu``'s trees and
 this package's line up leaf by leaf. The file is written under a
 temporary name and moved into place, so a crash never leaves a truncated

@@ -31,7 +31,13 @@ their ``count``, or SGD's momentum ``trace`` (optax's TraceState; torch's
 the weight decay added to the gradient). ``trees_from_jax_state`` reads
 them off a ``bsed_tpu`` TrainState without importing JAX;
 ``export_train_state`` writes them back, so tests compare the two
-frameworks leaf by leaf.
+frameworks leaf by leaf. A state with a discriminator (the adaptation
+stage) adds ``disc_params`` and ``disc_batch_stats`` (the discriminator's
+flax trees, ``disc_param_map``; {} for the MLP flavours, which have no
+BatchNorm), and the aux optimizers' states ``disc_opt_state`` and
+``enc_opt_state``, each a dict of the same slots (``mu``, ``nu``,
+``count`` or ``trace``) over the discriminator's and the encoder's trees.
+``load_crnnda`` carries ``models/crnn.CRNNDA``'s tree.
 """
 from __future__ import annotations
 
@@ -42,7 +48,8 @@ import torch
 import torch.nn as nn
 
 from bsed_tpu_torch.models import init as I
-from bsed_tpu_torch.models.layers import ContextGating, ConvBlock, GLU
+from bsed_tpu_torch.models.layers import (ContextGating, ConvBlock, GLU,
+                                          TorchBatchNorm)
 
 
 def _set(param: torch.Tensor, value) -> None:
@@ -285,21 +292,15 @@ def _opt_kind(opt) -> str:
     return "sgd" if isinstance(opt, torch.optim.SGD) else "adam"
 
 
-def load_train_state(state, trees: Mapping) -> None:
-    """Fill a ``train.state.TrainState`` from flax-layout trees (see the
-    module docstring); the optimizer's state only where the trees hold
-    it (Adam: ``mu``; SGD: ``trace``)."""
-    state.step = int(trees["step"])
-    load_train_model(state.model, trees["params"], trees["batch_stats"])
-    if state.ema_model is not None:
-        load_train_model(state.ema_model, trees["ema_params"],
-                         trees["ema_batch_stats"])
-    opt = state.optimizer
+def _load_opt(opt, pmap, trees: Mapping) -> None:
+    """An optimizer's state from flax-layout slot trees (Adam: ``mu``,
+    ``nu``, ``count``; SGD: ``trace``) over the parameters of ``pmap``;
+    nothing where the trees hold no such slot."""
     kind = _opt_kind(opt)
     if trees.get("trace" if kind == "sgd" else "mu") is None:
         return
     count = float(np.asarray(trees.get("count", 0)))
-    for path, param, lk in train_param_map(state.model):
+    for path, param, lk in pmap:
         as_t = lambda tree: torch.from_numpy(np.array(  # noqa: E731
             _TO_TORCH[lk](np.asarray(_get(tree, path), np.float32)))
         ).to(param.device)
@@ -311,22 +312,15 @@ def load_train_state(state, trees: Mapping) -> None:
                                 "exp_avg_sq": as_t(trees["nu"])}
 
 
-def export_train_state(state) -> Dict:
-    """The train state as flax-layout numpy trees (see the module
-    docstring)."""
-    params, stats = export_train_model(state.model)
-    ema_params = ema_stats = None
-    if state.ema_model is not None:
-        ema_params, ema_stats = export_train_model(state.ema_model)
-    out = {"step": state.step, "params": params, "batch_stats": stats,
-           "ema_params": ema_params, "ema_batch_stats": ema_stats}
-    opt = state.optimizer
+def _export_opt(opt, pmap) -> Dict:
+    """The slot trees of ``_load_opt`` (zeros for a parameter the
+    optimizer has not stepped yet)."""
     kind = _opt_kind(opt)
     slots = (("trace", "momentum_buffer"),) if kind == "sgd" else (
         ("mu", "exp_avg"), ("nu", "exp_avg_sq"))
     trees = {name: {} for name, _ in slots}
     count = 0.0
-    for path, param, lk in train_param_map(state.model):
+    for path, param, lk in pmap:
         st = opt.state.get(param, {})
         for name, key in slots:
             if st.get(key) is not None:
@@ -336,9 +330,131 @@ def export_train_state(state) -> Dict:
             _put(trees[name], path, _TO_FLAX[lk](value))
         if "step" in st:
             count = float(st["step"])
-    out.update(trees)
     if kind == "adam":
-        out["count"] = count
+        trees["count"] = count
+    return trees
+
+
+def encoder_param_map(model):
+    """``train_param_map`` of the encoder alone, paths relative to it (the
+    encoder's aux optimizer's trees)."""
+    return [(path[1:], param, lk) for path, param, lk
+            in train_param_map(model) if path[0] == "encoder"]
+
+
+def disc_param_map(disc) -> List[Tuple[Tuple[str, ...], nn.Parameter,
+                                       str]]:
+    """(flax path, parameter, layout kind) of a discriminator
+    (``models/discriminators``): its module names are the flax names."""
+    out = []
+    for name, mod in disc.named_modules():
+        base = tuple(name.split(".")) if name else ()
+        if isinstance(mod, nn.Linear):
+            out += [(base + ("kernel",), mod.weight, "dense"),
+                    (base + ("bias",), mod.bias, "plain")]
+        elif isinstance(mod, nn.Conv2d):
+            out += [(base + ("kernel",), mod.weight, "conv"),
+                    (base + ("bias",), mod.bias, "plain")]
+        elif isinstance(mod, TorchBatchNorm):
+            out += [(base + ("scale",), mod.weight, "plain"),
+                    (base + ("bias",), mod.bias, "plain")]
+    return out
+
+
+def disc_stat_map(disc) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
+    out = []
+    for name, mod in disc.named_modules():
+        if isinstance(mod, TorchBatchNorm):
+            base = tuple(name.split("."))
+            out += [(base + ("mean",), mod.running_mean),
+                    (base + ("var",), mod.running_var)]
+    return out
+
+
+def load_disc(disc, params: Mapping, stats: Mapping) -> None:
+    for path, param, kind in disc_param_map(disc):
+        _set(param, _TO_TORCH[kind](np.asarray(_get(params, path),
+                                               np.float32)))
+    for path, buf in disc_stat_map(disc):
+        _set(buf, _get(stats, path))
+
+
+def export_disc(disc) -> Tuple[Dict, Dict]:
+    params, stats = {}, {}
+    for path, param, kind in disc_param_map(disc):
+        _put(params, path, _TO_FLAX[kind](_np(param.detach().cpu())))
+    for path, buf in disc_stat_map(disc):
+        _put(stats, path, _np(buf.detach().cpu()))
+    return params, stats
+
+
+def init_disc_params(disc, seed: int = 0) -> Tuple[Dict, Dict]:
+    """(params, batch_stats) of a discriminator in the flax layout, drawn
+    from ``seed`` with ``bsed_tpu``'s initializers: every dense and conv
+    kernel N(0, 0.01), biases 0, BatchNorm scale N(1, 0.02), running
+    statistics 0 and 1."""
+    gen = torch.Generator().manual_seed(seed)
+    params, stats = {}, {}
+    for path, param, kind in disc_param_map(disc):
+        shape = tuple(param.shape)
+        if path[-1] == "kernel":
+            value = I.normal_init(gen, shape)
+        elif path[-1] == "scale":
+            value = I.bn_scale_init(gen, shape)
+        else:
+            value = torch.zeros(shape)
+        _put(params, path, _TO_FLAX[kind](_np(value)))
+    for path, buf in disc_stat_map(disc):
+        fill = np.zeros if path[-1] == "mean" else np.ones
+        _put(stats, path, fill(tuple(buf.shape), np.float32))
+    return params, stats
+
+
+def load_crnnda(model, params: Mapping, stats: Mapping) -> None:
+    """A ``models.crnn.CRNNDA`` from its trees: {"crnn": CRNN's tree,
+    "discriminator": FrameDiscriminatorGRL's}."""
+    load_crnn(model.crnn, params["crnn"], stats["crnn"])
+    load_disc(model.discriminator, params["discriminator"], {})
+
+
+def load_train_state(state, trees: Mapping) -> None:
+    """Fill a ``train.state.TrainState`` from flax-layout trees (see the
+    module docstring); the optimizers' states only where the trees hold
+    them (Adam: ``mu``; SGD: ``trace``)."""
+    state.step = int(trees["step"])
+    load_train_model(state.model, trees["params"], trees["batch_stats"])
+    if state.ema_model is not None:
+        load_train_model(state.ema_model, trees["ema_params"],
+                         trees["ema_batch_stats"])
+    _load_opt(state.optimizer, train_param_map(state.model), trees)
+    if state.discriminator is not None and \
+            trees.get("disc_params") is not None:
+        load_disc(state.discriminator, trees["disc_params"],
+                  trees["disc_batch_stats"])
+        _load_opt(state.disc_optimizer,
+                  disc_param_map(state.discriminator),
+                  trees.get("disc_opt_state") or {})
+        _load_opt(state.enc_optimizer, encoder_param_map(state.model),
+                  trees.get("enc_opt_state") or {})
+
+
+def export_train_state(state) -> Dict:
+    """The train state as flax-layout numpy trees (see the module
+    docstring)."""
+    params, stats = export_train_model(state.model)
+    ema_params = ema_stats = None
+    if state.ema_model is not None:
+        ema_params, ema_stats = export_train_model(state.ema_model)
+    out = {"step": state.step, "params": params, "batch_stats": stats,
+           "ema_params": ema_params, "ema_batch_stats": ema_stats}
+    out.update(_export_opt(state.optimizer, train_param_map(state.model)))
+    if state.discriminator is not None:
+        out["disc_params"], out["disc_batch_stats"] = export_disc(
+            state.discriminator)
+        out["disc_opt_state"] = _export_opt(
+            state.disc_optimizer, disc_param_map(state.discriminator))
+        out["enc_opt_state"] = _export_opt(state.enc_optimizer,
+                                           encoder_param_map(state.model))
     return out
 
 
@@ -348,22 +464,33 @@ def _tree_np(tree):
     return np.asarray(tree, np.float32)
 
 
-def trees_from_jax_state(jax_state) -> Dict:
-    """A ``bsed_tpu.train.state.TrainState`` (optimizer through
-    ``optax.inject_hyperparams``) as the trees ``load_train_state`` takes:
-    Adam's ``inner_state[0]`` is a ScaleByAdamState; SGD's chain
-    (decayed weights, (trace, scale)) holds its TraceState at
+def _jax_opt_trees(opt_state) -> Dict:
+    """An ``optax.inject_hyperparams`` state's slots: Adam's
+    ``inner_state[0]`` is a ScaleByAdamState; SGD's chain (decayed
+    weights, (trace, scale)) holds its TraceState at
     ``inner_state[1][0]``."""
-    inner = jax_state.opt_state.inner_state
+    inner = opt_state.inner_state
+    if hasattr(inner[0], "mu"):
+        return {"mu": _tree_np(inner[0].mu), "nu": _tree_np(inner[0].nu),
+                "count": int(np.asarray(inner[0].count))}
+    return {"trace": _tree_np(inner[1][0].trace)}
+
+
+def trees_from_jax_state(jax_state) -> Dict:
+    """A ``bsed_tpu.train.state.TrainState`` (optimizers through
+    ``optax.inject_hyperparams``) as the trees ``load_train_state``
+    takes, the discriminator's and the aux optimizers' where it has
+    them."""
     ema = lambda tree: None if tree is None else _tree_np(tree)  # noqa: E731
     out = {"step": int(np.asarray(jax_state.step)),
            "params": _tree_np(jax_state.params),
            "batch_stats": _tree_np(jax_state.batch_stats),
            "ema_params": ema(jax_state.ema_params),
            "ema_batch_stats": ema(jax_state.ema_batch_stats)}
-    if hasattr(inner[0], "mu"):
-        out.update(mu=_tree_np(inner[0].mu), nu=_tree_np(inner[0].nu),
-                   count=int(np.asarray(inner[0].count)))
-    else:
-        out["trace"] = _tree_np(inner[1][0].trace)
+    out.update(_jax_opt_trees(jax_state.opt_state))
+    if jax_state.disc_params is not None:
+        out.update(disc_params=_tree_np(jax_state.disc_params),
+                   disc_batch_stats=_tree_np(jax_state.disc_batch_stats),
+                   disc_opt_state=_jax_opt_trees(jax_state.disc_opt_state),
+                   enc_opt_state=_jax_opt_trees(jax_state.enc_opt_state))
     return out

@@ -75,16 +75,29 @@ use, all sources in parallel) and drives every slice of the port:
     T = 313, 156 and 78) within 2e-3 of the plain versions; ``train
     --preset origin --perf -s 96`` and ``train --preset
     baseline_fpn_mt_isp -s 48`` for one epoch, each with ``eval
-    --store-dir``, with exact launches and finite results.
+    --store-dir``, with exact launches and finite results;
+  * the adaptation stage (``adaptation_path``): the nine runs with a
+    discriminator (``DA_RUNS``: GRL pre-step, joint domain loss, ADDA),
+    12 SYN + 12 real full-width clips (origin 24), 2 warm-up and 2 timed
+    steps (state steps 2 and 3: ADDA's update_step 2 updates, then skips)
+    in the reference-parity form (no kernel) and the --perf form (K2's
+    train form and K3 exactly ``DA_PERF_LAUNCHES`` / ``DA_SKIP_LAUNCHES``
+    a step), with ms a step, finite loss and domain loss and peak device
+    memory (run d holds the 2.63 GB randomized map); runs a and h's float32
+    kernel step against the plain step; ``train --preset
+    baseline_adaptation --perf -s 96``, a resume at the stage boundary
+    (the discriminator fresh, the rest from epoch_0) and ``eval
+    --store-dir`` through the CLI's ``main``.
 
 One JSON line per phase; then the card's name and power limit as
 nvidia-smi gives them, the kernels line, and last ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero before the last line. Needs
 one CUDA device; imports no JAX. ``--profile-dir`` also writes the
 torch.profiler tables of one serving batch, one fused-stem batch, one
-train step and one step of each of ``PROFILED_PRESETS`` to
-``DIR/serve_profile.txt``, ``DIR/fused_stem_profile.txt``,
-``DIR/train_profile.txt`` and ``DIR/<preset>_<form>_profile.txt``.
+train step, one step of each of ``PROFILED_PRESETS`` and one of
+``DA_PROFILED`` to ``DIR/serve_profile.txt``,
+``DIR/fused_stem_profile.txt``, ``DIR/train_profile.txt``,
+``DIR/<preset>_<form>_profile.txt`` and ``DIR/da_<run>_<form>_profile.txt``.
 """
 from __future__ import annotations
 
@@ -1950,19 +1963,23 @@ N_FPN_BATCHES = 3
 
 
 def preset_setup(torch, dev, preset, perf, compute_dtype, use_kernels,
-                 batch_size):
+                 batch_size, adaptation=False):
     """(cfg, state, step, batch) of ``preset`` on ``dev`` in its
     reference-parity form (``perf=False``: float32, unfolded, stream by
     stream) or its --perf form in ``compute_dtype``; random weights from
     seed 0; a random full-width batch made on the card: ``batch_size`` SYN
     and real clips (origin: a combined real batch of twice that), strong
     and weak targets; origin's normalisation statistics are the real
-    batch's log-mel mean and std per bin."""
+    batch's log-mel mean and std per bin. ``adaptation``: in the
+    adaptation stage, with its discriminator."""
     from bsed_tpu_torch.config import get_config, perf_config
     from bsed_tpu_torch.ops.mel import amplitude_to_db
     from bsed_tpu_torch.train import steps
 
     cfg = get_config(preset)
+    if adaptation:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                    stage="adaptation"))
     if perf:
         cfg = perf_config(cfg)
         cfg = cfg.replace(model=dataclasses.replace(
@@ -2239,6 +2256,296 @@ def presets_path(torch, dev, card, profile_dir=None):
     return launches
 
 
+# --- the adaptation stage -------------------------------------------------
+
+# the nine runs: each DA mode and lineage bsed_tpu trains in the adaptation
+# stage (a-c are adaptation presets, d-i a pretrain preset's DA settings)
+DA_RUNS = {"a": "baseline_adaptation", "b": "scmt_ada_weak_separate_2crnn",
+           "c": "scmt_ada_weak_separate", "d": "pseudo_labeling",
+           "e": "sct_ada_weak", "f": "scmt_ada", "g": "scmt", "h": "origin",
+           "i": "scmt_ada_origin"}
+# K2's train form and K3 a --perf step that runs its DA update: the
+# pretrain step's (every run has a mean teacher: (6, 3); origin (18, 12))
+# plus a GRL pre-step's 2 forwards, each backpropagated (+6, +6: a, b, f),
+# or ADDA's 2 discriminator-step forwards with no encoder gradient and its
+# confusion forward with one (+9, +3: g, h, i); a joint domain loss reads
+# the main forwards (c, d, e: +0). ADDA with update_step 2 (g, h) skips
+# its update on odd steps: the pretrain step's count there.
+DA_PERF_LAUNCHES = {"a": (12, 9), "b": (12, 9), "c": (6, 3), "d": (6, 3),
+                    "e": (6, 3), "f": (12, 9), "g": (15, 6), "h": (27, 15),
+                    "i": (15, 6)}
+DA_SKIP_LAUNCHES = {"g": (6, 3), "h": (18, 12)}
+DA_PROFILED = ("a", True)         # (run, --perf form) profiled for one step
+N_DA_TIMED = 2                    # state steps 2 (ADDA update) and 3 (skip)
+DA_EVAL_LAUNCHES = (6, 0, 4)      # K2 (eval), K3, K4: 2 val batches of 12
+N_DA_FIT_STEPS = N_FIT_SYN // B_TRAIN
+
+
+def da_step_launches(run, step):
+    skip = run in DA_SKIP_LAUNCHES and step % 2
+    return DA_SKIP_LAUNCHES[run] if skip else DA_PERF_LAUNCHES[run]
+
+
+def da_steps(torch, dev, run, perf, profile_dir=None):
+    """2 warm-up and 2 timed steps (state steps 2 and 3: ADDA's
+    update_step 2 updates on 2, skips 3) of run ``run`` in its reference-parity
+    form (no kernel may launch) or its --perf form, bf16 (the exact
+    launches of ``da_step_launches``): ms a step, finite loss and
+    domain_loss, peak device memory from the setup on; ``DA_PROFILED``'s
+    step is profiled once more after them."""
+    from bsed_tpu_torch.ops import gru_kernel, stem_epilogue as se
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, state, step, batch = preset_setup(torch, dev, DA_RUNS[run], perf,
+                                           "bfloat16", True, B_TRAIN,
+                                           adaptation=True)
+    for _ in range(N_PRESET_WARMUP):
+        step(state, batch, 1, 30.0)
+    torch.cuda.synchronize()
+    first = state.step
+    counts = lambda: (se.stem_epilogue_fwd.launches,  # noqa: E731
+                      se.stem_epilogue_bwd.launches,
+                      gru_kernel.gru_bidir_recurrence.launches)
+    c0 = counts()
+    t0 = time.perf_counter()
+    history = [step(state, batch, 1, 30.0) for _ in range(N_DA_TIMED)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / N_DA_TIMED * 1e3
+    k2, k3, k4 = (b - a for a, b in zip(c0, counts()))
+    values = [{k: float(v) for k, v in m.items()} for m in history]
+    assert all(math.isfinite(v) for m in values for v in m.values()), \
+        (run, values)
+    form = "perf" if perf else "reference"
+    if perf:
+        want = tuple(sum(da_step_launches(run, s)[i] for s in
+                         range(first, first + N_DA_TIMED))
+                     for i in range(2))
+        assert (k2, k3, k4) == want + (0,), (run, (k2, k3, k4), want)
+    else:
+        assert (k2, k3, k4) == (0, 0, 0), (run, (k2, k3, k4))
+    out = {"run": run, "preset": DA_RUNS[run], "form": form,
+           "da_mode": cfg.da.mode, "level": cfg.da.level,
+           "discriminator": type(state.discriminator).__name__,
+           "ms_per_step": ms, "loss": [m["loss"] for m in values],
+           "domain_loss": [m["domain_loss"] for m in values],
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "batch_real": int(batch["real"].shape[0]),
+           "launches": {"stem_epilogue_train": k2, "stem_epilogue_bwd": k3,
+                        "gru_kernel": k4}}
+    if (run, perf) == DA_PROFILED:
+        profile(torch, lambda: step(state, batch, 1, 30.0), ms / 1e3,
+                profile_dir, "adaptation_profile", f"da_{run}_{form}_"
+                "profile.txt", da_run=run, preset=DA_RUNS[run], form=form)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def da_equality(torch, dev, run):
+    """The float32 --perf step of run ``run`` with the kernels against the
+    same step on their plain versions, 4 + 4 full-width clips (origin's
+    combined batch 8), dropout 0.5 with the same bits, cuDNN
+    deterministic: train_equality's gates (metrics 1e-4 relative, every
+    Adam first moment 3e-5, BatchNorm statistics 1e-5 + 1e-5 relative),
+    extended to the discriminator's and the encoder's aux optimizers'
+    moments and the discriminator's statistics, and the discriminator's
+    params at 1e-5 beyond the Adam step (2.2·lr) of an element whose
+    gradient is below 1e-6, which takes an arbitrary sign. Such an element
+    is each block's conv bias (it feeds a BatchNorm): the aux optimizer's
+    step moves it before the main forwards, whose batch mean takes it one
+    to one, so the encoder's running means get 0.99 · 2.2 · lr more where
+    the aux gradient of their conv bias is below 1e-6."""
+    import numpy as np
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for use_kernels in (True, False):
+            cfg, state, step, batch = preset_setup(
+                torch, dev, DA_RUNS[run], True, "float32", use_kernels, 4,
+                adaptation=True)
+            metrics = step(state, batch, 7, 30.0)
+            torch.cuda.synchronize()
+            out[use_kernels] = ({k: float(v) for k, v in metrics.items()},
+                                state_leaves(state))
+            del state, step, batch
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (mk, tk), (mp, tp) = out[True], out[False]
+    loss_rel = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mp)
+
+    def worst(prefix, rtol, allow=None):
+        errs = [float((np.abs(tk[p] - v) - rtol * np.abs(v)
+                       - (allow(p) if allow else 0.0)).max())
+                for p, v in tp.items() if p[:len(prefix)] == prefix]
+        return max(errs) if errs else 0.0
+    aux_lr = cfg.train.max_learning_rate * cfg.da.aux_lr_factor
+
+    def noise(mu):
+        if mu is None:                 # SGD: no sign-amplified step
+            return 0.0
+        return np.where(np.abs(mu / 0.1) < 1e-6, 2.2 * aux_lr, 0.0)
+
+    def disc_noise(path):
+        return noise(tp.get(("disc_opt_state", "mu") + path[1:]))
+
+    def mean_noise(path):
+        if path[-1] != "mean":
+            return 0.0
+        return 0.99 * noise(tp.get(("enc_opt_state", "mu", "cnn", path[3],
+                                    "conv", "bias")))
+    mu_err = max(worst(("mu",), 0.0), worst(("enc_opt_state", "mu"), 0.0),
+                 worst(("disc_opt_state", "mu"), 0.0))
+    stats_err = max(worst(("batch_stats",), 1e-5, mean_noise),
+                    worst(("ema_batch_stats",), 1e-5),
+                    worst(("disc_batch_stats",), 1e-5))
+    disc_err = worst(("disc_params",), 0.0, disc_noise)
+    assert mk.keys() == mp.keys() and "domain_loss" in mk
+    assert loss_rel <= 1e-4, (run, loss_rel)
+    assert mu_err <= 3e-5, (run, mu_err)
+    assert stats_err <= 1e-5, (run, stats_err)
+    assert disc_err <= 1e-5, (run, disc_err)
+    return {"run": run, "preset": DA_RUNS[run],
+            "metrics_max_rel_err": loss_rel, "adam_mu_max_abs_err": mu_err,
+            "bn_stats_max_err": stats_err,
+            "disc_params_max_err_beyond_allowance": disc_err,
+            "domain_loss_kernels": mk["domain_loss"],
+            "domain_loss_plain": mp["domain_loss"]}
+
+
+def da_cli_cycle(torch):
+    """``train --preset baseline_adaptation --perf -s 96 --epochs 1``,
+    then ``--resume --epochs 2`` on its store (a resume at the adaptation
+    stage's boundary, epoch 1: the discriminator, its statistics and its
+    optimizer keep the resumed Trainer's fresh init, the rest comes from
+    epoch_0), then ``eval --store-dir``, through the CLI's ``main``. Each
+    epoch 8 steps of 12 K2-train and 9 K3 launches, each evaluate 2 val
+    batches (K2 eval 3 and K4 2 a batch); results finite; the store's
+    evaluation equal to the best row."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from bsed_tpu_torch import cli
+    from bsed_tpu_torch.train.trainer import Trainer
+    from bsed_tpu_torch.utils.checkpoint import CheckpointManager
+
+    s_flag = ["-s", str(N_FIT_SYN)]
+    seen = {}
+    resume = Trainer.resume
+
+    def recorded_resume(trainer, epoch):
+        seen["fresh"] = state_leaves(trainer.state)
+        resume(trainer, epoch)
+        seen["resumed"] = state_leaves(trainer.state)
+        seen["epoch"] = epoch
+
+    per_epoch = tuple(n * N_DA_FIT_STEPS for n in DA_PERF_LAUNCHES["a"])
+    out, totals = {}, {"stem_epilogue_train": 0, "stem_epilogue_bwd": 0,
+                       "stem_epilogue": 0, "gru_kernel": 0}
+    rec = FitRecorder(torch)
+    Trainer.resume = recorded_resume
+    try:
+        with tempfile.TemporaryDirectory() as tmp, rec:
+            store = os.path.join(tmp, "adaptation")
+            runs = (("A", ["train", "--preset", "baseline_adaptation",
+                           "--perf", *s_flag, "--epochs", "1",
+                           "--store-dir", store]),
+                    ("B", ["train", "--store-dir", store, "--resume",
+                           *s_flag, "--epochs", "2"]),
+                    ("D", ["eval", "--store-dir", store, *s_flag]))
+            for name, argv in runs:
+                rec.run = name
+                c0 = _launch_counts()
+                t0 = time.perf_counter()
+                result = cli.main(argv)
+                torch.cuda.synchronize()
+                k2, k3, k4 = (b - a for a, b in zip(c0, _launch_counts()))
+                out[name] = {"argv": argv,
+                             "seconds": time.perf_counter() - t0}
+                if name == "A":
+                    epoch0 = state_leaves(
+                        CheckpointManager(store).load("epoch_0"))
+                if name == "D":
+                    scores = result
+                    assert (k2, k3, k4) == DA_EVAL_LAUNCHES, (k2, k3, k4)
+                    totals["stem_epilogue"] += k2
+                    totals["gru_kernel"] += k4
+                for c in rec.of(name, "train_epoch"):
+                    assert (c["k2"], c["k3"], c["k4"]) == per_epoch + (0,), c
+                    totals["stem_epilogue_train"] += c["k2"]
+                    totals["stem_epilogue_bwd"] += c["k3"]
+                for c in rec.of(name, "evaluate"):
+                    assert (c["k2"], c["k3"], c["k4"]) == DA_EVAL_LAUNCHES, c
+                    totals["stem_epilogue"] += c["k2"]
+                    totals["gru_kernel"] += c["k4"]
+            rows = read_results(os.path.join(store, "results.tsv"))
+    finally:
+        Trainer.resume = resume
+    assert seen["epoch"] == 1, seen.get("epoch")
+    fresh, resumed = seen["fresh"], seen["resumed"]
+    disc_keys = ("disc_params", "disc_batch_stats", "disc_opt_state")
+    for path, v in resumed.items():
+        want = fresh[path] if path[0] in disc_keys else epoch0[path]
+        assert np.array_equal(v, want), path
+    changed = sum(not np.array_equal(epoch0[p], fresh[p])
+                  for p in fresh if p[0] == "disc_params")
+    assert changed > 0, "epoch_0's discriminator equals a fresh one"
+    assert [r["epoch"] for r in rows] == [1], rows
+    assert all(math.isfinite(v) for r in rows for v in r.values()), rows
+    assert "domain_loss" in rows[0]
+    err = max(abs(scores["event_f1"] - rows[0]["val_event_f1"]),
+              abs(scores["psds_f1"] - rows[0]["val_psds_f1"]))
+    assert err <= 1e-6, f"eval --store-dir differs from the best row by {err}"
+    out.update(resumed_at_epoch=1, disc_fresh_after_resume=True,
+               encoder_from_epoch_0=True, eval_vs_best_row=err,
+               domain_loss=rows[0]["domain_loss"], loss=rows[0]["loss"],
+               launches_epoch=per_epoch, launches_evaluate=DA_EVAL_LAUNCHES,
+               epoch_train_s=[c["s"] for c in rec.calls
+                              if c["kind"] == "train_epoch"])
+    return out, totals
+
+
+def adaptation_path(torch, dev, card, profile_dir=None):
+    """The adaptation stage on the card: the nine runs in the reference
+    form (no kernel) and the --perf form (exact K2-train / K3 launches),
+    runs a and h's float32 kernel step against the plain step, and the
+    CLI's train / resume at the stage boundary / eval cycle. Returns the
+    launches of the phase's driven runs (the timed --perf steps and the
+    CLI cycle; not the comparisons') by kernel entry."""
+    t_phase = time.perf_counter()
+    reference = [da_steps(torch, dev, r, False, profile_dir)
+                 for r in DA_RUNS]
+    perf = [da_steps(torch, dev, r, True, profile_dir) for r in DA_RUNS]
+    equality = [da_equality(torch, dev, r) for r in ("a", "h")]
+    torch.cuda.empty_cache()
+    cli_cycle, cli_launches = da_cli_cycle(torch)
+    launches = dict(cli_launches)
+    for key in ("stem_epilogue_train", "stem_epilogue_bwd"):
+        launches[key] += sum(r["launches"][key] for r in perf)
+    emit(phase="adaptation_path", batch_syn=B_TRAIN, batch_real=B_TRAIN,
+         batch_real_origin=2 * B_TRAIN, epoch=30.0,
+         warmup_steps=N_PRESET_WARMUP, timed_steps=N_DA_TIMED,
+         timed_state_steps=[N_PRESET_WARMUP + i
+                            for i in range(N_DA_TIMED)],
+         perf_compute_dtype="bfloat16", reference_form=reference,
+         perf_form=perf,
+         perf_launches_per_update_step={
+             r: {"stem_epilogue_train": a, "stem_epilogue_bwd": b}
+             for r, (a, b) in DA_PERF_LAUNCHES.items()},
+         perf_launches_per_skipped_step={
+             r: {"stem_epilogue_train": a, "stem_epilogue_bwd": b}
+             for r, (a, b) in DA_SKIP_LAUNCHES.items()},
+         f32_kernels_vs_plain=equality,
+         equality_gates={"metrics": 1e-4, "mu": 3e-5, "bn_stats": 1e-5,
+                         "disc_params": 1e-5},
+         cli=cli_cycle, launches=launches,
+         seconds=time.perf_counter() - t_phase, card=card)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-dir", default=None,
@@ -2303,6 +2610,8 @@ def main() -> int:
     k2pg, k3pg = check_stem_epilogue_pg(torch, dev)
     torch.cuda.empty_cache()
     preset_launches = presets_path(torch, dev, smi, args.profile_dir)
+    torch.cuda.empty_cache()
+    da_launches = adaptation_path(torch, dev, smi, args.profile_dir)
 
     for k in (k1, k2, k2t, k3):
         k["launches"] = launches[k["name"]]
@@ -2312,6 +2621,8 @@ def main() -> int:
         k["launches_trainer_path"] = fit_launches[k["name"]]
     for k in (k2, k2t, k3, k4):  # presets_path's driven runs
         k["launches_presets_path"] = preset_launches[k["name"]]
+    for k in (k2, k2t, k3, k4):  # adaptation_path's driven runs
+        k["launches_adaptation_path"] = da_launches[k["name"]]
     kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -725,12 +725,14 @@ def test_epoch_runner_matches_loop_on_card(dev, tmp_path,
 PRESET_LAUNCHES = {"origin": (18, 12), "scmt": (6, 3)}
 
 
-def _preset_step_on_card(dev, preset, use_kernels):
+def _preset_step_on_card(dev, preset, use_kernels, stage="pretrain"):
     from bsed_tpu_torch.config import perf_config
     from bsed_tpu_torch.train import steps
     from bsed_tpu_torch.utils.weights import export_train_state
 
-    cfg = perf_config(get_config(preset))
+    cfg = get_config(preset)
+    cfg = perf_config(cfg.replace(train=dataclasses.replace(cfg.train,
+                                                            stage=stage)))
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                 compute_dtype="float32"))
     ns = None
@@ -844,3 +846,105 @@ def test_cnn_fpn_tied_block_stats_card_equals_cpu(dev):
     for name, want in new["cpu"].items():
         torch.testing.assert_close(new[str(dev)][name], want, rtol=1e-4,
                                    atol=1e-5, msg=name)
+
+
+# --- the adaptation stage -------------------------------------------------
+
+# K2's train form and K3 in one float32 --perf step at state step 0:
+# baseline_adaptation (run a) adds its GRL pre-step's 2 backpropagated
+# forwards to baseline_mt_isp's (6, 3); origin (run h) its ADDA update's 2
+# discriminator-step forwards (no encoder gradient) and confusion forward
+# to its (18, 12)
+DA_LAUNCHES = {"baseline_adaptation": (12, 9), "origin": (27, 15)}
+
+
+@pytest.mark.parametrize("preset", sorted(DA_LAUNCHES))
+def test_da_f32_step_kernels_match_plain(dev, preset, deterministic_cudnn):
+    """The adaptation stage's float32 --perf step, a GRL pre-step run (a)
+    and an ADDA run (h), with the kernels against the same step on their
+    plain versions at full width: chip_smoke's da_equality gates (metrics
+    with domain_loss 1e-4 relative; every Adam first moment, the aux
+    optimizers' included, 3e-5; BatchNorm statistics 1e-5 + 1e-5
+    relative); K2 and K3 launch the run's count, their plain versions
+    none. A conv bias feeds each block's BatchNorm, so its gradient is
+    noise and the aux optimizer's Adam step (ADDA's confusion step) moves
+    it by up to lr with an arbitrary sign before the main forwards, whose
+    batch mean takes it one to one: where that gradient is below 1e-6 the
+    running mean gets 0.99 · 2.2 · lr more (origin on an H100: 4.3e-5 on
+    block 3's means)."""
+    mk, tk, launched = _preset_step_on_card(dev, preset, True, "adaptation")
+    mp, tp, plain_launched = _preset_step_on_card(dev, preset, False,
+                                                  "adaptation")
+    assert launched == DA_LAUNCHES[preset]
+    assert plain_launched == (0, 0)
+    assert mk.keys() == mp.keys() and "domain_loss" in mk
+    for k, v in mp.items():
+        assert np.isfinite(mk[k]) and abs(mk[k] - v) <= 1e-4 * abs(v), k
+
+    def leaves(tree, prefix=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, prefix + (k,))
+        else:
+            yield prefix, np.asarray(tree)
+    keys = ("mu", "batch_stats", "ema_batch_stats", "enc_opt_state",
+            "disc_opt_state", "disc_batch_stats")
+    a = dict(leaves({k: tk[k] for k in keys}))
+    enc_mu = dict(leaves(tp["enc_opt_state"]["mu"]))
+    aux_lr = get_config(preset).train.max_learning_rate
+    for path, v in leaves({k: tp[k] for k in keys}):
+        moment = path[0] == "mu" or path[1:2] == ("mu",)
+        if path[0].endswith("opt_state") and not moment:
+            continue                    # nu and count: held through mu
+        bound = (3e-5 if moment else 1e-5 + 1e-5 * np.abs(v))
+        if path[0] == "batch_stats" and path[-1] == "mean":
+            g = enc_mu[("cnn", path[3], "conv", "bias")] / 0.1
+            bound = bound + np.where(np.abs(g) < 1e-6,
+                                     0.99 * 2.2 * aux_lr, 0.0)
+        delta = np.abs(a[path] - v)
+        assert (delta <= bound).all(), (path, float(delta.max()))
+
+
+@pytest.mark.parametrize("preset", ["pseudo_labeling", "sct_ada_weak"])
+def test_da_full_width_discriminators_on_card(dev, preset):
+    """Frame CDAN's randomized map (R_f (80128, 8192), R_g (20, 8192),
+    2.63 GB) and DANN's discriminator (dense_d_1 over 80128 features) are
+    drawn and allocated on the card at full width, and a reference-form
+    step of 2 + 2 clips trains through them: finite loss and domain loss,
+    the discriminator's first layer moved."""
+    from bsed_tpu_torch.train import steps
+
+    cfg = get_config(preset)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                stage="adaptation"))
+    modules = steps.build_modules(cfg, device=dev)
+    feat = 2 * cfg.model.n_rnn_cell * cfg.n_frames
+    assert feat == 80128
+    if cfg.da.mode == "cdan":
+        rf, rg = modules.rand_maps
+        assert rf.shape == (feat, 8192) and rg.shape == (cfg.nclass, 8192)
+        assert rf.device.type == "cuda" and rf.dtype == torch.float32
+    else:
+        assert modules.rand_maps is None
+    state = steps.create_train_state(cfg, modules, 0)
+    first = state.discriminator.dense_d_1
+    assert first.weight.device.type == "cuda"
+    assert first.in_features == (8192 if cfg.da.mode == "cdan" else feat)
+    before = first.weight.detach().clone()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t_in, f = cfg.audio.max_frames, cfg.audio.n_mels
+    strong = (torch.rand((2, cfg.n_frames, cfg.nclass), generator=gen,
+                         device=dev) > 0.9).float()
+    batch = {"syn": torch.randn((2, t_in, f), generator=gen,
+                                device=dev).abs(),
+             "syn_strong": strong,
+             "real": torch.randn((2, t_in, f), generator=gen,
+                                 device=dev).abs(),
+             "real_strong": strong.flip(0)}
+    batch["real_weak"] = batch["real_strong"].amax(dim=1)
+    metrics = steps.make_train_step(modules, steps_per_epoch=8)(
+        state, batch, 1, 30.0)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(metrics["domain_loss"]))
+    assert not torch.equal(first.weight.detach(), before)

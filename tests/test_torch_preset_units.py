@@ -2,8 +2,9 @@
 on identical inputs: the ramps, ``entropy``, ICT ``mixup`` (an injected
 draw, and the draws themselves), ``time_interp_matrix``,
 ``SmallChannelConv3x3``, SGD against optax over 3 steps, the SGD
-checkpoint round trip and resume, and which configurations
-``build_modules`` accepts and refuses.
+checkpoint round trip and resume, which configurations
+``build_modules`` accepts and refuses, and the forward order of every
+lineage, the nine adaptation-stage runs included.
 
 It also holds what the one-step preset tests share
 (``tests/test_torch_presets_*.py``): the small configuration (2 s clips at
@@ -13,7 +14,11 @@ JAX step per case and the gates of ``tests/test_torch_train_step.py``:
 metrics rel 1e-4; the gradient through the optimizer's first slot (Adam:
 mu/0.1; SGD: the momentum trace after one step, g + wd·p) at atol 3e-4 /
 rtol 1e-4; params and EMA params 1e-5 with its Adam-noise allowance (1.1·lr
-where |g| < 1e-6); BatchNorm statistics 1e-5 + 1e-4 relative."""
+where |g| < 1e-6); BatchNorm statistics 1e-5 + 1e-4 relative. The
+adaptation-stage runs (``RUNS``, ``run_cfg``: the discriminator's dropout
+0, clips of 13 s where a clip discriminator needs ≥ 63 frames) add the
+replayed ADDA half-batch draws and the discriminator's and aux optimizers'
+gates (``tests/test_torch_da_units.py``)."""
 import argparse
 import contextlib
 import dataclasses
@@ -75,6 +80,30 @@ def _small(cfg, audio_cls, folded=False, fused=False, narrow=True):
                                   rnn_unroll=1,
                                   **(NARROW if narrow else {})),
         train=dataclasses.replace(cfg.train, fused_streams=fused))
+
+
+# the nine adaptation-stage runs: each DA mode and lineage bsed_tpu trains
+RUNS = {"a": "baseline_adaptation", "b": "scmt_ada_weak_separate_2crnn",
+        "c": "scmt_ada_weak_separate", "d": "pseudo_labeling",
+        "e": "sct_ada_weak", "f": "scmt_ada", "g": "scmt", "h": "origin",
+        "i": "scmt_ada_origin"}
+CLIP_SECONDS = 13.0       # 260 input frames → 65 ≥ 63 output frames
+
+
+def run_cfg(get, audio_cls, run, folded=False, fused=False):
+    """Run ``run``'s preset in the adaptation stage, in ``_small``'s
+    configuration with the discriminator's dropout 0; a clip
+    discriminator's five stride-2 VALID convs need ≥ 63 frames (the JAX
+    one returns nan below that), so those runs take 13 s clips."""
+    cfg = get(RUNS[run])
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                stage="adaptation"),
+                      da=dataclasses.replace(cfg.da, disc_dropout=0.0))
+    cfg = _small(cfg, audio_cls, folded, fused)
+    if cfg.da.level == "clip" and cfg.da.mode in ("cdan", "adda"):
+        cfg = cfg.replace(audio=dataclasses.replace(
+            cfg.audio, max_len_seconds=CLIP_SECONDS))
+    return cfg
 
 
 def _n_real(cfg):
@@ -441,6 +470,16 @@ def test_build_modules_accepts_pretrain_presets(preset, perf):
     ("baseline_adaptation", "8b"), ("scmt_ada_weak_separate", "8b"),
     ("crnn_head", "8c"), ("recurrent_dropout", "8c")])
 def test_build_modules_refuses_naming_its_item(case, item):
+    """What ``build_modules`` still refuses names its ROADMAP item (8c);
+    item 8b's adaptation presets, refused until their port, are now
+    accepted with their discriminator."""
+    if item == "8b":
+        cfg = get_config(case)
+        assert cfg.train.stage == "adaptation" and cfg.da.mode != "none"
+        modules = steps.build_modules(cfg, device="cpu")
+        assert modules.cfg is cfg
+        assert modules.make_discriminator() is not None
+        return
     if case == "crnn_head":
         cfg = get_config("baseline_mt")
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
@@ -449,8 +488,6 @@ def test_build_modules_refuses_naming_its_item(case, item):
         cfg = get_config("baseline_mt_isp")
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     dropout_recurrent=0.2))
-    else:
-        cfg = get_config(case)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         steps.build_modules(cfg, device="cpu")
 
@@ -492,14 +529,45 @@ FORWARD_ORDER = {
     "origin": (["real", "real_unlabelled"],
                ["real", "real_shift", "real_freq", "mixup 2 rows",
                 "mixup 2 rows", "mixup 4 rows"]),
+    # the adaptation stage (key "<run>-<preset>", RUNS): the GRL pre-step's
+    # syn then real forwards, or ADDA's real then syn (discriminator step)
+    # then its confusion forward, precede the main step's; a joint domain
+    # loss reads the main forwards (steps.py:438-443, 516-593, 661-668)
+    "a-baseline_adaptation": (
+        ["real", "real_shift", "real_freq"],
+        ["syn", "real", "syn", "real", "real_shift", "real_freq",
+         "syn_shift", "syn_freq"]),
+    "b-scmt_ada_weak_separate_2crnn": (["real"],
+                                       ["syn", "real", "syn", "real"]),
+    "c-scmt_ada_weak_separate": (["real"], ["syn", "real"]),
+    "d-pseudo_labeling": (["real"], ["syn", "real"]),
+    "e-sct_ada_weak": (["real", "real_shift", "real_freq"],
+                       ["syn", "real", "real_freq", "real_shift",
+                        "syn_shift", "syn_freq"]),
+    "f-scmt_ada": (["real"], ["syn", "real", "syn", "real"]),
+    "g-scmt": (["real", "real_shift", "real_freq"],
+               ["real", "syn", "real", "syn", "real", "syn_shift",
+                "syn_freq"]),
+    "h-origin": (["real", "real_unlabelled"],
+                 ["real", "syn", "real", "real", "real_shift", "real_freq",
+                  "mixup 2 rows", "mixup 2 rows", "mixup 4 rows"]),
+    "i-scmt_ada_origin": (["real", "real_shift", "real_freq"],
+                          ["real", "syn", "syn", "syn", "real", "syn_shift",
+                           "syn_freq"]),
 }
+
+
+def _order_cfg(key):
+    if "-" in key:
+        return run_cfg(get_config, AudioConfig, key.split("-")[0])
+    return _small(get_config(key), AudioConfig)
 
 
 @pytest.mark.parametrize("preset", sorted(FORWARD_ORDER))
 def test_forward_order_matches_bsed_tpu(preset, monkeypatch):
     """Which stream each forward of one step takes, in order, told apart
     by its input (the replayed shifts make every stream distinct)."""
-    cfg = _small(get_config(preset), AudioConfig)
+    cfg = _order_cfg(preset)
     ns = _norm_stats(cfg) if cfg.train.normalize else None
     modules = steps.build_modules(cfg, device="cpu", norm_stats=ns)
     state = steps.create_train_state(cfg, modules, 0)

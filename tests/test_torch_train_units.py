@@ -175,20 +175,26 @@ def test_perf_config_is_the_cli_perf_flag():
 
 
 def test_unsupported_step_options_raise():
-    """What the train step still refuses, naming its ROADMAP item: domain
-    adaptation in the adaptation stage (8b), the 'crnn' head and recurrent
-    dropout (8c)."""
+    """What the train step still refuses: the 'crnn' head and recurrent
+    dropout, naming their ROADMAP item (8c), and origin's masked batch
+    with a joint GRL domain loss (DANN here), with bsed_tpu's ValueError
+    (steps.py:377-386)."""
     cfg = perf_config(get_config("baseline_mt_isp"))
     bad_cfgs = [
-        cfg.replace(train=dataclasses.replace(cfg.train, stage="adaptation"),
-                    da=dataclasses.replace(cfg.da, mode="dann")),
         cfg.replace(model=dataclasses.replace(cfg.model,
                                               predictor_head="crnn")),
         cfg.replace(model=dataclasses.replace(cfg.model,
                                               dropout_recurrent=0.1))]
     for bad in bad_cfgs:
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 8c"):
             steps.build_modules(bad, device="cpu")
+    origin = get_config("origin")
+    joint_dann = origin.replace(
+        train=dataclasses.replace(origin.train, stage="adaptation"),
+        da=dataclasses.replace(origin.da, mode="dann", joint_backward=True))
+    with pytest.raises(ValueError, match="isp_flavor='origin' is "
+                                         "incompatible with da.joint"):
+        steps.build_modules(joint_dann, device="cpu")
 
 
 # --- the train-form folded stem against make_folded_encoder_fwd ----------

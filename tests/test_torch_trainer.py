@@ -440,13 +440,16 @@ def test_nan_guard_names_step_range(tmp_path, bad):
 
 
 def test_unsupported_preset_is_refused(tmp_path):
-    """Configurations the train step cannot run yet fail in build_modules
-    with their ROADMAP item, before anything is built."""
-    cfg = get_config("baseline_adaptation")
+    """Configurations the train step cannot run yet (the 'crnn' head)
+    fail in build_modules with their ROADMAP item, before anything is
+    built."""
+    cfg = get_config("baseline_mt_isp")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                predictor_head="crnn"))
     syn, weak, unlab, _ = _sources(SyntheticDataSource, cfg, 2 * BS)
     loader = ThreeStreamLoader(syn, weak, unlab, batch_size=BS,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8c"):
         trainer_mod.Trainer(cfg, loader, store_dir=str(tmp_path),
                             device="cpu")
 
