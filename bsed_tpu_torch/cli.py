@@ -6,13 +6,22 @@ with its eleven subcommands and their flags.
     python -m bsed_tpu_torch.cli eval --store-dir stored_data/<name> [--psds-sweep]
     python -m bsed_tpu_torch.cli export --store-dir ... --out model.pt
     python -m bsed_tpu_torch.cli features --store-dir ... --out-dir feats/
+    python -m bsed_tpu_torch.cli predict --torch-checkpoint model.pt \
+        --audio field_recording.wav --out-tsv events.tsv
+    python -m bsed_tpu_torch.cli preprocess --dataset-root dataset/ENA
+    python -m bsed_tpu_torch.cli synthesize --co-occur co.json --out gen/
+    python -m bsed_tpu_torch.cli analyze --annotation-dir ... --out-dir ...
+    python -m bsed_tpu_torch.cli visualize --syn-features ... \
+        --real-features ... --out-dir ...
 
-``train``, ``eval``, ``export`` and ``features`` run on the card unless
-``--device cpu`` asks for the CPU; without ``--data-root`` they run on
-deterministic synthetic fixtures. The other seven (``predict``,
-``tag-train``, ``pseudo-label``, ``visualize``, ``preprocess``,
-``synthesize``, ``analyze``) exit non-zero naming the ROADMAP item that
-ports them. Flags mirror the reference argparse surface
+``train``, ``eval``, ``export``, ``features``, ``predict``,
+``preprocess`` and ``synthesize`` run on the card unless ``--device cpu``
+asks for the CPU; without ``--data-root`` the first four run on
+deterministic synthetic fixtures. ``analyze`` and ``visualize`` are host
+tools (``visualize`` needs scikit-learn; it draws its plot with
+matplotlib where that is installed). ``tag-train`` and ``pseudo-label``
+exit non-zero naming the ROADMAP item that ports them. Flags mirror the
+reference argparse surface
 (main_baseline.py:609-632): ``-fpn``/``--use-fpn``, ``-mt``/
 ``--meanteacher``, ``-ISP``, ``-stage``, ``-level``, ``-s/--subpart-data``.
 """
@@ -21,13 +30,13 @@ from __future__ import annotations
 import argparse
 import csv
 import dataclasses
+import json
 import os
 import sys
+import time
 
 # ROADMAP.md items that port the subcommands not ported yet
-_NOT_PORTED = {"predict": "10", "tag-train": "8b", "pseudo-label": "8b",
-               "visualize": "10", "preprocess": "10", "synthesize": "10",
-               "analyze": "10"}
+_NOT_PORTED = {"tag-train": "8b", "pseudo-label": "8b"}
 
 
 def _resolve_config(args, allow_store: bool = True):
@@ -303,6 +312,83 @@ def cmd_features(args):
     return paths
 
 
+def cmd_visualize(args):
+    """t-SNE + SVM domain-separability probes over two embedding dumps
+    (visualize.py:22-121); needs scikit-learn."""
+    import importlib.util
+
+    import numpy as np
+
+    from bsed_tpu_torch.eval.features import load_feature_dir
+    from bsed_tpu_torch.eval.visualize import (svm_domain_accuracy,
+                                               tsne_domain_audit)
+
+    if importlib.util.find_spec("sklearn") is None:
+        sys.exit("error: `visualize` needs scikit-learn (the sklearn "
+                 "package), which is not installed here")
+    syn_emb = load_feature_dir(args.syn_features)
+    real_emb = load_feature_dir(args.real_features)
+    os.makedirs(args.out_dir, exist_ok=True)
+    pts, labels, sil = tsne_domain_audit(
+        syn_emb, real_emb,
+        plot_path=os.path.join(args.out_dir, "tsne.png"))
+    np.save(os.path.join(args.out_dir, "tsne_points.npy"), pts)
+    np.save(os.path.join(args.out_dir, "tsne_domains.npy"), labels)
+    acc = svm_domain_accuracy(syn_emb, real_emb)
+    result = {"silhouette": round(sil, 4),
+              "svm_domain_accuracy": round(acc, 4), "out_dir": args.out_dir}
+    print(result)
+    return result
+
+
+def cmd_preprocess(args):
+    """ENA recordings → per-clip mel dumps on ``--device``, then the
+    seeded split (``data/preprocess.py``)."""
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.data.preprocess import (data_split,
+                                                ena_data_preprocess)
+
+    cfg = get_config(args.preset)
+    names = ena_data_preprocess(args.dataset_root, cfg, device=args.device)
+    if not args.no_split:
+        data_split(args.dataset_root, cfg)
+    return names
+
+
+def cmd_synthesize(args):
+    """Synthetic soundscapes from a co-occurrence JSON, and with
+    ``--features-out`` their mel dumps on ``--device``."""
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.data.synthesizer import (generate_dataset,
+                                                 syn_preprocess)
+
+    cfg = get_config(args.preset)
+    table = generate_dataset(args.out, args.co_occur, args.n_soundscapes,
+                             cfg, fg_dir=args.fg_dir, bg_dir=args.bg_dir,
+                             seed=args.seed)
+    if args.features_out:
+        syn_preprocess(args.out, args.features_out, cfg, device=args.device)
+    return table
+
+
+def cmd_analyze(args):
+    """Co-occurrence and duration statistics of a preprocess dir's
+    annotations (host only)."""
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.data.analysis import (collect_annotations,
+                                              cooccurrence_matrix,
+                                              duration_stats)
+
+    cfg = get_config(args.preset)
+    events = collect_annotations(args.annotation_dir, cfg.bird_list)
+    os.makedirs(args.out_dir, exist_ok=True)
+    cooccurrence_matrix(events, cfg.bird_list,
+                        os.path.join(args.out_dir, "occurence_analysis.csv"))
+    return duration_stats(events, cfg.bird_list,
+                          os.path.join(args.out_dir,
+                                       "dataset_time_analysis.csv"))
+
+
 def cmd_export(args):
     """Export a trained checkpoint as a reference-format torch pickle so the
     reference's own tooling (TestModel.py) can evaluate/resume it — the
@@ -315,6 +401,37 @@ def cmd_export(args):
                                    epoch=args.epoch)
     print(f"wrote reference-format checkpoint -> {path}")
     return path
+
+
+def cmd_predict(args):
+    """Raw-audio sound-event inference: WAV/npy → decoded event TSV
+    (``predict.predict_recordings``), on ``--device``. Prints
+    ``bsed_tpu``'s line, then a JSON line with the seconds by part, the
+    recordings' length, the batch of each forward call, and the TF32
+    settings the call ran under."""
+    from bsed_tpu_torch.predict import predict_recordings, write_event_tsv
+
+    cfg = _apply_flags(_resolve_config(args), args)
+    _modules, params, stats = _load_eval_params(cfg, args)
+    t0 = time.perf_counter()
+    out = predict_recordings(
+        cfg, params, stats, args.audio, device=args.device,
+        precision=args.precision, threshold=args.threshold,
+        learned_post=args.learned_post, hop_seconds=args.hop_seconds,
+        batch_size=args.batch_size)
+    t1 = time.perf_counter()
+    write_event_tsv(out["rows"], args.out_tsv)
+    out["seconds"]["write"] = time.perf_counter() - t1
+    out["seconds"]["total"] = time.perf_counter() - t0
+    print(f"{len(out['rows'])} events from {len(args.audio)} recording(s) "
+          f"-> {args.out_tsv}")
+    print(json.dumps({
+        "events": len(out["rows"]), "recordings": len(args.audio),
+        "audio_seconds": out["audio_seconds"], "seconds": out["seconds"],
+        "batches": out["batches"],
+        "precision": args.precision, "tf32": out["tf32"],
+        "device": args.device}), flush=True)
+    return out
 
 
 def cmd_not_ported(args):
@@ -419,7 +536,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch-size", type=int, default=32)
     sp.add_argument("--precision", default="high",
                     choices=["highest", "high", "fast"])
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_predict)
 
     sp = sub.add_parser("tag-train",
                         help="train the weak audio tagger (cycle step 1)")
@@ -457,13 +574,19 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--syn-features", required=True)
     sp.add_argument("--real-features", required=True)
     sp.add_argument("--out-dir", required=True)
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_visualize)
+
+    def device(sp):
+        sp.add_argument("--device", default="cuda",
+                        help="torch device of the mel front end (default: "
+                             "the card)")
 
     sp = sub.add_parser("preprocess")
     sp.add_argument("--preset", default="baseline")
     sp.add_argument("--dataset-root", required=True)
     sp.add_argument("--no-split", action="store_true")
-    sp.set_defaults(fn=cmd_not_ported)
+    device(sp)
+    sp.set_defaults(fn=cmd_preprocess)
 
     sp = sub.add_parser("synthesize")
     sp.add_argument("--preset", default="baseline")
@@ -474,13 +597,14 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--bg-dir", default=None)
     sp.add_argument("--features-out", default=None)
     sp.add_argument("--seed", type=int, default=2023)
-    sp.set_defaults(fn=cmd_not_ported)
+    device(sp)
+    sp.set_defaults(fn=cmd_synthesize)
 
     sp = sub.add_parser("analyze")
     sp.add_argument("--preset", default="baseline")
     sp.add_argument("--annotation-dir", required=True)
     sp.add_argument("--out-dir", required=True)
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_analyze)
 
     return p
 

@@ -6,6 +6,10 @@ norm=None, ``amplitude_to_db`` with a per-clip top_db clamp). Three
 algorithms compute the same linear mel:
 
   * ``dense``        — frames @ (cos, −sin) DFT bases, |·|, @ filterbank;
+  * ``factored``     — the same DFT in two Cooley–Tukey stages
+                       (``factored_dft_bases``: N = N1·N2, small matmuls
+                       and a twiddle), kept as an exactness-tested
+                       reference as in the JAX package;
   * ``block``        — the overlap-reusing block STFT (``block_dft_bases``):
                        each hop block is transformed once and an 8-tap
                        stencil recombines frames;
@@ -14,10 +18,14 @@ algorithms compute the same linear mel:
                        banded mel on the H100), the counterpart of the JAX
                        package's ``block_pallas``.
 
-Every path computes in float32 (TF32 is the caller's to switch off on the
-card). The JAX package's precision tiers ('highest', 'high', 'fast') set
-its MXU pass count; here they only gate, in ``serve.make_fast_forward``,
-whether the kernel may run.
+Every path computes in float32; whether the card's matmuls round to TF32
+is the caller's to set (``utils/device.float32_precision``, which the
+CLI's ``predict``, ``preprocess`` and ``synthesize`` hold for the length
+of their call). The JAX package's precision tiers ('highest', 'high',
+'fast') set its MXU pass count; here they gate, in
+``serve.make_fast_forward``, whether the kernel may run, and set TF32
+through ``float32_precision``. ``mel_spectrogram`` is the FFT reference
+(``torch.fft.rfft``) for cross-checking the DFT paths.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ from bsed_tpu_torch.utils.device import resolve_device
 _AMIN_POWER = 1e-10   # amplitude_to_db: amin=1e-5 on amplitude → 1e-10 on power
 _TOP_DB = 80.0
 PRECISIONS = ("highest", "high", "fast")
-ALGORITHMS = ("dense", "block", "block_kernel")
+ALGORITHMS = ("dense", "factored", "block", "block_kernel")
 
 
 def hamming_window(n: int, dtype=np.float32) -> np.ndarray:
@@ -54,6 +62,58 @@ def dft_basis(n_window: int, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
     k = np.arange(n_window)[:, None] * np.arange(n_freqs)[None, :]
     ang = 2.0 * np.pi * k / n_window
     return np.cos(ang).astype(dtype), (-np.sin(ang)).astype(dtype)
+
+
+def factored_dft_bases(n_window: int, n1: int, dtype=np.float32):
+    """Two-stage Cooley–Tukey factorization of the length-N real DFT,
+    N = N1·N2, as three small constant tensors (built in float64 on host):
+
+      inner  W2[n2, k2] = exp(−2πi·n2·k2/N2)      — (N2, N2) complex
+      twiddle T[k2, n1] = exp(−2πi·n1·k2/N)        — (N2, N1) complex
+      outer  W1[n1, k1] = exp(−2πi·n1·k1/N1)       — (N1, N1) complex
+
+    With frames reshaped (…, N2, N1) (row-major: element [n2, n1] =
+    x[N1·n2 + n1]), X[N2·k1 + k2] = Σ_{n1} W1[n1,k1]·T[k2,n1]·
+    Σ_{n2} x[N1·n2+n1]·W2[n2,k2]. MAC count per frame drops from the dense
+    2·N·(N/2+1) to 2N(N2+2N1).
+
+    Returns ((w2_re, w2_im), (t_re, t_im), (w1_re, w1_im)) as dtype arrays.
+    """
+    assert n_window % n1 == 0
+    n2 = n_window // n1
+    a2 = 2.0 * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2
+    at = 2.0 * np.pi * np.outer(np.arange(n2), np.arange(n1)) / n_window
+    a1 = 2.0 * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1
+    return ((np.cos(a2).astype(dtype), (-np.sin(a2)).astype(dtype)),
+            (np.cos(at).astype(dtype), (-np.sin(at)).astype(dtype)),
+            (np.cos(a1).astype(dtype), (-np.sin(a1)).astype(dtype)))
+
+
+def factored_dft_magnitude(frames: torch.Tensor, bases, n1: int,
+                           n_freqs: int) -> torch.Tensor:
+    """|DFT| of windowed real frames (…, N) via the two-stage factorization
+    (see factored_dft_bases), bases as tensors. Returns (…, n_freqs)."""
+    (w2_re, w2_im), (t_re, t_im), (w1_re, w1_im) = bases
+    n = frames.shape[-1]
+    n2 = n // n1
+    x = frames.reshape(frames.shape[:-1] + (n2, n1))     # [n2, n1]
+    # stage 1: length-N2 DFT over the stride-N1 subsequences (real input)
+    i_re = torch.einsum("...qp,qk->...kp", x, w2_re)
+    i_im = torch.einsum("...qp,qk->...kp", x, w2_im)
+    # stage 2: twiddle (elementwise complex over [k2, n1])
+    y_re = i_re * t_re - i_im * t_im
+    y_im = i_re * t_im + i_im * t_re
+    # stage 3: length-N1 DFT over n1 (complex × complex)
+    x_re = (torch.einsum("...kp,pl->...kl", y_re, w1_re)
+            - torch.einsum("...kp,pl->...kl", y_im, w1_im))
+    x_im = (torch.einsum("...kp,pl->...kl", y_re, w1_im)
+            + torch.einsum("...kp,pl->...kl", y_im, w1_re))
+    # bin index k = N2·k1 + k2 → order (k1, k2) row-major, keep rfft half
+    x_re = x_re.transpose(-1, -2).reshape(frames.shape[:-1] + (n,))
+    x_im = x_im.transpose(-1, -2).reshape(frames.shape[:-1] + (n,))
+    x_re = x_re[..., :n_freqs]
+    x_im = x_im[..., :n_freqs]
+    return torch.sqrt(x_re * x_re + x_im * x_im)
 
 
 def block_dft_bases(n_window: int, hop_size: int, dtype=np.float32,
@@ -203,17 +263,19 @@ class MelFrontEnd:
     or dB with ``log=True``.
 
     ``use_kernel=False`` makes ``block_kernel`` run the kernel's plain
-    PyTorch version even on the card (the path-equality check)."""
+    PyTorch version even on the card (the path-equality check);
+    ``factor_n1`` is the ``factored`` algorithm's N1."""
 
     def __init__(self, cfg: AudioConfig = AudioConfig(),
                  algorithm: str = "dense", device="cuda",
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, factor_n1: int = 32):
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown mel algorithm {algorithm}")
         self.cfg = cfg
         self.algorithm = algorithm
         self.device = resolve_device(device)
         self.use_kernel = use_kernel
+        self.factor_n1 = factor_n1
         dev = lambda a: torch.as_tensor(a, device=self.device)
         fb64 = mel_filterbank(cfg.sr, cfg.n_window, cfg.n_mels,
                               cfg.mel_f_min, cfg.mel_f_max, dtype=np.float64)
@@ -226,6 +288,11 @@ class MelFrontEnd:
             self.block_bases = tuple(
                 None if a is None else dev(a)
                 for a in block_dft_bases(cfg.n_window, cfg.hop_size))
+        elif algorithm == "factored":
+            self.window = dev(hamming_window(cfg.n_window))
+            self.factored_bases = tuple(
+                (dev(re), dev(im)) for re, im in
+                factored_dft_bases(cfg.n_window, factor_n1))
         else:
             self.window = dev(hamming_window(cfg.n_window))
             cos_b, sin_b = dft_basis(cfg.n_window)
@@ -244,6 +311,13 @@ class MelFrontEnd:
             if self.algorithm == "block":
                 mag = block_stft_magnitude(audio, self.block_bases,
                                            cfg.n_window, cfg.hop_size)
+            elif self.algorithm == "factored":
+                frames = frame_signal(audio.float(), cfg.n_window,
+                                      cfg.hop_size)
+                mag = factored_dft_magnitude(frames * self.window,
+                                             self.factored_bases,
+                                             self.factor_n1,
+                                             1 + cfg.n_window // 2)
             else:
                 mag = stft_magnitude(audio, self.window, self.cos_basis,
                                      self.sin_basis, cfg.n_window,
@@ -252,3 +326,16 @@ class MelFrontEnd:
         if log:
             mel = amplitude_to_db(mel)
         return mel
+
+
+def mel_spectrogram(audio: torch.Tensor, window: torch.Tensor,
+                    mel_fb: torch.Tensor, n_window: int = 2048,
+                    hop_size: int = 255, log: bool = False) -> torch.Tensor:
+    """FFT-based reference implementation (kept for cross-checking the DFT
+    path in tests; prefer MelFrontEnd for production)."""
+    frames = frame_signal(audio.float(), n_window, hop_size)
+    mag = torch.fft.rfft(frames * window, dim=-1).abs().float()
+    mel = mag @ mel_fb
+    if log:
+        mel = amplitude_to_db(mel)
+    return mel

@@ -20,9 +20,10 @@ step passes one that threads its BatchNorm statistics in call order).
 The random matrices (R_f, R_g) of the randomized map: ``bsed_tpu`` draws
 them with ``jax.random.normal`` from ``cfg.train.seed``, which this package
 cannot reproduce without JAX. ``make_randomized_maps`` draws its own
-standard normal pair from a ``torch.Generator`` seeded by the same seed,
-on the device that will use them (at full width R_f is (80128, 8192)
-float32, 2.63 GB); the tests inject JAX's pair through
+standard normal pair from a CPU ``torch.Generator`` seeded by the same
+seed, in chunks copied to the device that will use them, so the pair does
+not depend on the device (at full width R_f is (80128, 8192) float32,
+2.63 GB); the tests inject JAX's pair through
 ``train.steps.TrainModules.rand_maps``.
 """
 from __future__ import annotations
@@ -41,17 +42,28 @@ def multilinear_map(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bc,bf->bcf", g, f).reshape(f.shape[0], -1)
 
 
+MAP_CHUNK_ELEMENTS = 1 << 24     # 64 MiB of float32 a drawn chunk
+
+
 def make_randomized_maps(features_dim: int, num_classes: int,
                          output_dim: int, seed: int = 0, device="cpu"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(R_f (features_dim, output_dim), R_g (num_classes, output_dim)),
-    standard normal float32 drawn on ``device`` from ``seed``."""
+    standard normal float32 on ``device``, drawn from one CPU generator
+    seeded by ``seed`` whatever the device, so a run keeps its maps when
+    it moves between the CPU and the card. R_f is drawn in chunks of
+    rows (``MAP_CHUNK_ELEMENTS``), each copied into R_f on ``device`` as
+    it is drawn, so the host never holds the whole map; R_g is drawn
+    after it."""
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    rf = torch.randn((features_dim, output_dim), generator=gen,
-                     device=device)
-    rg = torch.randn((num_classes, output_dim), generator=gen,
-                     device=device)
+    gen = torch.Generator().manual_seed(seed)
+    rf = torch.empty((features_dim, output_dim), device=device)
+    rows = max(1, MAP_CHUNK_ELEMENTS // max(output_dim, 1))
+    for start in range(0, features_dim, rows):
+        n = min(rows, features_dim - start)
+        rf[start:start + n].copy_(torch.randn((n, output_dim),
+                                              generator=gen))
+    rg = torch.randn((num_classes, output_dim), generator=gen).to(device)
     return rf, rg
 
 

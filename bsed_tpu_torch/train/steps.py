@@ -279,7 +279,8 @@ def build_modules(cfg: Config, device="cuda", use_kernels: bool = True,
     ``norm_stats`` is the train scaler's (mean, std) for
     ``TrainConfig.normalize``. Frame-level CDAN's randomized map gets
     ``rand_maps`` if given (moved to ``device``), else its own pair drawn
-    there from ``cfg.train.seed`` (``train/da.make_randomized_maps``)."""
+    from ``cfg.train.seed`` (``train/da.make_randomized_maps``: the same
+    pair on any device)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     if _effective_da_mode(cfg) == "cdan" and cfg.da.level != "clip":
@@ -328,13 +329,16 @@ def create_train_state(cfg: Config, modules: TrainModules,
     """Student and, with a mean teacher, teacher from their own random
     inits, drawn from ``seed`` (the teacher's init differs from the
     student's, as in the reference, main_baseline.py:817-818), and the
-    discriminator's from a third draw; fresh optimizers."""
+    discriminator's from a third draw; fresh optimizers. Every BatchNorm
+    starts with running mean 0 and variance 1, as ``bsed_tpu``'s and the
+    reference's do."""
     s_seed, t_seed, d_seed = (int(v) for v in
                               np.random.SeedSequence(seed).generate_state(3))
-    params, stats = weights.init_params(cfg, s_seed)
+    params, stats = weights.init_params(cfg, s_seed, perturb_stats=False)
     ema_params = ema_stats = None
     if cfg.train.mean_teacher:
-        ema_params, ema_stats = weights.init_params(cfg, t_seed)
+        ema_params, ema_stats = weights.init_params(cfg, t_seed,
+                                                    perturb_stats=False)
     state = load_train_state(modules, {
         "step": 0, "params": params, "batch_stats": stats,
         "ema_params": ema_params, "ema_batch_stats": ema_stats})

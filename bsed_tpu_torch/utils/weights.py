@@ -16,8 +16,12 @@ Layout changes: HWIO conv kernels become OIHW (torch_compat.py:167-168);
 flax Dense (in, out) becomes ``nn.Linear`` (out, in).
 
 ``init_params(cfg, seed)`` builds such a tree from a seed with the
-initializers of ``models/init.py`` (running stats perturbed away from 0/1),
-so the port runs with non-trivial weights and no JAX.
+initializers of ``models/init.py``, so the port runs with non-trivial
+weights and no JAX. Its BatchNorm running statistics are drawn away from
+0/1 by default (``perturb_stats=True``: the serving tests and the card's
+random-weight serving phases, where 0/1 would leave BatchNorm an identity
+map); ``perturb_stats=False`` gives the 0/1 of a fresh BatchNorm, as a
+fresh train state needs (``train/steps.create_train_state``).
 
 The feature-pyramid encoder (``use_fpn``) adds ``cnn.block_down`` (a conv
 block), ``rnn_2``, ``rnn_4`` (GRUs) and ``fuse_2``, ``fuse_4`` (dense).
@@ -114,9 +118,13 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.numpy().astype(np.float32)
 
 
-def init_params(cfg, seed: int = 0) -> Tuple[Dict, Dict]:
+def init_params(cfg, seed: int = 0,
+                perturb_stats: bool = True) -> Tuple[Dict, Dict]:
     """(params, batch_stats) in the flax layout, drawn from ``seed``, for
-    the CRNN or CRNNFPN encoder of ``cfg`` with a linear or mlp head."""
+    the CRNN or CRNNFPN encoder of ``cfg`` with a linear or mlp head.
+    Running means are 0.1·N(0, 1) and variances 0.5 + U(0, 1), or 0 and 1
+    with ``perturb_stats=False``; the draw is made either way, so the
+    parameters do not depend on ``perturb_stats``."""
     m = cfg.model
     if m.predictor_head == "crnn":
         raise NotImplementedError(
@@ -142,9 +150,11 @@ def init_params(cfg, seed: int = 0) -> Tuple[Dict, Dict]:
                 "kernel": _np(I.normal_init(gen, (cout, cout))),
                 "bias": np.zeros(cout, np.float32)}}
         cnn[name] = blk
-        stats[name] = {"bn": {
-            "mean": _np(0.1 * torch.randn((cout,), generator=gen)),
-            "var": _np(0.5 + torch.rand((cout,), generator=gen))}}
+        mean = _np(0.1 * torch.randn((cout,), generator=gen))
+        var = _np(0.5 + torch.rand((cout,), generator=gen))
+        if not perturb_stats:
+            mean, var = np.zeros_like(mean), np.ones_like(var)
+        stats[name] = {"bn": {"mean": mean, "var": var}}
         cin = cout
 
     h = m.n_rnn_cell

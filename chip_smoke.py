@@ -48,6 +48,19 @@ use, all sources in parallel) and drives every slice of the port:
     phase, clips/s, posteriors within the float32 serving gate, every
     flipped binarized frame within that gate of the threshold, and card
     and host decoding giving identical event tables;
+  * raw audio in (``raw_audio_path``): ``python -m bsed_tpu_torch.cli
+    predict`` in a subprocess on a 10-minute 44.1 kHz int16 stereo WAV
+    and a 3 s ``.npy`` (precision 'high'), and on a 60 s 32 kHz WAV at a
+    5 s hop (B = 11) with ``--precision highest`` (TF32 must be off):
+    seconds by part, recording-seconds per wall-second, events; then
+    ``predict.predict_recordings`` in-process on the same inputs with the
+    kernels (K1, K2 eval and K4 exactly 1, 3 and 2 times a forward call)
+    and on their plain versions (posteriors within 2e-3, events decoded
+    on the card and on the host identical); ``preprocess`` of an
+    ENA-layout root (2 domains × 3 annotated 5-minute recordings: dumps a
+    second, seconds by part, dumps against a float64 ``torch.stft``
+    golden at 1e-3 dB, split counts equal to ``seeded_split``'s); and
+    ``synthesize --features-out`` of 64 full-length soundscapes;
   * the loader-fed train step: a ``ThreeStreamLoader`` resident on the
     card feeds the flagship train step (same keys, shapes and dtypes as
     the random batch), ms a step beside the random-batch step's;
@@ -83,7 +96,9 @@ use, all sources in parallel) and drives every slice of the port:
     in the reference-parity form (no kernel) and the --perf form (K2's
     train form and K3 exactly ``DA_PERF_LAUNCHES`` / ``DA_SKIP_LAUNCHES``
     a step), with ms a step, finite loss and domain loss and peak device
-    memory (run d holds the 2.63 GB randomized map); runs a and h's float32
+    memory (run d holds the 2.63 GB randomized map, whose card draw is
+    first held bit-equal to the CPU draw at both ends of R_f and all of
+    R_g, with each draw's seconds); runs a and h's float32
     kernel step against the plain step; ``train --preset
     baseline_adaptation --perf -s 96``, a resume at the stage boundary
     (the discriminator fresh, the rest from epoch_0) and ``eval
@@ -1492,6 +1507,281 @@ def decode_split(torch, dev, probs, names, cfg, reps: int = 5):
     return {k: sorted(v[1:])[reps // 2] for k, v in times.items()}
 
 
+RAW_LONG_S = 600                  # the 10-minute recording: 44.1 kHz int16
+RAW_LONG_SR = 44100               # stereo, resampled on read (320/441)
+RAW_RAGGED_S = 60                 # 32 kHz; at a 5 s hop: 11 windows, B = 11
+RAW_HOP_S = 5.0
+RAW_SHORT_S = 3                   # a raw-audio .npy, one padded window
+ENA_DOMAINS, ENA_RECORDINGS, ENA_SECONDS = 2, 3, 300
+N_ENA_GOLDEN = 3                  # dumps held against the float64 golden
+N_SOUNDSCAPES = 64
+RAW_GATE = 2e-3                   # float32 serving gate (path_equality)
+
+
+def _predict_cli(args, tag):
+    """``python -m bsed_tpu_torch.cli predict ARGS`` in a subprocess from
+    the checkout's root (its own TF32 settings: the CLI's); returns the
+    JSON line it prints last, with the subprocess's wall seconds."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bsed_tpu_torch.cli",
+                           "predict", *args], cwd=root, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"predict ({tag}) exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["subprocess_wall_s"] = wall
+    out["recording_s_per_wall_s"] = out["audio_seconds"] / \
+        out["seconds"]["total"]
+    out["recording_s_per_wall_s_process"] = out["audio_seconds"] / wall
+    return out
+
+
+def _raven_table(rng, path, seconds, birds):
+    """A Raven selection table of random events over ``seconds``."""
+    import csv
+
+    import numpy as np
+    n = int(rng.integers(seconds // 10, seconds // 4))
+    onsets = np.sort(rng.uniform(0, seconds - 3, n))
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh, delimiter="\t", lineterminator="\n")
+        w.writerow(["Selection", "View", "Channel", "Begin Time (s)",
+                    "End Time (s)", "Low Freq (Hz)", "High Freq (Hz)",
+                    "Species"])
+        for i, a in enumerate(onsets):
+            w.writerow([i + 1, "Spectrogram 1", 1, float(a),
+                        float(a + rng.uniform(0.1, 2.5)), 1000.0, 6000.0,
+                        birds[int(rng.integers(len(birds)))]])
+
+
+def raw_audio_path(torch, dev, card):
+    """Raw audio in, on the card, as a user runs it (preset baseline at
+    full width, random weights from seed 0 exported with the port's
+    ``export_torch_checkpoint``):
+
+      * ``python -m bsed_tpu_torch.cli predict`` in a subprocess on a
+        10-minute 44.1 kHz int16 stereo WAV and a 3 s ``.npy`` (precision
+        'high': K1, K2 and K4), then on a 60 s 32 kHz WAV at
+        ``--hop-seconds 5`` (B = 11) with ``--precision highest``, which
+        must run with TF32 off: seconds by part, recording-seconds per
+        wall-second, events written;
+      * in-process on the same inputs, ``predict.predict_recordings`` with
+        the kernels (K1, K2 eval and K4 exactly 1, 3 and 2 times a forward
+        call) and on their plain versions: posteriors within the serving
+        gate, and each recording's events decoded on the card and on the
+        host identical;
+      * ``preprocess`` of an ENA-layout root (2 domains × 3 annotated
+        5-minute recordings at 32 kHz): dumps a second, seconds by part,
+        a few dumps against a float64 ``torch.stft`` golden at 1e-3 dB,
+        split counts equal to ``seeded_split``'s;
+      * ``synthesize --features-out`` of 64 full-length soundscapes.
+
+    Returns the launches of the in-process kernel run by kernel entry."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from bsed_tpu_torch import cli
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.data.annotations import seeded_split
+    from bsed_tpu_torch.data.preprocess import (data_split,
+                                                ena_data_preprocess,
+                                                read_wav, segment_audio)
+    from bsed_tpu_torch.eval.test_model import export_torch_checkpoint
+    from bsed_tpu_torch.ops import gru_kernel, mel, mel_kernel, stem_epilogue
+    from bsed_tpu_torch.ops.filterbank import mel_filterbank
+    from bsed_tpu_torch.predict import decode_events, predict_recordings
+    from bsed_tpu_torch.utils.weights import init_params
+
+    t_phase = time.perf_counter()
+    cfg = get_config("baseline")
+    a = cfg.audio
+    params, stats = init_params(cfg, 0)
+    counters = {"mel_kernel": mel_kernel.fused_block_mel,
+                "stem_epilogue": stem_epilogue.stem_epilogue_fwd,
+                "gru_kernel": gru_kernel.gru_bidir_recurrence}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ckpt = export_torch_checkpoint(cfg, params, stats,
+                                       os.path.join(tmp, "baseline.pt"))
+        rng = np.random.default_rng(0)
+        long_wav = os.path.join(tmp, "field_10min.wav")
+        wavfile.write(long_wav, RAW_LONG_SR, (rng.standard_normal(
+            (RAW_LONG_S * RAW_LONG_SR, 2)) * 3000).astype(np.int16))
+        ragged_wav = os.path.join(tmp, "field_1min.wav")
+        wavfile.write(ragged_wav, a.sr, (rng.standard_normal(
+            RAW_RAGGED_S * a.sr) * 3000).astype(np.int16))
+        short_npy = os.path.join(tmp, "clip_3s.npy")
+        np.save(short_npy, (rng.standard_normal(RAW_SHORT_S * a.sr) * 0.1
+                            ).astype(np.float32))
+        inputs_s = time.perf_counter() - t0
+
+        base = ["--preset", "baseline", "--torch-checkpoint", ckpt]
+        cli_high = _predict_cli([*base, "--audio", long_wav, short_npy,
+                                 "--out-tsv", os.path.join(tmp, "a.tsv")],
+                                "high")
+        cli_highest = _predict_cli(
+            [*base, "--audio", ragged_wav, "--hop-seconds", str(RAW_HOP_S),
+             "--precision", "highest", "--out-tsv",
+             os.path.join(tmp, "b.tsv")], "highest")
+        assert cli_high["tf32"] == cli_highest["tf32"] == \
+            {"matmul_tf32": False, "cudnn_tf32": False}, \
+            (cli_high["tf32"], cli_highest["tf32"])
+        # 60 windows at B = 32 (the second batch padded from 28), one
+        # padded window; 11 windows at B = 11
+        assert cli_high["batches"] == [[32, 32], [1]], cli_high
+        assert cli_highest["batches"] == [[11]], cli_highest
+
+        # in-process: kernels, then the plain versions, on the same inputs
+        groups = (([long_wav, short_npy], None), ([ragged_wav], RAW_HOP_S))
+        runs = {}
+        for use_kernels in (True, False):
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            res = [predict_recordings(cfg, params, stats, paths, device=dev,
+                                      precision="high", hop_seconds=hop,
+                                      use_kernels=use_kernels,
+                                      keep_posteriors=True)
+                   for paths, hop in groups]
+            torch.cuda.synchronize()
+            runs[use_kernels] = (res, {k: c.launches
+                                       for k, c in counters.items()})
+        (res_k, launches), (res_p, launches_p) = runs[True], runs[False]
+        batches = [b for r in res_k for rec in r["batches"] for b in rec]
+        calls = len(batches)
+        assert launches == {"mel_kernel": calls, "stem_epilogue": 3 * calls,
+                            "gru_kernel": 2 * calls}, (launches, calls)
+        assert launches_p == {k: 0 for k in counters}, launches_p
+        post_k = [p for r in res_k for p in r["posteriors"]]
+        post_p = [p for r in res_p for p in r["posteriors"]]
+        assert all(x.shape == y.shape and np.isfinite(x).all()
+                   for x, y in zip(post_k, post_p))
+        err = max(float(np.abs(x - y).max()) for x, y in zip(post_k, post_p))
+        tables_equal = all(
+            decode_events(p, cfg, device=dev) ==
+            decode_events(p, cfg, device="cpu") for p in post_k)
+
+        # preprocess: an ENA-layout root, through the functions the CLI
+        # calls, with their seconds by part
+        root = os.path.join(tmp, "ena")
+        t0 = time.perf_counter()
+        for d in range(ENA_DOMAINS):
+            domain = f"Recording_{d + 1}"
+            os.makedirs(os.path.join(root, "wav", domain))
+            os.makedirs(os.path.join(root, "annotation", domain))
+            for r in range(ENA_RECORDINGS):
+                stem = f"rec_{d}_{r}"
+                wavfile.write(os.path.join(root, "wav", domain,
+                                           stem + ".wav"), a.sr,
+                              (rng.standard_normal(ENA_SECONDS * a.sr)
+                               * 3000).astype(np.int16))
+                _raven_table(rng, os.path.join(root, "annotation", domain,
+                                                stem + ".Table.1.txt"),
+                              ENA_SECONDS, cfg.bird_list)
+        ena_setup_s = time.perf_counter() - t0
+        sec = {}
+        t0 = time.perf_counter()
+        names = ena_data_preprocess(root, cfg, device=dev, seconds=sec)
+        pre_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data_split(root, cfg)
+        split_s = time.perf_counter() - t0
+        n_dumps = ENA_DOMAINS * ENA_RECORDINGS * int(ENA_SECONDS //
+                                                     a.max_len_seconds)
+        assert len(names) == n_dumps, (len(names), n_dumps)
+        weak, unlab, val = seeded_split(names, cfg.train.dataset_seed)
+        split_counts = {
+            sub: len(os.listdir(os.path.join(root, sub, "wav")))
+            for sub in (cfg.data.train_weak_subdir,
+                        cfg.data.train_unlabeled_subdir,
+                        cfg.data.val_subdir)}
+        assert list(split_counts.values()) == \
+            [len(weak), len(unlab), len(val)], split_counts
+        # dumps against a float64 torch.stft golden of the same segments
+        wav0 = os.path.join(root, "wav", "Recording_1", "rec_0_0.wav")
+        segs = segment_audio(read_wav(wav0, a.sr),
+                             int(a.max_len_seconds * a.sr))
+        pick = [0, len(segs) // 2, len(segs) - 1][:N_ENA_GOLDEN]
+        x = torch.from_numpy(segs[pick]).to(dev).double()
+        win = torch.hamming_window(a.n_window, periodic=False, device=dev,
+                                   dtype=torch.float64)
+        fb = torch.as_tensor(mel_filterbank(a.sr, a.n_window, a.n_mels,
+                                            a.mel_f_min, a.mel_f_max,
+                                            dtype=np.float64), device=dev)
+        gold = torch.stft(x, a.n_window, a.hop_size, window=win,
+                          center=True, pad_mode="reflect",
+                          return_complex=True).abs().transpose(1, 2) @ fb
+        dumps = torch.from_numpy(np.stack([np.load(os.path.join(
+            root, cfg.data.feature_subdir, "wav", f"rec_0_0_{i}.npy"))
+            for i in pick])).to(dev).double()
+        db = mel.amplitude_to_db
+        golden_err_db = float((db(dumps) - db(gold)).abs().max())
+        assert dumps.shape == gold.shape == (len(pick), a.max_frames,
+                                             a.n_mels), dumps.shape
+
+        # synthesize --features-out through the CLI
+        co = {c: {"proba": float(p), "co-occurences": {
+            "max_events": 4, "mean_events": 2,
+            "classes": list(cfg.bird_list[:5]),
+            "probas": [0.2] * 5}}
+            for c, p in zip(cfg.bird_list,
+                            rng.dirichlet(np.ones(cfg.nclass)))}
+        co_path = os.path.join(tmp, "co.json")
+        with open(co_path, "w") as fh:
+            json.dump(co, fh)
+        t0 = time.perf_counter()
+        table = cli.main(["synthesize", "--co-occur", co_path, "--out",
+                          os.path.join(tmp, "gen"), "--n-soundscapes",
+                          str(N_SOUNDSCAPES), "--features-out",
+                          os.path.join(tmp, "feat"), "--seed", "5"])
+        syn_s = time.perf_counter() - t0
+        feat = sorted(os.listdir(os.path.join(tmp, "feat", "wav")))
+        syn_shape = list(np.load(os.path.join(tmp, "feat", "wav",
+                                              feat[0])).shape)
+        assert len(feat) == N_SOUNDSCAPES and \
+            syn_shape == [a.max_frames, a.n_mels], (len(feat), syn_shape)
+    emit(phase="raw_audio_path", preset="baseline", compute_dtype="float32",
+         inputs={"long_wav": {"seconds": RAW_LONG_S, "sr": RAW_LONG_SR,
+                              "dtype": "int16", "channels": 2},
+                 "ragged_wav": {"seconds": RAW_RAGGED_S, "sr": a.sr,
+                                "hop_seconds": RAW_HOP_S},
+                 "short_npy": {"seconds": RAW_SHORT_S}},
+         inputs_setup_s=inputs_s,
+         cli_predict_high=cli_high, cli_predict_highest=cli_highest,
+         forward_batches=batches, forward_calls=calls, launches=launches,
+         launches_per_forward_call={k: v / calls
+                                    for k, v in launches.items()},
+         max_abs_err_posteriors=err, gate=RAW_GATE,
+         card_host_tables_equal=tables_equal,
+         events_in_process=sum(len(r["rows"]) for r in res_k),
+         in_process_seconds=[r["seconds"] for r in res_k],
+         in_process_seconds_plain=[r["seconds"] for r in res_p],
+         preprocess={"recordings": ENA_DOMAINS * ENA_RECORDINGS,
+                     "recording_seconds": ENA_SECONDS, "dumps": len(names),
+                     "setup_s": ena_setup_s, "seconds": pre_s,
+                     "seconds_by_part": sec, "split_s": split_s,
+                     "dumps_per_s": len(names) / pre_s,
+                     "split_counts": split_counts,
+                     "golden_dumps": len(pick),
+                     "max_abs_err_db_vs_f64": golden_err_db},
+         synthesize={"soundscapes": N_SOUNDSCAPES, "seconds": syn_s,
+                     "soundscapes_per_s": N_SOUNDSCAPES / syn_s,
+                     "events": len(table), "dump_shape": syn_shape},
+         seconds=time.perf_counter() - t_phase, card=card)
+    assert err <= RAW_GATE, f"raw-audio posteriors differ by {err}"
+    assert tables_equal, "decoding on the card and on the host differ"
+    assert golden_err_db <= 1e-3, \
+        f"preprocess dumps vs float64 golden: {golden_err_db} dB"
+    return launches
+
+
 def loader_train_path(torch, dev, card, random_batch_ms):
     """The flagship train step fed by a ``ThreeStreamLoader`` resident on
     the card (12 SYN + 12 real full-width clips of ``SyntheticDataSource``,
@@ -2508,14 +2798,54 @@ def da_cli_cycle(torch):
     return out, totals
 
 
+N_MAP_ROWS = 64                   # R_f rows checked at each end
+
+
+def randomized_map_check(torch, dev):
+    """Run d's frame-CDAN randomized map (R_f (80128, 8192) float32,
+    2.63 GB, and R_g) drawn for the card against the same draw for the
+    CPU: the first and last ``N_MAP_ROWS`` rows of R_f and all of R_g
+    bit-equal; the seconds of each draw (one CPU generator either way)."""
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.train import da
+
+    cfg = get_config(DA_RUNS["d"])
+    dims = (2 * cfg.model.n_rnn_cell * cfg.n_frames, cfg.nclass,
+            cfg.da.randomized_dim)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rf, rg = da.make_randomized_maps(*dims, seed=cfg.train.seed, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rf_c, rg_c = da.make_randomized_maps(*dims, seed=cfg.train.seed,
+                                         device="cpu")
+    cpu_s = time.perf_counter() - t0
+    n = N_MAP_ROWS
+    equal = (torch.equal(rf[:n].cpu(), rf_c[:n])
+             and torch.equal(rf[-n:].cpu(), rf_c[-n:])
+             and torch.equal(rg.cpu(), rg_c))
+    out = {"run": "d", "r_f": list(rf.shape), "r_g": list(rg.shape),
+           "gib": (rf.numel() + rg.numel()) * 4 / 2 ** 30,
+           "rows_checked_each_end": n, "bit_equal": equal,
+           "draw_s_for_card": card_s, "draw_s_for_cpu": cpu_s}
+    del rf, rg, rf_c, rg_c
+    torch.cuda.empty_cache()
+    assert equal, "run d's randomized map differs between card and CPU"
+    return out
+
+
 def adaptation_path(torch, dev, card, profile_dir=None):
-    """The adaptation stage on the card: the nine runs in the reference
-    form (no kernel) and the --perf form (exact K2-train / K3 launches),
+    """The adaptation stage on the card: run d's randomized map drawn for
+    the card against the CPU draw (``randomized_map_check``), the nine
+    runs in the reference form (no kernel) and the --perf form (exact
+    K2-train / K3 launches),
     runs a and h's float32 kernel step against the plain step, and the
     CLI's train / resume at the stage boundary / eval cycle. Returns the
     launches of the phase's driven runs (the timed --perf steps and the
     CLI cycle; not the comparisons') by kernel entry."""
     t_phase = time.perf_counter()
+    rand_map = randomized_map_check(torch, dev)
     reference = [da_steps(torch, dev, r, False, profile_dir)
                  for r in DA_RUNS]
     perf = [da_steps(torch, dev, r, True, profile_dir) for r in DA_RUNS]
@@ -2541,7 +2871,7 @@ def adaptation_path(torch, dev, card, profile_dir=None):
          f32_kernels_vs_plain=equality,
          equality_gates={"metrics": 1e-4, "mu": 3e-5, "bn_stats": 1e-5,
                          "disc_params": 1e-5},
-         cli=cli_cycle, launches=launches,
+         cli=cli_cycle, launches=launches, randomized_map=rand_map,
          seconds=time.perf_counter() - t_phase, card=card)
     return launches
 
@@ -2588,6 +2918,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_launches = eval_path(torch, dev, smi)
     torch.cuda.empty_cache()
+    raw_launches = raw_audio_path(torch, dev, smi)
+    torch.cuda.empty_cache()
 
     k5 = check_stem_kernel(torch, dev)
     k5["launches"] = fused_stem_path(torch, dev, smi,
@@ -2617,6 +2949,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     for k in (k2, k4):           # the eval path's run, 4 batches of 64
         k["launches_eval_path"] = eval_launches[k["name"]]
+    for k in (k1, k2, k4):       # raw_audio_path's in-process kernel run
+        k["launches_raw_audio_path"] = raw_launches[k["name"]]
     for k in (k2, k2t, k3, k4):  # run A of trainer_path: 2 epochs, 2 evals
         k["launches_trainer_path"] = fit_launches[k["name"]]
     for k in (k2, k2t, k3, k4):  # presets_path's driven runs

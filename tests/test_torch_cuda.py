@@ -948,3 +948,60 @@ def test_da_full_width_discriminators_on_card(dev, preset):
     assert np.isfinite(float(metrics["loss"]))
     assert np.isfinite(float(metrics["domain_loss"]))
     assert not torch.equal(first.weight.detach(), before)
+
+
+def test_da_randomized_maps_equal_on_cpu_and_card(dev, monkeypatch):
+    """Frame-CDAN's R_f / R_g drawn for the card are bit-equal to the CPU
+    draw (one CPU generator, chunks copied to the device), in several
+    chunks."""
+    from bsed_tpu_torch.train import da
+
+    monkeypatch.setattr(da, "MAP_CHUNK_ELEMENTS", 1 << 16)
+    cpu = da.make_randomized_maps(3000, 20, 512, seed=1215, device="cpu")
+    card = da.make_randomized_maps(3000, 20, 512, seed=1215, device=dev)
+    assert all(c.device.type == "cuda" for c in card)
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card))
+
+
+@pytest.fixture
+def raw_audio(tmp_path):
+    """A 60 s recording at 32 kHz (11 windows at a 5 s hop: B = 11, below
+    the batch of 32) and a 3 s raw-audio .npy (one padded window)."""
+    from scipy.io import wavfile
+    rng = np.random.default_rng(12)
+    wav = str(tmp_path / "minute.wav")
+    wavfile.write(wav, 32000, (rng.standard_normal(60 * 32000) * 3000
+                               ).astype(np.int16))
+    npy = str(tmp_path / "short.npy")
+    np.save(npy, (rng.standard_normal(3 * 32000) * 0.1).astype(np.float32))
+    return [wav, npy]
+
+
+def test_predict_ragged_batch_kernels_match_plain(dev, raw_audio):
+    """``predict_recordings`` at full width, precision 'high' (K1, K2 and
+    K4 once, three and twice a forward call), against the same call on
+    the plain versions: posteriors within the serving gate (2e-3), the
+    ragged B = 11 batch and the one-window recording included."""
+    from bsed_tpu_torch.predict import predict_recordings
+
+    cfg = get_config("baseline")
+    params, stats = init_params(cfg, 0)
+    counters = (mel_kernel.fused_block_mel, stem_epilogue.stem_epilogue_fwd,
+                gru_kernel.gru_bidir_recurrence)
+    before = [c.launches for c in counters]
+    runs = {}
+    for use_kernels in (True, False):
+        runs[use_kernels] = predict_recordings(
+            cfg, params, stats, raw_audio, device=dev, precision="high",
+            hop_seconds=5.0, use_kernels=use_kernels, keep_posteriors=True)
+        if use_kernels:
+            calls = sum(map(len, runs[True]["batches"]))
+            assert [c.launches - b for c, b in zip(counters, before)] == \
+                [calls, 3 * calls, 2 * calls]
+    assert runs[True]["batches"] == [[11], [1]]
+    for a, b in zip(runs[True]["posteriors"], runs[False]["posteriors"]):
+        assert a.shape == b.shape and np.isfinite(a).all()
+        assert float(np.abs(a - b).max()) <= 2e-3
+    highest = predict_recordings(cfg, params, stats, raw_audio[1:],
+                                 device=dev, precision="highest")
+    assert highest["tf32"] == {"matmul_tf32": False, "cudnn_tf32": False}

@@ -1,8 +1,9 @@
 """The port stands alone: bsed_tpu_torch and chip_smoke.py import no jax,
 flax or bsed_tpu (the JAX package), and no pandas (the machine with the
 card has none), checked by importing every module with those blocked and
-by scanning every import statement; importing them pulls in neither
-tensorboard nor matplotlib (optional, and absent on that machine)."""
+by scanning every import statement; importing them pulls in none of
+tensorboard, matplotlib and scikit-learn (optional, and absent on that
+machine)."""
 import ast
 import os
 import subprocess
@@ -38,9 +39,12 @@ def test_imports_with_jax_blocked():
         "          'train.ramps', 'train.losses', 'train.state',\n"
         "          'ops.augment', 'utils.weights', 'models.layers',\n"
         "          'models.cnn', 'models.crnn', 'serve', 'ops.grl',\n"
-        "          'models.discriminators', 'train.da'):\n"
+        "          'models.discriminators', 'train.da', 'predict',\n"
+        "          'utils.audio', 'data.preprocess', 'data.synthesizer',\n"
+        "          'data.analysis', 'eval.visualize'):\n"
         "    assert 'bsed_tpu_torch.' + m in mods, m\n"
-        "for m in ('torch.utils.tensorboard', 'tensorboard', 'matplotlib'):\n"
+        "for m in ('torch.utils.tensorboard', 'tensorboard', 'matplotlib',\n"
+        "          'sklearn'):\n"
         "    assert m not in sys.modules, m + ' imported at module import'\n"
         "print(len(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -93,6 +93,44 @@ def test_front_end_matches_jax_dense(audio, jax_dense_db, golden_db,
     assert_db_close(got, jax_dense_db, f"port {algorithm} vs JAX dense")
 
 
+def test_factored_and_fft_reference_match_jax(audio, golden_db):
+    """The 'factored' algorithm (two-stage Cooley-Tukey DFT) and
+    ``mel_spectrogram`` (the rfft reference) against bsed_tpu's, each side
+    first against the float64 golden, 1e-3 dB; the factored bases equal
+    JAX's."""
+    for ours, theirs in zip(mel.factored_dft_bases(256, 16),
+                            jmel.factored_dft_bases(256, 16)):
+        for a, b in zip(ours, theirs):
+            np.testing.assert_array_equal(a, b)
+    window = np.hamming(CFG.n_window).astype(np.float32)
+    fb = mel_filterbank(CFG.sr, CFG.n_window, CFG.n_mels, CFG.mel_f_min,
+                        CFG.mel_f_max)
+    with jax.default_matmul_precision("float32"):
+        want_f = np.array(jmel.MelFrontEnd(JCFG, algorithm="factored",
+                                           precision="highest")(
+            audio.copy(), log=True), dtype=np.float32)
+        want_s = np.array(jmel.mel_spectrogram(
+            audio.copy(), window, fb, CFG.n_window, CFG.hop_size, log=True),
+            dtype=np.float32)
+    got_f = mel.MelFrontEnd(CFG, algorithm="factored", device="cpu")(
+        torch.from_numpy(audio.copy()), log=True).numpy()
+    got_s = mel.mel_spectrogram(torch.from_numpy(audio.copy()),
+                                torch.from_numpy(window),
+                                torch.from_numpy(fb), CFG.n_window,
+                                CFG.hop_size, log=True).numpy()
+    for what, got, want in (("factored", got_f, want_f),
+                            ("mel_spectrogram", got_s, want_s)):
+        assert got.shape == want.shape == golden_db.shape
+        assert_db_close(got, golden_db, f"port {what} vs float64 golden")
+        assert_db_close(want, golden_db, f"JAX {what} vs float64 golden")
+        assert_db_close(got, want, f"port {what} vs JAX {what}")
+    linear = mel.mel_spectrogram(torch.from_numpy(audio.copy()),
+                                 torch.from_numpy(window),
+                                 torch.from_numpy(fb), CFG.n_window,
+                                 CFG.hop_size)
+    np.testing.assert_allclose(mel.amplitude_to_db(linear).numpy(), got_s)
+
+
 def test_block_kernel_plain_matches_jax_block_pallas(audio, jax_dense_db):
     """K1's plain version (what the CPU wrapper runs) against the JAX
     fused_block_mel in interpret mode, and against JAX dense."""

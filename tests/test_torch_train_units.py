@@ -287,3 +287,66 @@ def test_fold_kernel_gather_matches_jax(f, cin, cout):
     np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
     np.testing.assert_allclose(kt.grad.numpy(), np.asarray(vjp(cot)[0]),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("preset", ["baseline_mt_isp", "baseline_fpn_mt_isp"])
+def test_fresh_train_state_has_fresh_batchnorm(preset):
+    """A fresh train state's BatchNorm running statistics are exactly 0
+    (mean) and 1 (variance) for the student and the mean teacher, FPN's
+    block_down included, as ``bsed_tpu``'s and the reference's; its trees
+    have the keys and shapes of ``bsed_tpu``'s jitted
+    ``create_train_state`` (traced by ``jax.eval_shape``)."""
+    small = dict(sr=3200, hop_size=160, max_len_seconds=2.0)
+    cfg = get_config(preset).replace(audio=AudioConfig(**small))
+    jcfg = j_get_config(preset).replace(audio=JAudioConfig(**small))
+    state = steps.create_train_state(
+        cfg, steps.build_modules(cfg, device="cpu"), 0)
+    trees = weights.export_train_state(state)
+    jstate = jax.eval_shape(lambda k: j_steps.create_train_state(
+        jcfg, j_steps.build_modules(jcfg), k), jax.random.key(0))
+
+    def shapes(tree):
+        return {jax.tree_util.keystr(k): tuple(np.shape(v))
+                for k, v in jax.tree_util.tree_leaves_with_path(tree)}
+    for name in ("params", "batch_stats", "ema_params", "ema_batch_stats"):
+        assert shapes(trees[name]) == shapes(getattr(jstate, name)), name
+    blocks = trees["batch_stats"]["encoder"]["cnn"]
+    assert ("block_down" in blocks) == ("fpn" in preset)
+    for name in ("batch_stats", "ema_batch_stats"):
+        for block, s in trees[name]["encoder"]["cnn"].items():
+            assert (s["bn"]["mean"] == 0).all(), (name, block)
+            assert (s["bn"]["var"] == 1).all(), (name, block)
+    # serving's random weights keep their perturbed statistics, and the
+    # parameters do not depend on the choice
+    p_pert, s_pert = weights.init_params(cfg, 3)
+    p_fresh, s_fresh = weights.init_params(cfg, 3, perturb_stats=False)
+    assert shapes(p_pert) == shapes(p_fresh)
+    for (k, a), (_, b) in zip(
+            jax.tree_util.tree_leaves_with_path(p_pert),
+            jax.tree_util.tree_leaves_with_path(p_fresh)):
+        np.testing.assert_array_equal(a, b, err_msg=jax.tree_util.keystr(k))
+    v = s_pert["encoder"]["cnn"]["block0"]["bn"]["var"]
+    assert (v >= 0.5).all() and v.std() > 0.1
+    assert (s_fresh["encoder"]["cnn"]["block0"]["bn"]["var"] == 1).all()
+
+
+@pytest.mark.parametrize("shape", [(40, 5, 64), (1000, 20, 96), (7, 3, 1)])
+def test_randomized_maps_are_the_chunked_cpu_draw(shape, monkeypatch):
+    """R_f is drawn row chunk by row chunk from one CPU generator seeded
+    by the seed, R_g after it, whatever the device; small chunks here so
+    the draw takes several."""
+    from bsed_tpu_torch.train import da
+
+    monkeypatch.setattr(da, "MAP_CHUNK_ELEMENTS", 1000)
+    features, classes, out = shape
+    rf, rg = da.make_randomized_maps(features, classes, out, seed=5,
+                                     device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    rows = max(1, 1000 // out)
+    want_f = torch.cat([torch.randn((min(rows, features - i), out),
+                                    generator=gen)
+                        for i in range(0, features, rows)])
+    want_g = torch.randn((classes, out), generator=gen)
+    assert rf.shape == (features, out) and rg.shape == (classes, out)
+    assert rf.dtype == rg.dtype == torch.float32
+    assert torch.equal(rf, want_f) and torch.equal(rg, want_g)
