@@ -13,15 +13,20 @@ with its eleven subcommands and their flags.
     python -m bsed_tpu_torch.cli analyze --annotation-dir ... --out-dir ...
     python -m bsed_tpu_torch.cli visualize --syn-features ... \
         --real-features ... --out-dir ...
+    python -m bsed_tpu_torch.cli tag-train --data-root ... --save tagger.pt
+    python -m bsed_tpu_torch.cli pseudo-label --data-root ... \
+        --weights tagger.pt --out-tsv pseudo.tsv
 
 ``train``, ``eval``, ``export``, ``features``, ``predict``,
-``preprocess`` and ``synthesize`` run on the card unless ``--device cpu``
-asks for the CPU; without ``--data-root`` the first four run on
-deterministic synthetic fixtures. ``analyze`` and ``visualize`` are host
-tools (``visualize`` needs scikit-learn; it draws its plot with
-matplotlib where that is installed). ``tag-train`` and ``pseudo-label``
-exit non-zero naming the ROADMAP item that ports them. Flags mirror the
-reference argparse surface
+``preprocess``, ``synthesize``, ``tag-train`` and ``pseudo-label`` run on
+the card unless ``--device cpu`` asks for the CPU; without
+``--data-root`` the first four and the tagger's two run on deterministic
+synthetic fixtures. The tagger's two run with TF32 off
+(``utils/device.float32_precision('highest')``: ``pseudo-label``'s
+decisions at a threshold are compared between the card and the CPU) and
+print the settings. ``analyze`` and ``visualize`` are host tools
+(``visualize`` needs scikit-learn; it draws its plot with matplotlib where
+that is installed). Flags mirror the reference argparse surface
 (main_baseline.py:609-632): ``-fpn``/``--use-fpn``, ``-mt``/
 ``--meanteacher``, ``-ISP``, ``-stage``, ``-level``, ``-s/--subpart-data``.
 """
@@ -34,9 +39,6 @@ import json
 import os
 import sys
 import time
-
-# ROADMAP.md items that port the subcommands not ported yet
-_NOT_PORTED = {"tag-train": "8b", "pseudo-label": "8b"}
 
 
 def _resolve_config(args, allow_store: bool = True):
@@ -434,11 +436,81 @@ def cmd_predict(args):
     return out
 
 
-def cmd_not_ported(args):
-    item = _NOT_PORTED[args.command]
-    sys.exit(f"error: `{args.command}` is not ported to bsed_tpu_torch yet "
-             f"(ROADMAP.md, open item {item}); `python -m bsed_tpu.cli "
-             f"{args.command}` runs it on JAX")
+def _require_file(path, what):
+    if not os.path.exists(path):
+        sys.exit(f"error: {what} not found: {path}")
+
+
+def cmd_tag_train(args):
+    """Weak audio-tagging trainer (audio_tagging_system_cnn.py): step (1) of
+    the pseudo-labeling cycle. Prints ``bsed_tpu``'s lines, then a JSON
+    line with each epoch's seconds and the TF32 settings it ran under."""
+    from bsed_tpu_torch.data.prefetch import prefetch
+    from bsed_tpu_torch.train.tagging_trainer import TaggingTrainer
+    from bsed_tpu_torch.utils.device import float32_precision
+
+    if args.weights_file:
+        _require_file(args.weights_file, "pretrained weights file")
+    cfg = _apply_flags(_resolve_config(args), args)
+    with float32_precision("highest") as tf32:
+        train_loader, val_loader, _ = _dataset_loaders(cfg, args)
+        trainer = TaggingTrainer(cfg, arch=args.arch,
+                                 mean_teacher=args.meanteacher,
+                                 device=args.device)
+        if args.weights_file:
+            # torchvision-style resnet18 state_dict (the reference's
+            # pretrained=True init, audio_tagging_system_cnn.py:50-59)
+            trainer.load_pretrained_torch(args.weights_file)
+        best_f1, best_epoch, seconds = 0.0, -1, []
+        for epoch in range(args.epochs):
+            t0 = time.perf_counter()
+            loss = trainer.train_epoch(
+                prefetch(train_loader.epoch(epoch), depth=2), epoch)
+            f1 = trainer.evaluate(val_loader)
+            if f1 >= best_f1:
+                best_f1, best_epoch = f1, epoch
+                if args.save:
+                    trainer.save(args.save)
+            seconds.append(time.perf_counter() - t0)
+            print({"epoch": epoch, "loss": round(loss, 4),
+                   "weak_f1": round(f1, 4)})
+    result = {"best_weak_f1": round(best_f1, 4), "best_epoch": best_epoch,
+              "saved": args.save}
+    print(result)
+    print(json.dumps({"epoch_seconds": seconds, "tf32": tf32,
+                      "device": args.device}), flush=True)
+    return result
+
+
+def cmd_pseudo_label(args):
+    """Pseudo-label TSV writer (audio_tagging_inference.py:288-313): step
+    (2) of the cycle: the tagger's weak posteriors over the unlabeled set,
+    thresholded, decoded and written as the TSV the unlabeled stream
+    reads. Prints ``bsed_tpu``'s line, then a JSON line with the clips,
+    the seconds and the TF32 settings it ran under."""
+    from bsed_tpu_torch.data.codec import ManyHotEncoder
+    from bsed_tpu_torch.train.tagging_trainer import (TaggingTrainer,
+                                                      write_pseudo_labels)
+    from bsed_tpu_torch.utils.device import float32_precision
+
+    _require_file(args.weights, "tagger weights")
+    cfg = _apply_flags(_resolve_config(args), args)
+    _, _, unlab, _ = _datasets(cfg, args)
+    codec = ManyHotEncoder(cfg.bird_list, n_frames=cfg.n_frames,
+                           sr=cfg.audio.sr, hop_size=cfg.audio.hop_size,
+                           pooling_time_ratio=cfg.model.pooling_time_ratio)
+    with float32_precision("highest") as tf32:
+        trainer = TaggingTrainer(cfg, arch=args.arch, device=args.device)
+        trainer.load(args.weights)
+        t0 = time.perf_counter()
+        rows = write_pseudo_labels(trainer.predict_weak, unlab,
+                                   args.out_tsv, codec,
+                                   threshold=args.threshold)
+        seconds = time.perf_counter() - t0
+    print({"rows": len(rows), "out": args.out_tsv})
+    print(json.dumps({"clips": len(unlab), "seconds": seconds,
+                      "tf32": tf32, "device": args.device}), flush=True)
+    return rows
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -548,7 +620,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--weights-file", default=None,
                     help="torchvision resnet18 state_dict pickle for "
                          "pretrained initialization")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_tag_train)
 
     sp = sub.add_parser("pseudo-label",
                         help="write the weak pseudo-label TSV (cycle step 2)")
@@ -557,7 +629,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--weights", required=True)
     sp.add_argument("--out-tsv", required=True)
     sp.add_argument("--threshold", type=float, default=0.5)
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_pseudo_label)
 
     sp = sub.add_parser("features",
                         help="dump (B, 313, 256) encoder embeddings")

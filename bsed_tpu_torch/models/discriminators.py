@@ -27,7 +27,7 @@ Parameters are float32; the layers compute in the promotion of their
 input with float32, as flax's do, so a bfloat16 input computes in
 float32. Module attribute names are the flax names (``dense_d_1``,
 ``convs.conv_1``, ``convs.bn_1``, ``dense_d``), which
-``utils/weights.disc_param_map`` turns into flax paths. Dropout draws
+``utils/weights.named_param_map`` turns into flax paths. Dropout draws
 from the generator passed to ``forward``; training mode updates the
 BatchNorm running statistics on every call, in call order.
 """

@@ -29,12 +29,14 @@ BN_MOMENTUM = 0.01
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
-                padding: int = 1) -> torch.Tensor:
-    """3×3 'same' conv of an NHWC tensor with an OIHW weight; returns NHWC
-    (contiguous when the backend keeps channels_last, as cuDNN does)."""
+                padding: int = 1, stride: int = 1) -> torch.Tensor:
+    """Conv of an NHWC tensor with an OIHW weight (by default 3×3 'same');
+    returns NHWC (contiguous when the backend keeps channels_last, as
+    cuDNN does)."""
     xn = x.permute(0, 3, 1, 2)
     w = weight.contiguous(memory_format=torch.channels_last)
-    return F.conv2d(xn, w, bias, padding=padding).permute(0, 2, 3, 1)
+    return F.conv2d(xn, w, bias, stride=stride,
+                    padding=padding).permute(0, 2, 3, 1)
 
 
 def _dt(dtype, x: torch.Tensor) -> torch.dtype:

@@ -42,15 +42,19 @@ def keep_mask(gen: torch.Generator, shape, rate: float,
 
 
 def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
-            deterministic: bool = False) -> torch.Tensor:
-    """Inverted dropout: keep → x/(1−rate), drop → 0 (torch semantics)."""
+            deterministic: bool = False,
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout: keep → x/(1−rate), drop → 0 (torch semantics).
+    ``keep`` replaces the mask's draw (tests feed the JAX mask through
+    it)."""
     if deterministic or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    if gen is None:
-        raise ValueError("dropout needs a torch.Generator")
-    keep = keep_mask(gen, x.shape, rate, x.device)
+    if keep is None:
+        if gen is None:
+            raise ValueError("dropout needs a torch.Generator")
+        keep = keep_mask(gen, x.shape, rate, x.device)
     scale = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
@@ -65,5 +69,7 @@ class FastDropout(nn.Module):
         self.rate = rate
 
     def forward(self, x: torch.Tensor,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        return dropout(gen, x, self.rate, deterministic=not self.training)
+                gen: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return dropout(gen, x, self.rate, deterministic=not self.training,
+                       keep=keep)

@@ -25,11 +25,13 @@ class TrainState:
 
 
 def make_optimizer(cfg, params: Iterable[torch.nn.Parameter],
-                   family: Optional[str] = None) -> torch.optim.Optimizer:
+                   family: Optional[str] = None,
+                   lr: Optional[float] = None) -> torch.optim.Optimizer:
     """The optimizer of ``family`` (default ``cfg.train.optimizer``; the
     aux optimizers pass ``cfg.da.aux_optimizer``, since two scripts mix
-    families), at the constant max_learning_rate (the step sets each
-    step's lr on its param groups):
+    families), at ``lr`` (default the constant max_learning_rate: the
+    train step sets each step's lr on its param groups; the tagger keeps
+    its own constant rate):
 
       * "adam": Adam(β 0.9, 0.999, ε 1e-8), optax.adam's;
       * "sgd": SGD with Nesterov momentum 0.9 and weight decay 1e-4
@@ -39,11 +41,12 @@ def make_optimizer(cfg, params: Iterable[torch.nn.Parameter],
         ``momentum_buffer`` is optax's trace."""
     t = cfg.train
     family = family or t.optimizer
+    lr = t.max_learning_rate if lr is None else lr
     if family == "adam":
-        return torch.optim.Adam(params, lr=t.max_learning_rate,
+        return torch.optim.Adam(params, lr=lr,
                                 betas=(0.9, 0.999), eps=1e-8)
     if family == "sgd":
-        return torch.optim.SGD(params, lr=t.max_learning_rate,
+        return torch.optim.SGD(params, lr=lr,
                                momentum=t.sgd_momentum, nesterov=True,
                                weight_decay=t.sgd_weight_decay)
     raise ValueError(f"unknown optimizer {family!r}")

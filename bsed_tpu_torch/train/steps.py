@@ -343,9 +343,9 @@ def create_train_state(cfg: Config, modules: TrainModules,
         "step": 0, "params": params, "batch_stats": stats,
         "ema_params": ema_params, "ema_batch_stats": ema_stats})
     if state.discriminator is not None:
-        weights.load_disc(state.discriminator,
-                          *weights.init_disc_params(state.discriminator,
-                                                    d_seed))
+        weights.load_named(state.discriminator,
+                           *weights.init_disc_params(state.discriminator,
+                                                     d_seed))
     return state
 
 

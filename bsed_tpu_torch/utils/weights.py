@@ -37,7 +37,7 @@ them off a ``bsed_tpu`` TrainState without importing JAX;
 ``export_train_state`` writes them back, so tests compare the two
 frameworks leaf by leaf. A state with a discriminator (the adaptation
 stage) adds ``disc_params`` and ``disc_batch_stats`` (the discriminator's
-flax trees, ``disc_param_map``; {} for the MLP flavours, which have no
+flax trees, ``named_param_map``; {} for the MLP flavours, which have no
 BatchNorm), and the aux optimizers' states ``disc_opt_state`` and
 ``enc_opt_state``, each a dict of the same slots (``mu``, ``nu``,
 ``count`` or ``trace``) over the discriminator's and the encoder's trees.
@@ -352,28 +352,29 @@ def encoder_param_map(model):
             in train_param_map(model) if path[0] == "encoder"]
 
 
-def disc_param_map(disc) -> List[Tuple[Tuple[str, ...], nn.Parameter,
-                                       str]]:
-    """(flax path, parameter, layout kind) of a discriminator
-    (``models/discriminators``): its module names are the flax names."""
+def named_param_map(module) -> List[Tuple[Tuple[str, ...], nn.Parameter,
+                                         str]]:
+    """(flax path, parameter, layout kind) of a module whose submodule
+    names are the flax names: the discriminators
+    (``models/discriminators``) and the taggers (``models/resnet``)."""
     out = []
-    for name, mod in disc.named_modules():
+    for name, mod in module.named_modules():
         base = tuple(name.split(".")) if name else ()
-        if isinstance(mod, nn.Linear):
-            out += [(base + ("kernel",), mod.weight, "dense"),
-                    (base + ("bias",), mod.bias, "plain")]
-        elif isinstance(mod, nn.Conv2d):
-            out += [(base + ("kernel",), mod.weight, "conv"),
-                    (base + ("bias",), mod.bias, "plain")]
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            kind = "dense" if isinstance(mod, nn.Linear) else "conv"
+            out.append((base + ("kernel",), mod.weight, kind))
+            if mod.bias is not None:
+                out.append((base + ("bias",), mod.bias, "plain"))
         elif isinstance(mod, TorchBatchNorm):
             out += [(base + ("scale",), mod.weight, "plain"),
                     (base + ("bias",), mod.bias, "plain")]
     return out
 
 
-def disc_stat_map(disc) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
+def named_stat_map(module) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """(flax batch_stats path, running-stat buffer) of the same modules."""
     out = []
-    for name, mod in disc.named_modules():
+    for name, mod in module.named_modules():
         if isinstance(mod, TorchBatchNorm):
             base = tuple(name.split("."))
             out += [(base + ("mean",), mod.running_mean),
@@ -381,19 +382,22 @@ def disc_stat_map(disc) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
     return out
 
 
-def load_disc(disc, params: Mapping, stats: Mapping) -> None:
-    for path, param, kind in disc_param_map(disc):
+def load_named(module, params: Mapping, stats: Mapping) -> None:
+    """A discriminator or a tagger from its flax-layout trees."""
+    for path, param, kind in named_param_map(module):
         _set(param, _TO_TORCH[kind](np.asarray(_get(params, path),
                                                np.float32)))
-    for path, buf in disc_stat_map(disc):
+    for path, buf in named_stat_map(module):
         _set(buf, _get(stats, path))
 
 
-def export_disc(disc) -> Tuple[Dict, Dict]:
+def export_named(module) -> Tuple[Dict, Dict]:
+    """(params, batch_stats) of a discriminator or a tagger as
+    flax-layout numpy trees: the inverse of ``load_named``."""
     params, stats = {}, {}
-    for path, param, kind in disc_param_map(disc):
+    for path, param, kind in named_param_map(module):
         _put(params, path, _TO_FLAX[kind](_np(param.detach().cpu())))
-    for path, buf in disc_stat_map(disc):
+    for path, buf in named_stat_map(module):
         _put(stats, path, _np(buf.detach().cpu()))
     return params, stats
 
@@ -405,7 +409,7 @@ def init_disc_params(disc, seed: int = 0) -> Tuple[Dict, Dict]:
     statistics 0 and 1."""
     gen = torch.Generator().manual_seed(seed)
     params, stats = {}, {}
-    for path, param, kind in disc_param_map(disc):
+    for path, param, kind in named_param_map(disc):
         shape = tuple(param.shape)
         if path[-1] == "kernel":
             value = I.normal_init(gen, shape)
@@ -414,7 +418,33 @@ def init_disc_params(disc, seed: int = 0) -> Tuple[Dict, Dict]:
         else:
             value = torch.zeros(shape)
         _put(params, path, _TO_FLAX[kind](_np(value)))
-    for path, buf in disc_stat_map(disc):
+    for path, buf in named_stat_map(disc):
+        fill = np.zeros if path[-1] == "mean" else np.ones
+        _put(stats, path, fill(tuple(buf.shape), np.float32))
+    return params, stats
+
+
+def init_tagger(cfg, arch: str, gen: torch.Generator
+                ) -> Tuple[Dict, Dict]:
+    """(params, batch_stats) of a fresh tagger (``models/resnet``) in the
+    flax layout, with ``bsed_tpu``'s ``model.init`` distributions drawn
+    from ``gen``: conv and dense kernels lecun-normal, biases 0,
+    BatchNorm scale 1 and bias 0, running mean 0 and variance 1. Built
+    from the module's shapes, with no forward."""
+    from bsed_tpu_torch.models.resnet import build_tagger
+
+    model = build_tagger(cfg, arch)
+    params, stats = {}, {}
+    for path, param, kind in named_param_map(model):
+        shape = _TO_FLAX[kind](np.empty(tuple(param.shape))).shape
+        if path[-1] == "kernel":
+            value = _np(I.lecun_normal(gen, shape))
+        elif path[-1] == "scale":
+            value = np.ones(shape, np.float32)
+        else:
+            value = np.zeros(shape, np.float32)
+        _put(params, path, value)
+    for path, buf in named_stat_map(model):
         fill = np.zeros if path[-1] == "mean" else np.ones
         _put(stats, path, fill(tuple(buf.shape), np.float32))
     return params, stats
@@ -424,7 +454,7 @@ def load_crnnda(model, params: Mapping, stats: Mapping) -> None:
     """A ``models.crnn.CRNNDA`` from its trees: {"crnn": CRNN's tree,
     "discriminator": FrameDiscriminatorGRL's}."""
     load_crnn(model.crnn, params["crnn"], stats["crnn"])
-    load_disc(model.discriminator, params["discriminator"], {})
+    load_named(model.discriminator, params["discriminator"], {})
 
 
 def load_train_state(state, trees: Mapping) -> None:
@@ -439,10 +469,10 @@ def load_train_state(state, trees: Mapping) -> None:
     _load_opt(state.optimizer, train_param_map(state.model), trees)
     if state.discriminator is not None and \
             trees.get("disc_params") is not None:
-        load_disc(state.discriminator, trees["disc_params"],
+        load_named(state.discriminator, trees["disc_params"],
                   trees["disc_batch_stats"])
         _load_opt(state.disc_optimizer,
-                  disc_param_map(state.discriminator),
+                  named_param_map(state.discriminator),
                   trees.get("disc_opt_state") or {})
         _load_opt(state.enc_optimizer, encoder_param_map(state.model),
                   trees.get("enc_opt_state") or {})
@@ -459,10 +489,10 @@ def export_train_state(state) -> Dict:
            "ema_params": ema_params, "ema_batch_stats": ema_stats}
     out.update(_export_opt(state.optimizer, train_param_map(state.model)))
     if state.discriminator is not None:
-        out["disc_params"], out["disc_batch_stats"] = export_disc(
+        out["disc_params"], out["disc_batch_stats"] = export_named(
             state.discriminator)
         out["disc_opt_state"] = _export_opt(
-            state.disc_optimizer, disc_param_map(state.discriminator))
+            state.disc_optimizer, named_param_map(state.discriminator))
         out["enc_opt_state"] = _export_opt(state.enc_optimizer,
                                            encoder_param_map(state.model))
     return out

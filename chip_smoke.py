@@ -102,17 +102,30 @@ use, all sources in parallel) and drives every slice of the port:
     kernel step against the plain step; ``train --preset
     baseline_adaptation --perf -s 96``, a resume at the stage boundary
     (the discriminator fresh, the rest from epoch_0) and ``eval
-    --store-dir`` through the CLI's ``main``.
+    --store-dir`` through the CLI's ``main``;
+  * the weak tagger (``tagger_path``): ResNet-18 and VGG
+    (``TaggingTrainer``), each with and without its mean teacher, at 12
+    SYN + 12 real full-width clips: the step's operations, 2 warm-up and
+    5 timed steps with TF32 off and on, peak memory and one profiled step
+    (busy share, launches); ResNet with its teacher and VGG on the card
+    against the CPU (2 + 2 clips, TF32 off: posteriors, loss, statistics,
+    Adam's moment); then ``tag-train --weights-file`` an ImageNet-shaped
+    torchvision state dict and ``pseudo-label`` through the CLI in
+    subprocesses (TF32 off, as they print) on a full-width ``--data-root``
+    and ``train --preset baseline_mt_isp --perf --pseudo-labels``
+    in-process, with K2's train form and K3 exactly 6 and 3 times a step
+    and K2's eval form and K4 3 and 2 times a validation batch.
 
 One JSON line per phase; then the card's name and power limit as
 nvidia-smi gives them, the kernels line, and last ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero before the last line. Needs
 one CUDA device; imports no JAX. ``--profile-dir`` also writes the
 torch.profiler tables of one serving batch, one fused-stem batch, one
-train step, one step of each of ``PROFILED_PRESETS`` and one of
-``DA_PROFILED`` to ``DIR/serve_profile.txt``,
+train step, one step of each of ``PROFILED_PRESETS``, one of
+``DA_PROFILED`` and one of each tagger to ``DIR/serve_profile.txt``,
 ``DIR/fused_stem_profile.txt``, ``DIR/train_profile.txt``,
-``DIR/<preset>_<form>_profile.txt`` and ``DIR/da_<run>_<form>_profile.txt``.
+``DIR/<preset>_<form>_profile.txt``, ``DIR/da_<run>_<form>_profile.txt``
+and ``DIR/tagger_<arch>[_mt]_tf32_<off|on>_profile.txt``.
 """
 from __future__ import annotations
 
@@ -1518,21 +1531,29 @@ N_SOUNDSCAPES = 64
 RAW_GATE = 2e-3                   # float32 serving gate (path_equality)
 
 
-def _predict_cli(args, tag):
-    """``python -m bsed_tpu_torch.cli predict ARGS`` in a subprocess from
-    the checkout's root (its own TF32 settings: the CLI's); returns the
-    JSON line it prints last, with the subprocess's wall seconds."""
+def _cli_subprocess(argv, tag):
+    """``python -m bsed_tpu_torch.cli ARGV`` in a subprocess from the
+    checkout's root (its own TF32 settings: the CLI's); (stdout, the JSON
+    line it prints last, wall seconds)."""
     import os
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "bsed_tpu_torch.cli",
-                           "predict", *args], cwd=root, capture_output=True,
-                          text=True, timeout=600)
+                           *argv], cwd=root, capture_output=True, text=True,
+                          timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"predict ({tag}) exited {proc.returncode}:\n"
+        raise RuntimeError(f"{tag} exited {proc.returncode}:\n"
                            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return proc.stdout, json.loads(proc.stdout.strip().splitlines()[-1]), \
+        wall
+
+
+def _predict_cli(args, tag):
+    """``python -m bsed_tpu_torch.cli predict ARGS`` in a subprocess
+    (``_cli_subprocess``); returns the JSON line it prints last, with the
+    subprocess's wall seconds."""
+    _, out, wall = _cli_subprocess(["predict", *args], f"predict ({tag})")
     out["subprocess_wall_s"] = wall
     out["recording_s_per_wall_s"] = out["audio_seconds"] / \
         out["seconds"]["total"]
@@ -2876,6 +2897,336 @@ def adaptation_path(torch, dev, card, profile_dir=None):
     return launches
 
 
+TAGGER_RUNS = (("resnet", False), ("resnet", True), ("vgg", False),
+               ("vgg", True))
+N_TAG_WARMUP, N_TAG_TIMED = 2, 5
+TAG_CPU_CLIPS = 2                 # SYN and real clips of card-vs-CPU
+TAG_GATES = {"posteriors_abs": 1e-4, "loss_rel": 1e-4, "bn_stats_rel": 1e-4,
+             "mu_rel": 2e-2}
+TF32_FLOPS = 495e12               # dense TF32 tensor-core rate
+# the cycle's fixture: SYN, weak, unlabeled and validation clips
+CYCLE_CLIPS = {"syn": 48, "weak": 24, "unlabeled": 96, "val": 24}
+
+
+def tagger_batch(torch, cfg, dev, n, seed):
+    """``n`` SYN and ``n`` real full-width linear-mel clips with weak
+    targets, made on ``dev`` from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (n, cfg.audio.max_frames, cfg.audio.n_mels)
+
+    def weak():
+        return (torch.rand((n, cfg.nclass), generator=gen, device=dev)
+                > 0.8).float()
+    return {"syn": torch.randn(shape, generator=gen, device=dev).abs(),
+            "syn_weak": weak(),
+            "real": torch.randn(shape, generator=gen, device=dev).abs(),
+            "real_weak": weak()}
+
+
+def tagger_steps(torch, dev, arch, mean_teacher, profile_dir=None):
+    """One tagger (``TaggingTrainer`` on the card, preset baseline's
+    parity config, 12 + 12 clips): the step's operations
+    (``FlopCounterMode``), 2 warm-up and 5 timed steps with TF32 off and
+    then on (``utils/device.float32_precision``), peak memory, and one
+    profiled step of each (device time, busy share, launches)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.train.tagging_trainer import TaggingTrainer
+    from bsed_tpu_torch.utils.device import float32_precision
+
+    cfg = get_config("baseline")
+    trainer = TaggingTrainer(cfg, arch=arch, mean_teacher=mean_teacher,
+                             device=dev)
+    batch = tagger_batch(torch, cfg, dev, B_TRAIN, 21)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with FlopCounterMode(display=False) as counter:
+        trainer.train_step(batch, gen)
+    flops = counter.get_total_flops()
+    name = f"{arch}{'_mt' if mean_teacher else ''}"
+    out = {"arch": arch, "mean_teacher": mean_teacher,
+           "step_gflop": flops / 1e9,
+           "bound_ms_f32": flops / H100_FLOPS["float32"] * 1e3,
+           "bound_ms_tf32": flops / TF32_FLOPS * 1e3}
+    for tag, precision in (("tf32_off", "highest"), ("tf32_on", "fast")):
+        with float32_precision(precision) as tf32:
+            for _ in range(N_TAG_WARMUP):
+                trainer.train_step(batch, gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(N_TAG_TIMED):
+                loss = trainer.train_step(batch, gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / N_TAG_TIMED * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            events, attr, rows = device_rows(
+                torch, lambda: trainer.train_step(batch, gen))
+            write_table(events, attr, profile_dir,
+                        f"tagger_{name}_{tag}_profile.txt")
+        device_ms = sum(t for t, _, _ in rows) / 1e3
+        assert math.isfinite(float(loss)), (name, tag, float(loss))
+        out[tag] = {"ms_per_step": ms, "peak_gib": peak,
+                    "device_ms": device_ms, "busy_share": device_ms / ms,
+                    "launches": sum(n for _, _, n in rows),
+                    "loss": float(loss), "tf32": tf32,
+                    "top": [{"name": k[:60], "ms": t / 1e3, "calls": n}
+                            for t, k, n in rows[:5]]}
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def tagger_card_vs_cpu(torch, dev, arch, mean_teacher):
+    """One forward (eval mode) and one step of the same fresh tagger on
+    the card and on the CPU, TF32 off, ``TAG_CPU_CLIPS`` + ``TAG_CPU_CLIPS``
+    full-width clips; the teacher's noise and VGG's keep mask drawn once
+    and fed to both. Relative Frobenius distances (the Adam moment is
+    0.1·g after one step); the gradients carry the ReLU and max-pool
+    decisions that float32 roundings turn (tests/
+    test_torch_tagging_trainer.py), hence their looser gate."""
+    import numpy as np
+
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.train.tagging_trainer import TaggingTrainer
+    from bsed_tpu_torch.utils import weights
+    from bsed_tpu_torch.utils.device import float32_precision
+
+    cfg = get_config("baseline")
+    cpu = torch.device("cpu")
+    batch = tagger_batch(torch, cfg, cpu, TAG_CPU_CLIPS, 31)
+    gen = torch.Generator().manual_seed(2)
+    draws = {}
+    if mean_teacher:
+        draws["noise"] = torch.randn(batch["real"].shape, generator=gen)
+    if arch == "vgg":
+        draws["keep"] = torch.rand((TAG_CPU_CLIPS, 4096), generator=gen) < 0.5
+    res = {}
+    with float32_precision("highest"):
+        for where in (dev, cpu):
+            t = TaggingTrainer(cfg, arch=arch, mean_teacher=mean_teacher,
+                               device=where)
+            post = t.predict_weak(batch["syn"])
+            t0 = time.perf_counter()
+            loss = t.train_step({k: v.to(where) for k, v in batch.items()},
+                                torch.Generator(device=where).manual_seed(0),
+                                {k: v.to(where) for k, v in draws.items()})
+            loss = float(loss)
+            seconds = time.perf_counter() - t0
+            _, stats = weights.export_named(t.model)
+            mu = weights._export_opt(
+                t.optimizer, weights.named_param_map(t.model))["mu"]
+            res[where.type] = (post, loss, stats, mu, seconds)
+            del t
+    flat = lambda tree: torch.from_numpy(np.concatenate([  # noqa: E731
+        np.ravel(v) for _, v in sorted(state_leaves(tree).items())]))
+    (p_c, l_c, s_c, m_c, sec_c), (p_h, l_h, s_h, m_h, sec_h) = \
+        res["cuda"], res["cpu"]
+    out = {"arch": arch, "mean_teacher": mean_teacher,
+           "clips": TAG_CPU_CLIPS,
+           "posteriors_max_abs": float(np.abs(p_c - p_h).max()),
+           "posteriors_rel_fro": rel_fro(torch.from_numpy(p_c),
+                                         torch.from_numpy(p_h)),
+           "loss_rel": abs(l_c - l_h) / abs(l_h),
+           "bn_stats_rel_fro": rel_fro(flat(s_c), flat(s_h)),
+           "mu_rel_fro": rel_fro(flat(m_c), flat(m_h)),
+           "step_s_card": sec_c, "step_s_cpu": sec_h}
+    g = TAG_GATES
+    assert (out["posteriors_max_abs"] <= g["posteriors_abs"]
+            and out["loss_rel"] <= g["loss_rel"]
+            and out["bn_stats_rel_fro"] <= g["bn_stats_rel"]
+            and out["mu_rel_fro"] <= g["mu_rel"]), out
+    return out
+
+
+def _imagenet_resnet18_state(torch, seed):
+    """A torchvision-key resnet18 state dict of ImageNet's shapes (a
+    3-channel stem, a 1000-class fc) with random tensors from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, o, i, k):
+        sd[name + ".weight"] = torch.randn((o, i, k, k), generator=gen) * \
+            math.sqrt(2.0 / (i * k * k))
+
+    def bn(name, c):
+        sd[name + ".weight"] = 1.0 + 0.1 * torch.randn(c, generator=gen)
+        sd[name + ".bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[name + ".running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[name + ".running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[name + ".num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, f in enumerate((64, 128, 256, 512)):
+        for b in range(2):
+            p = f"layer{s + 1}.{b}"
+            conv(p + ".conv1", f, cin if b == 0 else f, 3)
+            bn(p + ".bn1", f)
+            conv(p + ".conv2", f, f, 3)
+            bn(p + ".bn2", f)
+            if b == 0 and s > 0:
+                conv(p + ".downsample.0", f, cin, 1)
+                bn(p + ".downsample.1", f)
+        cin = f
+    sd["fc.weight"] = 0.01 * torch.randn((1000, 512), generator=gen)
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def _write_cycle_root(root, cfg, seed=41):
+    """The ``--data-root`` layout (``CYCLE_CLIPS``): full-width npy dumps,
+    event tables written with ``csv``; the unlabeled split has none."""
+    import csv
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = cfg.data
+    splits = {"syn": os.path.join(d.synth_root, d.synth_feature_subdir),
+              "weak": os.path.join(d.dataset_root, d.train_weak_subdir),
+              "unlabeled": os.path.join(d.dataset_root,
+                                        d.train_unlabeled_subdir),
+              "val": os.path.join(d.dataset_root, d.val_subdir)}
+    for split, sub in splits.items():
+        wav = os.path.join(root, sub, "wav")
+        ann = os.path.join(root, sub, "annotation")
+        os.makedirs(wav, exist_ok=True)
+        os.makedirs(ann, exist_ok=True)
+        for i in range(CYCLE_CLIPS[split]):
+            name = f"{split}_{i:03d}"
+            np.save(os.path.join(wav, name + ".npy"), np.abs(
+                rng.standard_normal((cfg.audio.max_frames,
+                                     cfg.audio.n_mels))).astype(np.float32))
+            if split == "unlabeled":
+                continue
+            with open(os.path.join(ann, name + ".txt"), "w",
+                      newline="") as fh:
+                w = csv.writer(fh, delimiter="\t", lineterminator="\n")
+                w.writerow(["event_label", "onset", "offset"])
+                for _ in range(int(rng.integers(1, 4))):
+                    onset = float(rng.uniform(0.0, 8.0))
+                    w.writerow([cfg.bird_list[int(rng.integers(cfg.nclass))],
+                                onset, min(onset + float(rng.uniform(0.3,
+                                                                     2.0)),
+                                           10.0)])
+    return os.path.join(root, splits["unlabeled"])
+
+
+def tagger_cycle(torch):
+    """The pseudo-labeling cycle through the CLI on a full-width
+    ``--data-root`` (``CYCLE_CLIPS``): ``tag-train --epochs 2
+    --weights-file`` an ImageNet-shaped torchvision state dict (the stem
+    and fc skipped) ``--save``, then ``pseudo-label`` over the unlabeled
+    split, both in subprocesses (TF32 off, as they print), then ``train
+    --preset baseline_mt_isp --perf --pseudo-labels --epochs 1``
+    in-process with its launches by kind: K2 train and K3 in
+    ``train_epoch`` (6 and 3 a step), K2 eval and K4 in ``evaluate`` (3
+    and 2 a val batch). Returns (summary, launches)."""
+    import csv
+    import os
+    import tempfile
+
+    from bsed_tpu_torch import cli
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.data.codec import ManyHotEncoder
+    from bsed_tpu_torch.data.datasets import PseudoLabeledDataset
+
+    cfg = get_config("baseline")
+    out, rec = {}, FitRecorder(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "root")
+        t0 = time.perf_counter()
+        unlab_dir = _write_cycle_root(root, cfg)
+        out["fixture_s"] = time.perf_counter() - t0
+        init = os.path.join(tmp, "imagenet_resnet18.pt")
+        torch.save(_imagenet_resnet18_state(torch, 3), init)
+        weights = os.path.join(tmp, "tagger.pt")
+        stdout, last, wall = _cli_subprocess(
+            ["tag-train", "--data-root", root, "--epochs", "2",
+             "--weights-file", init, "--save", weights], "tag-train")
+        epochs = [line for line in stdout.splitlines()
+                  if line.startswith("{'epoch'")]
+        assert len(epochs) == 2 and os.path.exists(weights), stdout[-2000:]
+        kept = [line for line in stdout.splitlines()
+                if "kept fresh init for" in line]
+        assert kept and "stem_conv" in kept[0] and "fc" in kept[0], kept
+        assert last["tf32"] == {"matmul_tf32": False, "cudnn_tf32": False}
+        out["tag_train"] = {"epochs": epochs, "epoch_s": last["epoch_seconds"],
+                            "subprocess_wall_s": wall, "tf32": last["tf32"],
+                            "pretrained_skipped": kept[0].split("for ")[-1]}
+        pl_tsv = os.path.join(tmp, "pl.tsv")
+        stdout, last, wall = _cli_subprocess(
+            ["pseudo-label", "--data-root", root, "--weights", weights,
+             "--out-tsv", pl_tsv], "pseudo-label")
+        assert last["tf32"] == {"matmul_tf32": False, "cudnn_tf32": False}
+        with open(pl_tsv, newline="") as fh:
+            rows = list(csv.reader(fh, delimiter="\t"))[1:]
+        assert len(rows) == last["clips"] == CYCLE_CLIPS["unlabeled"], last
+        codec = ManyHotEncoder(cfg.bird_list)
+        n_read = len(PseudoLabeledDataset(unlab_dir, pl_tsv, codec, cfg)
+                     ._weak)
+        assert n_read == len(rows), (n_read, len(rows))
+        out["pseudo_label"] = {
+            "rows": len(rows), "rows_labeled": sum(bool(r[1]) for r in rows),
+            "labels": sum(len(r[1].split(",")) for r in rows if r[1]),
+            "seconds": last["seconds"],
+            "clips_per_s": last["clips"] / last["seconds"],
+            "subprocess_wall_s": wall, "tf32": last["tf32"]}
+        rec.run = "pl_train"
+        store = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        with rec:
+            best = cli.main(["train", "--data-root", root, "--preset",
+                             "baseline_mt_isp", "--perf", "--epochs", "1",
+                             "--pseudo-labels", pl_tsv, "--store-dir",
+                             store])
+            torch.cuda.synchronize()
+        out["train_pseudo_labels_s"] = time.perf_counter() - t0
+    steps = CYCLE_CLIPS["syn"] // B_TRAIN
+    val_batches = -(-CYCLE_CLIPS["val"] // B_TRAIN)
+    launches = {"stem_epilogue_train": 0, "stem_epilogue_bwd": 0,
+                "stem_epilogue": 0, "gru_kernel": 0}
+    for c in rec.of("pl_train", "train_epoch"):
+        assert (c["k2"], c["k3"], c["k4"]) == (6 * steps, 3 * steps, 0), c
+        launches["stem_epilogue_train"] += c["k2"]
+        launches["stem_epilogue_bwd"] += c["k3"]
+    for c in rec.of("pl_train", "evaluate"):
+        assert (c["k2"], c["k3"], c["k4"]) == (3 * val_batches, 0,
+                                               2 * val_batches), c
+        launches["stem_epilogue"] += c["k2"]
+        launches["gru_kernel"] += c["k4"]
+    assert all(launches.values()), launches
+    assert math.isfinite(best["loss"]), best
+    out["train_pseudo_labels"] = {
+        "loss": best["loss"], "steps": steps, "val_batches": val_batches,
+        "launches": launches}
+    return out, launches
+
+
+def tagger_path(torch, dev, card, profile_dir=None):
+    """The weak tagger on the card: the four taggers' steps
+    (``tagger_steps``), the card against the CPU (``tagger_card_vs_cpu``)
+    for ResNet with its teacher and VGG, and the pseudo-labeling cycle
+    through the CLI (``tagger_cycle``). Returns the cycle's last step's
+    launches by kernel entry."""
+    t_phase = time.perf_counter()
+    runs = [tagger_steps(torch, dev, a, mt, profile_dir)
+            for a, mt in TAGGER_RUNS]
+    vs_cpu = [tagger_card_vs_cpu(torch, dev, a, mt)
+              for a, mt in (("resnet", True), ("vgg", False))]
+    torch.cuda.empty_cache()
+    cycle, launches = tagger_cycle(torch)
+    emit(phase="tagger_path", batch_syn=B_TRAIN, batch_real=B_TRAIN,
+         warmup_steps=N_TAG_WARMUP, timed_steps=N_TAG_TIMED, steps=runs,
+         card_vs_cpu=vs_cpu, card_vs_cpu_gates=TAG_GATES, cycle=cycle,
+         cycle_clips=CYCLE_CLIPS, seconds=time.perf_counter() - t_phase,
+         card=card)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-dir", default=None,
@@ -2944,6 +3295,8 @@ def main() -> int:
     preset_launches = presets_path(torch, dev, smi, args.profile_dir)
     torch.cuda.empty_cache()
     da_launches = adaptation_path(torch, dev, smi, args.profile_dir)
+    torch.cuda.empty_cache()
+    tag_launches = tagger_path(torch, dev, smi, args.profile_dir)
 
     for k in (k1, k2, k2t, k3):
         k["launches"] = launches[k["name"]]
@@ -2957,6 +3310,8 @@ def main() -> int:
         k["launches_presets_path"] = preset_launches[k["name"]]
     for k in (k2, k2t, k3, k4):  # adaptation_path's driven runs
         k["launches_adaptation_path"] = da_launches[k["name"]]
+    for k in (k2, k2t, k3, k4):  # tagger_path: train --pseudo-labels
+        k["launches_tagger_path"] = tag_launches[k["name"]]
     kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -5,10 +5,11 @@ feature dumps against bsed_tpu's ``make_encode_fn`` (1e-4),
 state carried into both stores (tests/test_torch_eval.py's gates:
 posteriors 1e-4; scores equal, or every flipped binarized frame within
 1e-4 of the threshold),
-``_apply_flags`` against bsed_tpu's, and the subcommands not ported yet
-(``tag-train`` and ``pseudo-label``; the other five are held against
-bsed_tpu's in ``test_torch_predict.py``, ``test_torch_preprocess.py`` and
-``test_torch_data_tools.py``).
+``_apply_flags`` against bsed_tpu's, and the seven subcommands ported
+last exiting on a missing input naming it, not a ROADMAP item (they are
+held against bsed_tpu's in ``test_torch_predict.py``,
+``test_torch_preprocess.py``, ``test_torch_data_tools.py`` and
+``test_torch_tag_cycle.py``).
 
 The store-dir runs use ``--perf`` (bfloat16, the throughput configuration
 a user trains with) on 2 s clips at 3.2 kHz (``--tiny-audio``); the
@@ -238,16 +239,17 @@ def test_apply_flags_matches_jax(preset, flags):
 
 
 # (arguments, what the exit message names); TMP is the test's directory.
-# tag-train and pseudo-label exit naming their ROADMAP item; the five
-# subcommands ported since no longer exit naming item 10: on a missing
-# input file they exit naming the file, and on an empty input directory
-# (None) they run to the end
+# The seven subcommands ported last no longer exit naming a ROADMAP item
+# (10 or 8b): on a missing input file they exit naming the file, and on
+# an empty input directory (None) they run to the end
 NOT_PORTED = {
     "predict": (["--audio", "TMP/a.wav", "--out-tsv", "TMP/e.tsv",
                  "--torch-checkpoint", "TMP/missing.pt", "--device", "cpu"],
                 "TMP/missing.pt"),
-    "tag-train": ([], "item 8b"),
-    "pseudo-label": (["--weights", "w", "--out-tsv", "p.tsv"], "item 8b"),
+    "tag-train": (["--weights-file", "TMP/missing.pt", "--device", "cpu"],
+                  "TMP/missing.pt"),
+    "pseudo-label": (["--weights", "TMP/missing.pt", "--out-tsv",
+                      "TMP/p.tsv", "--device", "cpu"], "TMP/missing.pt"),
     "visualize": (["--syn-features", "TMP/a", "--real-features", "TMP/b",
                    "--out-dir", "TMP/o"], "TMP/a"),
     "preprocess": (["--dataset-root", "TMP/d", "--device", "cpu"], None),
@@ -268,9 +270,8 @@ def test_unported_subcommand_names_its_item(command, tmp_path):
         cli.main([command, *args])
     assert isinstance(exc.value.code, str)        # a message: exit code 1
     assert names.replace("TMP", str(tmp_path)) in exc.value.code
-    assert "item 10" not in exc.value.code
-    if names.startswith("item"):
-        assert command in exc.value.code and "not ported" in exc.value.code
+    assert "item" not in exc.value.code and "not ported" not in \
+        exc.value.code
 
 
 def test_parser_has_every_jax_subcommand_and_flag():

@@ -1005,3 +1005,134 @@ def test_predict_ragged_batch_kernels_match_plain(dev, raw_audio):
     highest = predict_recordings(cfg, params, stats, raw_audio[1:],
                                  device=dev, precision="highest")
     assert highest["tf32"] == {"matmul_tf32": False, "cudnn_tf32": False}
+
+
+# -- the weak tagger (models/resnet.py, train/tagging_trainer.py) ---------
+TAG_AUDIO = AudioConfig(sr=3200, hop_size=160, max_len_seconds=2.0)
+
+
+def _tagger_pair(dev, arch, mean_teacher=False, dtype=torch.float32):
+    """The same fresh tagger on the card and on the CPU (the init draws
+    from one CPU generator either way), in ``dtype``."""
+    from bsed_tpu_torch.train.tagging_trainer import TaggingTrainer
+
+    cfg = get_config("baseline").replace(audio=TAG_AUDIO)
+    pair = [TaggingTrainer(cfg, arch=arch, mean_teacher=mean_teacher,
+                           device=d) for d in (dev, "cpu")]
+    for t in pair:
+        t.model.to(dtype)
+        if t.ema_model is not None:
+            t.ema_model.to(dtype)
+    return cfg, pair
+
+
+def _tree_leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tree_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _tagger_batch(cfg, n=4, seed=5, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    shape = (n, cfg.audio.max_frames, cfg.audio.n_mels)
+    return {"syn": np.abs(rng.standard_normal(shape)).astype(dtype),
+            "syn_weak": (rng.random((n, cfg.nclass)) > 0.8).astype(dtype),
+            "real": np.abs(rng.standard_normal(shape)).astype(dtype),
+            "real_weak": (rng.random((n, cfg.nclass)) > 0.7).astype(dtype)}
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("arch", ["resnet", "vgg"])
+def test_tagger_forward_card_matches_cpu(dev, arch, train):
+    """Both taggers' forwards, TF32 off, at 1e-4 (VGG's keep mask fed to
+    both in training mode), and the running statistics a training-mode
+    forward leaves at 1e-5 + 1e-4 relative."""
+    from bsed_tpu_torch.ops.mel import amplitude_to_db
+    from bsed_tpu_torch.utils import weights
+
+    cfg, (card, cpu) = _tagger_pair(dev, arch)
+    x = amplitude_to_db(torch.from_numpy(_tagger_batch(cfg)["syn"]))
+    keep = torch.rand((4, 4096), generator=torch.Generator().manual_seed(1)
+                      ) < 0.5
+    outs, stats = [], []
+    for t, d in ((card, dev), (cpu, "cpu")):
+        with torch.no_grad():
+            outs.append(t.model.train(train)(x.to(d), keep=keep.to(d)).cpu())
+        stats.append(weights.export_named(t.model)[1])
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4
+    got = dict(_tree_leaves(stats[0]))
+    for path, want in _tree_leaves(stats[1]):
+        assert (np.abs(got[path] - want) <= 1e-5 + 1e-4 * np.abs(want)
+                ).all(), path
+
+
+@pytest.mark.parametrize("case", ["resnet", "resnet_mt", "vgg"])
+def test_tagger_step_card_matches_cpu(dev, case):
+    """One step of the three cases on the card against the CPU in float64
+    (float32 ReLU and max-pool decisions turn on roundings: see
+    tests/test_torch_tagging_trainer.py): the loss 1e-4 relative, Adam's
+    first moment at 3e-4 + 1e-4 relative on mu/0.1, the statistics of
+    student and teacher at 1e-5 + 1e-4 relative; the noise and VGG's mask
+    drawn once and fed to both."""
+    from bsed_tpu_torch.utils import weights
+
+    arch, mt = {"resnet": ("resnet", False), "resnet_mt": ("resnet", True),
+                "vgg": ("vgg", False)}[case]
+    cfg, pair = _tagger_pair(dev, arch, mt, torch.float64)
+    batch = _tagger_batch(cfg, dtype=np.float64)
+    gen = torch.Generator().manual_seed(3)
+    draws = {"noise": torch.randn((4,) + batch["real"].shape[1:],
+                                  generator=gen, dtype=torch.float64),
+             "keep": torch.rand((4, 4096), generator=gen) < 0.5}
+    res = []
+    for t, d in zip(pair, (dev, "cpu")):
+        loss = t.train_step({k: torch.from_numpy(v).to(d)
+                             for k, v in batch.items()},
+                            torch.Generator(device=d).manual_seed(0),
+                            {k: v.to(d) for k, v in draws.items()})
+        trees = {"loss": float(loss),
+                 "mu": weights._export_opt(
+                     t.optimizer, weights.named_param_map(t.model))["mu"],
+                 "stats": weights.export_named(t.model)[1]}
+        if mt:
+            trees["ema_stats"] = weights.export_named(t.ema_model)[1]
+        res.append(trees)
+    got, want = res
+    assert abs(got["loss"] - want["loss"]) <= 1e-4 * abs(want["loss"])
+    for key, atol, rtol, scale in (("mu", 3e-4, 1e-4, 10.0),
+                                   ("stats", 1e-5, 1e-4, 1.0),
+                                   ("ema_stats", 1e-5, 1e-4, 1.0)):
+        if key not in want:
+            continue
+        g = dict(_tree_leaves(got[key]))
+        for path, w in _tree_leaves(want[key]):
+            delta = np.abs(g[path] - w) * scale
+            assert (delta <= atol + rtol * np.abs(w) * scale).all(), \
+                (key, path, float(delta.max()))
+
+
+def test_pseudo_label_tsv_card_equals_cpu(dev, tmp_path):
+    """``pseudo-label``'s TSV, the card against the CPU, on 24 synthetic
+    clips at ``TAG_AUDIO``: equal, unless a posterior lies within 1e-4 of
+    the threshold, which the test names."""
+    from bsed_tpu_torch.data.codec import ManyHotEncoder
+    from bsed_tpu_torch.data.datasets import SyntheticDataSource
+    from bsed_tpu_torch.train.tagging_trainer import write_pseudo_labels
+    from bsed_tpu_torch.utils.device import float32_precision
+
+    cfg, (card, cpu) = _tagger_pair(dev, "resnet")
+    unlab = SyntheticDataSource(cfg, n_items=24, seed=3)
+    mel = np.stack([unlab[i][0] for i in range(len(unlab))])
+    with float32_precision("highest"):
+        post = [t.predict_weak(mel) for t in (card, cpu)]
+        files = []
+        for t, name in ((card, "card.tsv"), (cpu, "cpu.tsv")):
+            write_pseudo_labels(t.predict_weak, unlab, str(tmp_path / name),
+                                ManyHotEncoder(cfg.bird_list))
+            files.append((tmp_path / name).read_bytes())
+    assert float(np.abs(post[0] - post[1]).max()) <= 1e-4
+    near = np.abs(post[1] - 0.5) < 1e-4
+    assert not near.any(), f"posteriors at the threshold: {post[1][near]}"
+    assert files[0] == files[1]

@@ -181,8 +181,8 @@ def port_da_step(run, jax_result, folded=False):
 
         def step_then_hand_over(*a, **k):
             out = disc_step(*a, **k)
-            seen["params"], stats = weights.export_disc(disc)
-            weights.load_disc(disc, after["disc_params"], stats)
+            seen["params"], stats = weights.export_named(disc)
+            weights.load_named(disc, after["disc_params"], stats)
             return out
         state.disc_optimizer.step = step_then_hand_over
     with _replayed_da_draws(cfg) as (mix, choice):
@@ -426,7 +426,7 @@ def test_discriminator_matches_jax(name):
         (want_g,) = vjp((jnp.asarray(cot_full), jax.tree.map(
             jnp.zeros_like, mut)))
     disc = p_make()
-    weights.load_disc(disc, params, stats)
+    weights.load_named(disc, params, stats)
     xt = torch.from_numpy(x).requires_grad_(True)
     got = disc(xt)
     (got_g,) = torch.autograd.grad(got, xt, torch.from_numpy(cot_full))
@@ -435,7 +435,7 @@ def test_discriminator_matches_jax(name):
     np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g),
                                rtol=1e-5, atol=1e-5)
     if stats:
-        got_p, got_s = weights.export_disc(disc)
+        got_p, got_s = weights.export_named(disc)
         _assert_trees(got_s, mut["batch_stats"], "disc stats", atol=1e-5,
                       rtol=1e-5)
         assert set(dict(_leaves(got_p))) == set(dict(_leaves(params)))
@@ -464,7 +464,7 @@ def test_discriminator_promotes_bfloat16_like_flax():
         want = jax.jit(lambda i: jmod.apply(variables, i, train=True,
                                             mutable=["batch_stats"])[0])(inp)
         disc = p_make()
-        weights.load_disc(disc, params, stats)
+        weights.load_named(disc, params, stats)
         got = disc(torch.from_numpy(np.asarray(inp.astype(jnp.float32)))
                    .to(torch.bfloat16))
         assert want.dtype == jnp.float32 and got.dtype == torch.float32

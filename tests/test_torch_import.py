@@ -41,7 +41,8 @@ def test_imports_with_jax_blocked():
         "          'models.cnn', 'models.crnn', 'serve', 'ops.grl',\n"
         "          'models.discriminators', 'train.da', 'predict',\n"
         "          'utils.audio', 'data.preprocess', 'data.synthesizer',\n"
-        "          'data.analysis', 'eval.visualize'):\n"
+        "          'data.analysis', 'eval.visualize', 'models.resnet',\n"
+        "          'train.tagging_trainer'):\n"
         "    assert 'bsed_tpu_torch.' + m in mods, m\n"
         "for m in ('torch.utils.tensorboard', 'tensorboard', 'matplotlib',\n"
         "          'sklearn'):\n"
