@@ -29,6 +29,14 @@ print the settings. ``analyze`` and ``visualize`` are host tools
 that is installed). Flags mirror the reference argparse surface
 (main_baseline.py:609-632): ``-fpn``/``--use-fpn``, ``-mt``/
 ``--meanteacher``, ``-ISP``, ``-stage``, ``-level``, ``-s/--subpart-data``.
+
+Data parallelism needs no flag, as in ``bsed_tpu``: under torchrun,
+``train --mesh auto`` (the default) joins the job's group (NCCL, a card a
+rank; gloo with ``--device cpu``), strides the loaders by rank and trains
+one global batch of ``--batch-size`` × ranks; ``predict`` serves over the
+visible cards.
+
+    torchrun --nproc-per-node 8 -m bsed_tpu_torch.cli train --preset ...
 """
 from __future__ import annotations
 
@@ -140,10 +148,12 @@ def _datasets(cfg, args):
     return syn, weak, unlab, val
 
 
-def _dataset_loaders(cfg, args):
-    """(train, val, syn-eval) loaders on ``--device``: on the card the
-    datasets' arrays are resident there (below 4 GiB), so ``train
-    --scan-epoch auto`` runs each epoch on the resident path."""
+def _dataset_loaders(cfg, args, group=None):
+    """(train, val, syn-eval) loaders on ``--device`` (under ``group``,
+    its rank's device, the train loader strided by rank as
+    ``bsed_tpu``'s multi-process loaders are): on the card the datasets'
+    arrays are resident there (below 4 GiB), so ``train --scan-epoch
+    auto`` runs each epoch on the resident path."""
     from bsed_tpu_torch.data.pipeline import EvalLoader, ThreeStreamLoader
 
     syn, weak, unlab, val = _datasets(cfg, args)
@@ -151,14 +161,17 @@ def _dataset_loaders(cfg, args):
     # ½ unlabeled + ¼ syn-strong rows, main.py:729-741)
     layout = ("origin" if cfg.train.isp and
               cfg.train.isp_flavor == "origin" else "default")
+    device = group.device if group is not None else args.device
+    rank, size = (group.rank, group.size) if group is not None else (0, 1)
     train_loader = ThreeStreamLoader(syn, weak, unlab,
                                      batch_size=cfg.train.batch_size,
                                      seed=cfg.train.seed, layout=layout,
-                                     device=args.device)
+                                     process_index=rank, process_count=size,
+                                     device=device)
     val_loader = EvalLoader(val, batch_size=cfg.train.batch_size,
-                            device=args.device)
+                            device=device)
     syn_eval = EvalLoader(syn, batch_size=cfg.train.batch_size,
-                          device=args.device)
+                          device=device)
     return train_loader, val_loader, syn_eval
 
 
@@ -178,13 +191,16 @@ def cmd_train(args):
                       f" (newest checkpoint epoch_{latest})")
     cfg = _apply_flags(
         _resolve_config(args, allow_store=args.start_epoch > 0), args)
-    train_loader, val_loader, syn_eval = _dataset_loaders(cfg, args)
-    # --mesh: one device either way (data parallelism is ROADMAP item 9)
+    # under torchrun --mesh auto trains over the job's ranks
+    from bsed_tpu_torch.parallel.mesh import init_from_env
+    group = init_from_env(args.device) if args.mesh == "auto" else None
+    train_loader, val_loader, syn_eval = _dataset_loaders(cfg, args, group)
     trainer = Trainer(cfg, train_loader, val_loader=val_loader,
                       syn_eval_loader=syn_eval if args.eval_syn else None,
                       store_dir=args.store_dir,
                       use_tensorboard=args.tensorboard,
                       profile_dir=args.profile_dir,
+                      mesh=group if group is not None else "off",
                       grad_flow=args.grad_flow,
                       scan_epoch=args.scan_epoch,
                       device=args.device)
@@ -562,8 +578,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "gradient_flow.png per epoch "
                          "(plot_grad_flow, main_baseline.py:108-123)")
     sp.add_argument("--mesh", choices=("auto", "off"), default="auto",
-                    help="accepted for bsed_tpu's command lines; both train "
-                         "on one device (data parallelism: ROADMAP item 9)")
+                    help="'auto' (default): under torchrun, train "
+                         "data-parallel over the job's ranks (NCCL, a card "
+                         "a rank; gloo with --device cpu), the loaders "
+                         "strided by rank; 'off': this process alone")
     sp.add_argument("--scan-epoch", choices=("auto", "off"), default="auto",
                     help="'auto' (default): when the dataset is resident "
                          "on the device, run each epoch with no wait on the "

@@ -418,6 +418,27 @@ class ThreeStreamLoader:
             yield batch
 
 
+class AssembledLoader:
+    """The global batches of a data-parallel job whose ranks read
+    ``loaders`` (the ranks' process-strided ``ThreeStreamLoader``s, in
+    rank order): every stream of the ranks' batches concatenated in rank
+    order, which is the batch the job's step computes on. One process
+    trains on it as that job's 1-rank reference."""
+
+    def __init__(self, loaders):
+        self.loaders = list(loaders)
+        first = self.loaders[0]
+        self.syn, self.weak, self.unlab = first.syn, first.weak, first.unlab
+
+    def __len__(self):
+        return len(self.loaders[0])
+
+    def epoch(self, epoch_idx: int) -> Iterator[Dict[str, Any]]:
+        for parts in zip(*(ld.epoch(epoch_idx) for ld in self.loaders)):
+            yield {k: (None if parts[0][k] is None
+                       else _cat(*(p[k] for p in parts))) for k in parts[0]}
+
+
 class EvalLoader:
     """Sequential batches of (mel, strong target, filenames, n_valid) with
     a padded final batch, so every batch has one shape.

@@ -124,27 +124,46 @@ def activation_layer(name: str, features: int, dtype=None) -> nn.Module:
     raise ValueError(f"unknown activation {name}")
 
 
-def batch_stats(x: torch.Tensor, groups: int = 1):
+def batch_stats(x: torch.Tensor, groups: int = 1, group=None):
     """(mean, biased var, n) per channel of the last axis in float32, over
     every other axis; ``groups`` > 1 folds the last axis as (groups, C) and
-    reduces over the groups too (the folded stem's fold copies)."""
+    reduces over the groups too (the folded stem's fold copies).
+
+    ``group`` (a ``parallel.mesh.DataGroup``): ``x`` holds this rank's
+    rows of a global batch, and the statistics are the global batch's:
+    the sum, the sum of squares and the count are summed over the group
+    with their gradient (the backward GSPMD takes through ``bsed_tpu``'s
+    global mean), and ``n`` is the global count as a 0-d tensor."""
     x32 = x.float()
     if groups > 1:
         x32 = x32.reshape(*x.shape[:-1], groups, x.shape[-1] // groups)
     dims = tuple(range(x32.ndim - 1))
+    if group is not None:
+        from bsed_tpu_torch.parallel.mesh import group_sum
+        c = x32.shape[-1]
+        n_local = x32.new_full((1,), x32.numel() // c)
+        tot = group_sum(torch.cat([x32.sum(dims), (x32 * x32).sum(dims),
+                                   n_local]), group)
+        n = tot[-1]
+        mean = tot[:c] / n
+        return mean, tot[c:2 * c] / n - mean * mean, n.detach()
     mean = x32.mean(dims)
     var = (x32 * x32).mean(dims) - mean * mean
     return mean, var, x32.numel() // x32.shape[-1]
 
 
 @torch.no_grad()
-def update_running(running_mean, running_var, mean, var, n: int,
+def update_running(running_mean, running_var, mean, var, n,
                    momentum: float = BN_MOMENTUM) -> None:
     """ra = m·ra + (1−m)·batch in place with m = ``momentum`` (flax's
     convention), accumulating the UNBIASED variance (× n/(n−1)) as torch
-    does while normalising with the biased one."""
+    does while normalising with the biased one. ``n``: an int, or a 0-d
+    tensor (a data group's global count)."""
     m = momentum
-    corr = n / (n - 1) if n > 1 else 1.0
+    if torch.is_tensor(n):
+        corr = n / (n - 1).clamp(min=1)
+    else:
+        corr = n / (n - 1) if n > 1 else 1.0
     running_mean.copy_(m * running_mean + (1.0 - m) * mean)
     running_var.copy_(m * running_var + (1.0 - m) * (var * corr))
 
@@ -169,17 +188,30 @@ class TorchBatchNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.momentum = momentum
+        # a parallel.mesh.DataGroup: training statistics over its global
+        # batch (set_batchnorm_group)
+        self.group = None
 
     def forward(self, x):
         dt = self.dtype or x.dtype
         if self.training:
-            mean, var, n = batch_stats(x)
+            mean, var, n = batch_stats(x, group=self.group)
             update_running(self.running_mean, self.running_var,
                            mean.detach(), var.detach(), n, self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
         inv = (torch.rsqrt(var + self.eps) * self.weight).to(dt)
         return (x.to(dt) - mean.to(dt)) * inv + self.bias.to(dt)
+
+
+def set_batchnorm_group(module: nn.Module, group) -> nn.Module:
+    """Make every ``TorchBatchNorm`` in ``module`` normalise by the
+    statistics of ``group``'s global batch in training (None: its own
+    rows); returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, TorchBatchNorm):
+            m.group = group
+    return module
 
 
 class ConvBlock(nn.Module):

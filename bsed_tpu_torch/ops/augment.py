@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from bsed_tpu_torch.ops.dropout import draw
+
 
 def gaussian_snr_noise(gen: Optional[torch.Generator],
                        features: torch.Tensor, snr: Optional[float],
@@ -34,8 +36,9 @@ def gaussian_snr_noise(gen: Optional[torch.Generator],
     std = torch.sqrt(torch.mean(features * features * (10.0 ** (-snr / 10.0)),
                                 dim=-2, keepdim=True))
     if normal is None:
-        normal = torch.randn(features.shape, generator=gen,
-                             device=features.device, dtype=features.dtype)
+        # a RowGenerator draws the global batch's noise (ops/dropout.py)
+        normal = draw(gen, features.shape, lambda g, s: torch.randn(
+            s, generator=g, device=features.device, dtype=features.dtype))
     return features + normal * std
 
 

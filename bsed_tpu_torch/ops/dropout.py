@@ -7,6 +7,13 @@ Every draw comes from the caller's ``torch.Generator``, on the tensor's
 device, so a step seeded the same way drops the same elements. The bits
 are drawn apart from where they are used: the fused stem epilogue (kernel
 K2 and its plain version) takes them as an input.
+
+In a data-parallel step each rank holds some rows of the global batch,
+and ``bsed_tpu`` draws every mask with the global batch's shape; a
+``RowGenerator`` carries where this rank's rows sit, so a draw makes the
+global batch's bits and keeps this rank's rows. Drawing only the local
+shape would not do: a card's generator gives an element a value that
+depends on the shape of the whole draw.
 """
 from __future__ import annotations
 
@@ -25,10 +32,49 @@ def _u8_threshold(keep_prob: float) -> Optional[int]:
     return None
 
 
+class RowGenerator:
+    """A generator with the rows of the forward it draws for: row ``i`` of
+    a local batch is row ``index[i]`` of a global batch of ``rows`` rows
+    (``index`` a long tensor on the generator's device)."""
+
+    def __init__(self, generator: torch.Generator, index: torch.Tensor,
+                 rows: int):
+        self.generator, self.index, self.rows = generator, index, rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+
+def row_generator(gen: torch.Generator, spans, rows: int):
+    """The generator of a forward whose local rows are the ``spans``
+    ((lo, hi) row ranges, in order) of a global batch of ``rows`` rows: a
+    ``RowGenerator``, or ``gen`` itself when the spans cover every row (a
+    single rank's forward draws its own shape)."""
+    spans = list(spans)
+    if sum(hi - lo for lo, hi in spans) == rows:
+        return gen
+    return RowGenerator(gen, torch.cat([
+        torch.arange(lo, hi, device=gen.device) for lo, hi in spans]), rows)
+
+
+def draw(gen, shape, fn):
+    """``fn(generator, shape)``; under a ``RowGenerator`` the global
+    batch's draw, cut to this rank's rows."""
+    shape = tuple(shape)
+    if not isinstance(gen, RowGenerator):
+        return fn(gen, shape)
+    if shape[0] != gen.index.numel():
+        raise ValueError(f"a draw of {shape[0]} rows under a RowGenerator "
+                         f"of {gen.index.numel()}")
+    return fn(gen.generator, (gen.rows,) + shape[1:]).index_select(
+        0, gen.index)
+
+
 def draw_bits(gen: torch.Generator, shape, device) -> torch.Tensor:
     """uint8 bits, uniform over 0..255, from ``gen``."""
-    return torch.randint(0, 256, tuple(shape), generator=gen,
-                         device=device, dtype=torch.uint8)
+    return draw(gen, shape, lambda g, s: torch.randint(
+        0, 256, s, generator=g, device=device, dtype=torch.uint8))
 
 
 def keep_mask(gen: torch.Generator, shape, rate: float,
@@ -38,7 +84,8 @@ def keep_mask(gen: torch.Generator, shape, rate: float,
     k = _u8_threshold(keep_prob)
     if k is not None:
         return draw_bits(gen, shape, device) < k
-    return torch.rand(tuple(shape), generator=gen, device=device) < keep_prob
+    return draw(gen, shape, lambda g, s: torch.rand(
+        s, generator=g, device=device)) < keep_prob
 
 
 def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,

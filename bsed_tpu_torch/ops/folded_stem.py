@@ -315,7 +315,7 @@ def make_folded_train_stem(model_cfg, n_mels: int, fold0: int = 8,
         added to the mean of a pre-bias activation."""
         if not train:
             return bn.running_mean, bn.running_var
-        mean, var, n = batch_stats(h, groups=fi)
+        mean, var, n = batch_stats(h, groups=fi, group=bn.group)
         if shift is not None:
             mean = mean + shift
         update_running(bn.running_mean, bn.running_var, mean.detach(),

@@ -8,8 +8,11 @@ the GRU kernel K4 twice a forward call at precision 'high' or 'fast'),
 re-assembled on one timeline (``serve.predict_long_recording``),
 binarized and median-filtered on the posteriors' device
 (``ops/median.threshold_and_filter``), fetched once, and decoded into
-events on the host (``eval/decode.extract_events_batch``). There is no
-mesh: one device serves every window.
+events on the host (``eval/decode.extract_events_batch``). On a host with
+several cards the windows are served data-parallel, as ``bsed_tpu``'s
+``cmd_predict`` serves them over its data mesh: ``auto_data_mesh`` picks
+the most cards that divide the batch, and ``serve.make_sharded_forward``
+runs a replica on each (a ragged tail padded to the batch and cut back).
 
 The precision tier also sets TF32 for the length of the call
 (``utils/device.float32_precision``): 'highest' and 'high' compute in
@@ -83,10 +86,14 @@ def predict_recordings(cfg: Config, params: Dict, batch_stats: Dict,
                        precision: str = "high", threshold: float = 0.5,
                        learned_post: bool = False, hop_seconds: float = None,
                        batch_size: int = 32, use_kernels: bool = True,
-                       keep_posteriors: bool = False) -> Dict:
+                       keep_posteriors: bool = False,
+                       devices=None) -> Dict:
     """Events of every recording in ``paths`` with the flax-layout weights
     ``params``/``batch_stats`` on ``device``. ``use_kernels=False`` serves
     the kernels' plain PyTorch versions (``make_fast_forward``).
+    ``devices``: serve over these devices a replica each
+    (``make_sharded_forward``); None: over ``auto_data_mesh(batch_size)``
+    of the visible cards when ``device`` is a card, else on ``device``.
 
     Returns a dict: ``rows`` [(filename, label, onset s, offset s)] in
     ``bsed_tpu``'s order, ``seconds`` by part (read, forward, filter,
@@ -96,18 +103,36 @@ def predict_recordings(cfg: Config, params: Dict, batch_stats: Dict,
     included), ``tf32`` (the TF32 settings in force during the call) and,
     with ``keep_posteriors``, ``posteriors``: each recording's (T, C) frame
     posteriors."""
-    from bsed_tpu_torch.serve import make_fast_forward, predict_long_recording
+    from bsed_tpu_torch.parallel.mesh import auto_data_mesh
+    from bsed_tpu_torch.serve import (make_fast_forward,
+                                      make_sharded_forward,
+                                      predict_long_recording)
     from bsed_tpu_torch.utils.device import float32_precision, resolve_device
 
     dev = resolve_device(device)
+    if devices is None and dev.type == "cuda":
+        devices = auto_data_mesh(batch_size)
     seconds = {"read": 0.0, "forward": 0.0, "filter": 0.0, "decode": 0.0}
     out = {"rows": [], "seconds": seconds, "audio_seconds": 0.0,
            "batches": [], "posteriors": []}
     with float32_precision(precision) as tf32:
         out["tf32"] = dict(tf32)
-        forward = make_fast_forward(cfg, params, batch_stats, device=dev,
-                                    precision=precision,
-                                    use_kernels=use_kernels)
+        if devices is None:
+            forward = make_fast_forward(cfg, params, batch_stats,
+                                        device=dev, precision=precision,
+                                        use_kernels=use_kernels)
+        else:
+            sharded = make_sharded_forward(cfg, params, batch_stats,
+                                           devices, precision=precision,
+                                           use_kernels=use_kernels)
+
+            def forward(chunk):
+                b = len(chunk)
+                if b != batch_size:   # pad a ragged tail to the batch
+                    chunk = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], batch_size - b, 0)])
+                strong, weak = sharded(chunk)
+                return strong[:b], weak[:b]
         for path in paths:
             t0 = time.perf_counter()
             audio = load_recording(path, cfg.audio.sr)

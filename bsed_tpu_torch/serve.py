@@ -10,10 +10,12 @@ the BiGRU in ``bsed_tpu``'s hoisted form with both directions'
 recurrences of a layer in one call of kernel K4 (``ops/gru_kernel.py``,
 through ``models/rnn.HoistedBiGRU``). Everything else is ordinary
 PyTorch/cuDNN, as the JAX package leaves it to XLA.
+``make_sharded_forward`` serves a batch over several devices, a replica
+each.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -198,6 +200,39 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
         audio = torch.as_tensor(audio, dtype=torch.float32, device=dev)
         mel = fe(audio, log=True)[..., None]
         return predictor(encode(mel))
+
+    return forward
+
+
+def make_sharded_forward(cfg: Config, params: Dict, batch_stats: Dict,
+                         devices: Sequence, precision: str = "high",
+                         **kw) -> Callable:
+    """Data-parallel serving over ``devices`` from one process: the port of
+    ``bsed_tpu.serve.make_sharded_forward`` (a ``shard_map`` of the fused
+    program over a data mesh). One replica of ``make_fast_forward`` is
+    built a listed device (a device listed twice gets two replicas, so one
+    card can run the path); ``forward(audio (B, n_samples))`` splits the
+    batch by rows into ``len(devices)`` equal parts, runs each on its
+    replica, and concatenates the outputs in order on the first device.
+    Clips are independent, so there is no collective: each replica runs
+    the whole program, K1, K2 and K4 included. ``B`` must divide by the
+    number of replicas (pad a ragged tail, as the CLI's ``predict``
+    does); ``kw`` goes to every ``make_fast_forward``."""
+    devices = [resolve_device(d) for d in devices]
+    replicas = [make_fast_forward(cfg, params, batch_stats, device=d,
+                                  precision=precision, **kw)
+                for d in devices]
+
+    def forward(audio):
+        n = len(replicas)
+        if audio.shape[0] % n:
+            raise ValueError(f"a batch of {audio.shape[0]} rows does not "
+                             f"divide over {n} replicas")
+        parts = torch.as_tensor(audio, dtype=torch.float32).chunk(n)
+        outs = [fwd(part.to(d, non_blocking=True))
+                for fwd, part, d in zip(replicas, parts, devices)]
+        return tuple(torch.cat([o[i].to(devices[0]) for o in outs])
+                     for i in range(2))
 
     return forward
 

@@ -41,6 +41,21 @@ parity tests inject them (ADDA's half-batch draws through
 ``sample_adda_choice``, the randomized map's matrices through
 ``TrainModules.rand_maps``).
 
+Data parallelism (``TrainModules.group``, a ``parallel.mesh.DataGroup``):
+each rank steps with its rows of every stream (``rank · b`` onwards) and
+the step equals one step on the global batch, as ``bsed_tpu``'s SPMD step
+does. BatchNorm statistics are the global batch's
+(``models/layers.batch_stats``); every draw has the global batch's shape
+and each rank keeps its rows (``ops/dropout.RowGenerator``); each loss term
+is this rank's share of its global mean (``losses.bce``'s ``total``), the
+positional slices of a stream (the labelled half, origin's quarters)
+included; the inputs of a mixup, whose permutation crosses ranks, are
+gathered, mixed on every rank alike, and the mixed batch's forward is
+spread over the ranks again (``parallel.mesh.chunk_bounds``); the
+gradients are summed over the group in one bucket before the optimizer,
+so parameters, optimizer states and the EMA teacher stay replicated; the
+metrics are summed too, so every rank returns the same values.
+
 ``make_epoch_runner`` runs an epoch of steps on loader arrays resident on
 the device (the port of the JAX package's ``lax.scan`` over the epoch, as
 a plain loop), and ``make_predict_fn`` is the port of the JAX package's
@@ -65,16 +80,18 @@ from bsed_tpu_torch.models.discriminators import (ClipDiscriminator,
                                                   ClipDiscriminatorSoftmax,
                                                   FrameDiscriminator,
                                                   FrameDiscriminatorGRL)
-from bsed_tpu_torch.models.layers import ConvBlock
+from bsed_tpu_torch.models.layers import ConvBlock, set_batchnorm_group
 from bsed_tpu_torch.models.predictor import make_predictor_head
 from bsed_tpu_torch.models.rnn import BidirectionalGRU
 from bsed_tpu_torch.ops.augment import (gaussian_snr_noise, mixup,
                                         roll_batch, sample_isp_shifts)
-from bsed_tpu_torch.ops.dropout import FastDropout
+from bsed_tpu_torch.ops.dropout import FastDropout, row_generator
 from bsed_tpu_torch.ops.folded_stem import (folded_train_eligible,
                                             make_folded_train_stem)
 from bsed_tpu_torch.ops.grl import warm_start_lambda
 from bsed_tpu_torch.ops.mel import amplitude_to_db
+from bsed_tpu_torch.parallel.mesh import (DataGroup, chunk_bounds,
+                                          chunk_sizes, gather_rows, sum_)
 from bsed_tpu_torch.train import da as da_losses
 from bsed_tpu_torch.train.ema import ema_update
 from bsed_tpu_torch.train.losses import bce, mse
@@ -224,20 +241,25 @@ class TrainModules:
     configuration; inference (``make_predict_fn``) needs no such check, so
     evaluation builds this directly. ``norm_stats``: the dataset's
     (mean, std) of the log-mel per mel bin, as (F,) arrays, or None.
-    ``rand_maps``: frame-level CDAN's (R_f, R_g) on ``device``, or None."""
+    ``rand_maps``: frame-level CDAN's (R_f, R_g) on ``device``, or None.
+    ``group``: the data-parallel group the step runs in (the models'
+    BatchNorm then normalises by the group's global batch), or None."""
     cfg: Config
     device: torch.device
     use_kernels: bool = True
     norm_stats: Optional[tuple] = None
     rand_maps: Optional[tuple] = None
+    group: Optional[DataGroup] = None
 
     def make_model(self) -> TrainModel:
-        return TrainModel(self.cfg, self.device,
-                          self.use_kernels).to(self.device)
+        return set_batchnorm_group(
+            TrainModel(self.cfg, self.device,
+                       self.use_kernels).to(self.device), self.group)
 
     def make_discriminator(self) -> Optional[nn.Module]:
         disc = _make_discriminator(self.cfg)
-        return disc.to(self.device) if disc is not None else None
+        return (set_batchnorm_group(disc.to(self.device), self.group)
+                if disc is not None else None)
 
 
 def _check_supported(cfg: Config) -> None:
@@ -273,14 +295,16 @@ def _check_supported(cfg: Config) -> None:
 
 
 def build_modules(cfg: Config, device="cuda", use_kernels: bool = True,
-                  norm_stats=None, rand_maps=None) -> TrainModules:
+                  norm_stats=None, rand_maps=None,
+                  group=None) -> TrainModules:
     """What the step needs to build its models on ``device``;
     ``use_kernels=False`` runs the stem epilogue's plain versions;
     ``norm_stats`` is the train scaler's (mean, std) for
     ``TrainConfig.normalize``. Frame-level CDAN's randomized map gets
     ``rand_maps`` if given (moved to ``device``), else its own pair drawn
     from ``cfg.train.seed`` (``train/da.make_randomized_maps``: the same
-    pair on any device)."""
+    pair on any device, hence on every rank of ``group``, the
+    data-parallel group the step will run in)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     if _effective_da_mode(cfg) == "cdan" and cfg.da.level != "clip":
@@ -293,7 +317,7 @@ def build_modules(cfg: Config, device="cuda", use_kernels: bool = True,
                           .to(dev) for r in rand_maps)
     else:
         rand_maps = None
-    return TrainModules(cfg, dev, use_kernels, norm_stats, rand_maps)
+    return TrainModules(cfg, dev, use_kernels, norm_stats, rand_maps, group)
 
 
 def load_train_state(modules: TrainModules, trees: Dict) -> TrainState:
@@ -399,7 +423,10 @@ def make_train_step(modules: TrainModules,
 
     In the adaptation stage the metrics add ``domain_loss``: the GRL
     pre-step's or ADDA's (0 on a step that skips ADDA's update), or the
-    joint domain loss before its ``adv_weight``."""
+    joint domain loss before its ``adv_weight``.
+
+    Under ``modules.group`` the batch holds this rank's rows of every
+    stream and the step is the global batch's (the module docstring)."""
     cfg = modules.cfg
     t, da = cfg.train, cfg.da
     dev = modules.device
@@ -427,6 +454,64 @@ def make_train_step(modules: TrainModules,
                                    device=dev)[:, None]
                    for a in modules.norm_stats)
 
+    # a step without a group is the step of a group of one, whose
+    # collectives are the identity (parallel/mesh.py)
+    grp = modules.group or DataGroup.single(dev)
+
+    def rows(x) -> int:
+        """The global rows of a stream of which ``x`` holds this rank's."""
+        return x.shape[0] * grp.size
+
+    def mine(v, b: int):
+        """This rank's ``b`` entries of a per-row vector of the global
+        batch (ISP shifts)."""
+        return v[grp.rank * b:(grp.rank + 1) * b]
+
+    def fwd_gen(gen, *streams):
+        """The generator of one forward over ``cat(streams)``, each a
+        stream of which this rank holds its rows."""
+        spans, at = [], 0
+        for x in streams:
+            b = x.shape[0]
+            spans.append((at + grp.rank * b, at + (grp.rank + 1) * b))
+            at += rows(x)
+        return row_generator(gen, spans, at)
+
+    def everyone(x):
+        """Every rank's rows of a stream, in rank order (no gradient)."""
+        return gather_rows(x, grp)
+
+    def chunk(x_all):
+        """This rank's rows of a tensor that every rank holds whole (a
+        mixed batch), to forward spread over the group."""
+        return x_all[chunk_bounds(len(x_all), grp)]
+
+    def chunk_gen(gen, n: int):
+        sl = chunk_bounds(n, grp)
+        return row_generator(gen, [(sl.start, sl.stop)], n)
+
+    def unchunk(x, n: int):
+        """Every rank's chunk of an ``n``-row tensor, whole (no
+        gradient)."""
+        return gather_rows(x, grp, chunk_sizes(n, grp.size))
+
+    def mean_of(loss, p, y, lo: int = 0, hi: Optional[int] = None,
+                chunk_rows: Optional[int] = None):
+        """This rank's share of ``loss``'s mean over the global rows
+        [lo, hi) of ``p``'s stream (of the chunked ``chunk_rows``-row
+        tensor: all of it); the shares of the group add up to the mean."""
+        per_row = int(np.prod(p.shape[1:]))
+        if chunk_rows is not None:
+            return loss(p, y, total=chunk_rows * per_row)
+        hi = rows(p) if hi is None else hi
+        b = p.shape[0]
+        a_, b_ = (min(max(v - grp.rank * b, 0), b) for v in (lo, hi))
+        return loss(p[a_:b_], y[a_:b_], total=(hi - lo) * per_row)
+
+    def reduce_grads(params):
+        """Sum the gradients over the group (each rank's is its share's)."""
+        sum_([q.grad for q in params if q.grad is not None], grp)
+
     def _inp(lin):
         """linear mel → log-mel (+ channel axis), then the dataset
         normalisation (after the log, before the ISP rolls, as the
@@ -446,33 +531,37 @@ def make_train_step(modules: TrainModules,
         445-472). The live cdan/dann callers pass the WEAK predictions as
         g; the frame-CDAN flavour discards g, and the clip CDAN runs it on
         the full (B, T, C) encoding (main_scmt_ada_weak.py:331)."""
+        d_gen = fwd_gen(gen, syn_f, r_f)
+
         def dapply(h):
-            return disc(h, gen)
+            return disc(h, d_gen)
         if da_mode == "cdan_frame" or (da_mode == "cdan"
                                        and da.level == "clip"):
             return da_losses.cdan_frame_loss(dapply, syn_s, syn_f, r_s, r_f,
-                                             coeff)
+                                             coeff, group=grp)
         fs = syn_f.reshape(syn_f.shape[0], -1)
         ft = r_f.reshape(r_f.shape[0], -1)
         if da_mode == "cdan":
             rf, rg = modules.rand_maps
             return da_losses.cdan_loss(dapply, syn_w, fs, r_w, ft, rf, rg,
-                                       da.entropy_conditioning, coeff)
-        return da_losses.dann_loss(dapply, fs, ft, coeff)
+                                       da.entropy_conditioning, coeff,
+                                       group=grp)
+        return da_losses.dann_loss(dapply, fs, ft, coeff, group=grp)
 
     def grl_pre_step(state: TrainState, x_syn, x_real, gen):
         """The discriminator pre-step (main_baseline.py:314-335): one
         backward through the reversed domain loss steps the encoder's aux
         optimizer and the discriminator's."""
         model, disc = state.model, state.discriminator
-        syn_s, syn_w, syn_f = model(x_syn, gen)
-        r_s, r_w, r_f = model(x_real, gen)
+        syn_s, syn_w, syn_f = model(x_syn, fwd_gen(gen, x_syn))
+        r_s, r_w, r_f = model(x_real, fwd_gen(gen, x_real))
         dl = grl_domain_loss(disc, gen, syn_s, syn_w, syn_f, r_s, r_w, r_f,
                              grl_coeff(state.step))
         state.enc_optimizer.zero_grad(set_to_none=True)
         state.disc_optimizer.zero_grad(set_to_none=True)
-        dl.backward(inputs=list(model.encoder.parameters())
-                    + list(disc.parameters()))
+        params = list(model.encoder.parameters()) + list(disc.parameters())
+        dl.backward(inputs=params)
+        reduce_grads(params)
         state.enc_optimizer.step()
         state.disc_optimizer.step()
         return dl.detach()
@@ -487,28 +576,34 @@ def make_train_step(modules: TrainModules,
         if state.step % da.update_step != 0:
             return torch.zeros((), device=dev)
         model, disc = state.model, state.discriminator
-        choice_d = sample_adda_choice(gen, x_real.shape[0])
+        choice_d = sample_adda_choice(gen, rows(x_real))
         with torch.no_grad():
-            _, _, r_f = model(x_real, gen)
-            _, _, syn_f = model(x_syn, gen)
-        d_real, d_syn = disc(r_f, gen), disc(syn_f, gen)
+            _, _, r_f = model(x_real, fwd_gen(gen, x_real))
+            _, _, syn_f = model(x_syn, fwd_gen(gen, x_syn))
+        d_real = disc(r_f, fwd_gen(gen, r_f))
+        d_syn = disc(syn_f, fwd_gen(gen, syn_f))
         dl = da_losses.adda_discriminator_loss(d_real, d_syn, choice_d,
                                                da.adv_weight,
-                                               da.adda_disc_labels)
+                                               da.adda_disc_labels, grp)
         state.disc_optimizer.zero_grad(set_to_none=True)
         dl.backward()
+        reduce_grads(disc.parameters())
         state.disc_optimizer.step()
         # the confusion step: main_scmt forwards the real stream and takes
         # a fresh half batch; main.py the whole real stream;
         # scmt_ada_origin the syn stream against flipped labels
         syn_conf = da.adda_confusion == "syn_flipped"
-        conf_choice = (sample_adda_choice(gen, x_real.shape[0])
+        conf_choice = (sample_adda_choice(gen, rows(x_real))
                        if da.adda_confusion == "half" else None)
-        _, _, f = model(x_syn if syn_conf else x_real, gen)
-        cl = da_losses.adda_confusion_loss(disc(f, gen), conf_choice,
-                                           da.adv_weight, flipped=syn_conf)
+        x_conf = x_syn if syn_conf else x_real
+        _, _, f = model(x_conf, fwd_gen(gen, x_conf))
+        cl = da_losses.adda_confusion_loss(disc(f, fwd_gen(gen, f)),
+                                           conf_choice, da.adv_weight,
+                                           flipped=syn_conf, group=grp)
         state.enc_optimizer.zero_grad(set_to_none=True)
-        cl.backward(inputs=list(model.encoder.parameters()))
+        params = list(model.encoder.parameters())
+        cl.backward(inputs=params)
+        reduce_grads(params)
         state.enc_optimizer.step()
         return (dl + cl).detach()
 
@@ -570,16 +665,16 @@ def make_train_step(modules: TrainModules,
 
         # teacher input: noise on the LINEAR mel, then the log
         if mean_teacher:
-            x_real_t = _inp(gaussian_snr_noise(gen, real_lin,
-                                               cfg.audio.noise_snr))
+            x_real_t = _inp(gaussian_snr_noise(fwd_gen(gen, real_lin),
+                                               real_lin, cfg.audio.noise_snr))
         # ISP shifts, shared between the streams (origin: drawn for and
         # applied to the combined real batch only)
         if isp:
-            n_shift = (real_lin.shape[0] if origin_masks
-                       else syn_lin.shape[0])
-            in_shift, pool_shift, freq_shift = sample_isp_shifts(
-                gen, n_shift, t.time_shift_max, t.freq_shift_max,
-                cfg.model.pooling_time_ratio, device=dev)
+            shifted = real_lin if origin_masks else syn_lin
+            in_shift, pool_shift, freq_shift = (
+                mine(v, shifted.shape[0]) for v in sample_isp_shifts(
+                    gen, rows(shifted), t.time_shift_max, t.freq_shift_max,
+                    cfg.model.pooling_time_ratio, device=dev))
             if origin_masks or not isp_syn_only:
                 x_real_shift = roll_batch(x_real, in_shift, axis=1)
                 x_real_freq = roll_batch(x_real, freq_shift, axis=2)
@@ -599,9 +694,10 @@ def make_train_step(modules: TrainModules,
             teacher.train()
             with torch.no_grad():
                 if isp and t.fused_streams and not origin_masks:
-                    outs = _split(teacher(torch.cat(
-                        [x_real_t, x_real_t_shift, x_real_t_freq]), gen),
-                        [x_real_t.shape[0]] * 3)
+                    parts = [x_real_t, x_real_t_shift, x_real_t_freq]
+                    outs = _split(teacher(torch.cat(parts),
+                                          fwd_gen(gen, *parts)),
+                                  [x_real_t.shape[0]] * 3)
                     for tag, o in zip(("", "_shift", "_freq"), outs):
                         teacher_out[f"strong{tag}"] = o[0]
                         teacher_out[f"weak{tag}"] = o[1]
@@ -611,21 +707,25 @@ def make_train_step(modules: TrainModules,
                         inputs += [("_shift", x_real_t_shift),
                                    ("_freq", x_real_t_freq)]
                     for tag, x in inputs:
-                        ts, tw, _ = teacher(x, gen)
+                        ts, tw, _ = teacher(x, fwd_gen(gen, x))
                         teacher_out[f"strong{tag}"] = ts
                         teacher_out[f"weak{tag}"] = tw
 
                 # ICT unlabeled mixup-consistency targets (main.py:451-470):
                 # the teacher scores the CLEAN unlabeled inputs; input and
                 # both posteriors are mixed with one shared λ/permutation
+                # (a group gathers the real stream: the slice and the
+                # permutation cross ranks; the forwards are spread again)
                 if use_mixup:
-                    b = x_real.shape[0]
-                    x_u = (x_real[b // 4: 3 * b // 4] if origin_masks
-                           else x_real[b // 2:])
-                    ts_u, tw_u, _ = teacher(x_u, gen)
+                    x_real_all = everyone(x_real)
+                    b = x_real_all.shape[0]
+                    x_u = (x_real_all[b // 4: 3 * b // 4] if origin_masks
+                           else x_real_all[b // 2:])
+                    n_u = x_u.shape[0]
+                    ts_u, tw_u, _ = teacher(chunk(x_u), chunk_gen(gen, n_u))
                     mixed_x_u, mixed_strong_u, mixed_weak_u, _ = mixup(
-                        gen, x_u, ts_u, tw_u, alpha=t.mixup_usup_alpha,
-                        rng=rng)
+                        gen, x_u, unchunk(ts_u, n_u), unchunk(tw_u, n_u),
+                        alpha=t.mixup_usup_alpha, rng=rng)
 
         # student forwards
         model.train()
@@ -641,7 +741,7 @@ def make_train_step(modules: TrainModules,
                               x_syn_freq]
                 elif isp:
                     parts += [x_syn_shift, x_syn_freq]
-            outs = _split(model(torch.cat(parts), gen),
+            outs = _split(model(torch.cat(parts), fwd_gen(gen, *parts)),
                           [p.shape[0] for p in parts])
             if origin_masks:
                 r_strong, r_weak, _ = outs[0]
@@ -657,13 +757,13 @@ def make_train_step(modules: TrainModules,
                     (ss_strong, ss_weak, _), (sf_strong, sf_weak, _) = \
                         outs[2:4]
         elif origin_masks:
-            r_strong, r_weak, _ = model(x_real, gen)
+            r_strong, r_weak, _ = model(x_real, fwd_gen(gen, x_real))
         else:
             # the syn forward runs (and advances the BatchNorm statistics)
             # even when supervise_on == "real" (main_baseline_ena.py:338)
-            syn_strong, syn_weak, syn_enc = model(x_syn, gen)
+            syn_strong, syn_weak, syn_enc = model(x_syn, fwd_gen(gen, x_syn))
             if x_real is not None:
-                r_strong, r_weak, r_enc = model(x_real, gen)
+                r_strong, r_weak, r_enc = model(x_real, fwd_gen(gen, x_real))
 
         # supervised BCE (main_baseline.py:431-475 / the ENA variant;
         # origin: masked slices of the combined real batch)
@@ -675,36 +775,37 @@ def make_train_step(modules: TrainModules,
                     "combined real batch's strong targets — build the "
                     "loader with layout='origin' (batch carries no "
                     "'real_strong' key)")
-            b34 = 3 * r_weak.shape[0] // 4
-            weak_loss = bce(r_weak[:b34], real_weak_target[:b34])
-            strong_loss = bce(r_strong[b34:], real_strong_target[b34:])
+            b34 = 3 * rows(r_weak) // 4
+            weak_loss = mean_of(bce, r_weak, real_weak_target, 0, b34)
+            strong_loss = mean_of(bce, r_strong, real_strong_target, b34)
         elif t.supervise_on == "real" and real_strong_target is not None:
-            weak_loss = bce(r_weak, real_strong_target.amax(dim=-2))
+            weak_loss = mean_of(bce, r_weak, real_strong_target.amax(dim=-2))
             if mean_teacher:
                 # the ENA script counts the weak BCE twice under MT
                 # (main_baseline_ena.py:434,437)
                 weak_loss = 2.0 * weak_loss
-            strong_loss = bce(r_strong, real_strong_target)
+            strong_loss = mean_of(bce, r_strong, real_strong_target)
         else:
-            weak_loss = bce(syn_weak, syn_target_weak)
+            weak_loss = mean_of(bce, syn_weak, syn_target_weak)
             if real_weak_target is not None:
                 if t.real_weak_bce == "full" and mean_teacher:
                     # whole real stream (main_baseline.py:435)
-                    weak_loss = weak_loss + bce(r_weak, real_weak_target)
+                    weak_loss = weak_loss + mean_of(bce, r_weak,
+                                                    real_weak_target)
                 elif t.real_weak_bce == "half":
                     # labelled half only, with or without a teacher
                     # (main_sct_ada_weak.py:419-423)
-                    hw = real_weak_target.shape[0] // 2
-                    weak_loss = weak_loss + bce(r_weak[:hw],
-                                                real_weak_target[:hw])
-            strong_loss = bce(syn_strong, syn_target)
+                    hw = rows(real_weak_target) // 2
+                    weak_loss = weak_loss + mean_of(bce, r_weak,
+                                                    real_weak_target, 0, hw)
+            strong_loss = mean_of(bce, syn_strong, syn_target)
         m["weak_class_loss"] = weak_loss
         m["strong_class_loss"] = strong_loss
         loss = strong_loss + weak_loss
 
         if mean_teacher:
-            c_strong = cost * mse(r_strong, teacher_out["strong"])
-            c_weak = cost * mse(r_weak, teacher_out["weak"])
+            c_strong = cost * mean_of(mse, r_strong, teacher_out["strong"])
+            c_weak = cost * mean_of(mse, r_weak, teacher_out["weak"])
             m["consistency_strong"] = c_strong
             m["consistency_weak"] = c_weak
             loss = loss + c_strong + c_weak
@@ -714,28 +815,32 @@ def make_train_step(modules: TrainModules,
             # real shift then real freq forwards; class terms on the
             # weak/strong row slices; one self-consistency MSE over the
             # whole combined batch
-            b = r_weak.shape[0]
+            b = rows(r_weak)
             b4, b34 = b // 4, 3 * b // 4
             if not fused:
-                rs_strong, rs_weak, _ = model(x_real_shift, gen)
-                rf_strong, rf_weak, _ = model(x_real_freq, gen)
+                rs_strong, rs_weak, _ = model(x_real_shift,
+                                              fwd_gen(gen, x_real_shift))
+                rf_strong, rf_weak, _ = model(x_real_freq,
+                                              fwd_gen(gen, x_real_freq))
             real_strong_shift = roll_batch(real_strong_target, pool_shift,
                                            axis=1)
-            strong_shift_loss = bce(rs_strong[b34:],
-                                    real_strong_shift[b34:])
-            strong_freq_loss = bce(rf_strong[b34:], real_strong_target[b34:])
-            weak_freq_loss = bce(rf_weak[:b4], real_weak_target[:b4])
+            strong_shift_loss = mean_of(bce, rs_strong, real_strong_shift,
+                                        b34)
+            strong_freq_loss = mean_of(bce, rf_strong, real_strong_target,
+                                       b34)
+            weak_freq_loss = mean_of(bce, rf_weak, real_weak_target, 0, b4)
             m["strong_shift_class_loss"] = strong_shift_loss
             m["strong_freq_shift_class_loss"] = strong_freq_loss
             m["weak_freq_shift_class_loss"] = weak_freq_loss
             loss = (loss + strong_shift_loss + strong_freq_loss
                     + weak_freq_loss)
-            c_shift = cost / 2 * mse(
-                rs_strong, roll_batch(r_strong.detach(), pool_shift, axis=1))
+            c_shift = cost / 2 * mean_of(
+                mse, rs_strong, roll_batch(r_strong.detach(), pool_shift,
+                                           axis=1))
             m["consistency_shift"] = c_shift
             loss = loss + c_shift
         elif isp:
-            half = r_weak.shape[0] // 2
+            half = rows(r_weak) // 2
             if not fused:
                 if not isp_syn_only:
                     real_order = (("freq", "shift") if t.isp_flavor == "sct"
@@ -744,16 +849,20 @@ def make_train_step(modules: TrainModules,
                         # sct (main_sct_ada_weak.py:397-400) forwards the
                         # real freq shift first
                         if kind == "shift":
-                            rs_strong, rs_weak, _ = model(x_real_shift, gen)
+                            rs_strong, rs_weak, _ = model(
+                                x_real_shift, fwd_gen(gen, x_real_shift))
                         else:
-                            rf_strong, rf_weak, _ = model(x_real_freq, gen)
-                ss_strong, ss_weak, _ = model(x_syn_shift, gen)
-                sf_strong, sf_weak, _ = model(x_syn_freq, gen)
+                            rf_strong, rf_weak, _ = model(
+                                x_real_freq, fwd_gen(gen, x_real_freq))
+                ss_strong, ss_weak, _ = model(x_syn_shift,
+                                              fwd_gen(gen, x_syn_shift))
+                sf_strong, sf_weak, _ = model(x_syn_freq,
+                                              fwd_gen(gen, x_syn_freq))
 
             # SCT classification: the strong terms are common to every
             # lineage
-            strong_shift_loss = bce(ss_strong, syn_target_shift)
-            strong_freq_loss = bce(sf_strong, syn_target)
+            strong_shift_loss = mean_of(bce, ss_strong, syn_target_shift)
+            strong_freq_loss = mean_of(bce, sf_strong, syn_target)
             m["strong_shift_class_loss"] = strong_shift_loss
             m["strong_freq_shift_class_loss"] = strong_freq_loss
             loss = loss + strong_shift_loss + strong_freq_loss
@@ -761,21 +870,21 @@ def make_train_step(modules: TrainModules,
             # the weak-freq term, per lineage
             if t.isp_flavor == "baseline":
                 # syn + labelled real half (main_baseline.py:445)
-                weak_freq_loss = bce(sf_weak, syn_target_weak)
+                weak_freq_loss = mean_of(bce, sf_weak, syn_target_weak)
                 if real_weak_target is not None:
-                    weak_freq_loss = weak_freq_loss + bce(
-                        rf_weak[:half], real_weak_target[:half])
+                    weak_freq_loss = weak_freq_loss + mean_of(
+                        bce, rf_weak, real_weak_target, 0, half)
                 m["weak_freq_shift_class_loss"] = weak_freq_loss
                 loss = loss + weak_freq_loss
             elif t.isp_flavor in ("scmt", "scmt_ada"):
                 # syn only (main_scmt.py:459)
-                weak_freq_loss = bce(sf_weak, syn_target_weak)
+                weak_freq_loss = mean_of(bce, sf_weak, syn_target_weak)
                 m["weak_freq_shift_class_loss"] = weak_freq_loss
                 loss = loss + weak_freq_loss
             elif t.isp_flavor == "sct":
                 # computed, never added (main_sct_ada_weak.py:428 vs :513)
-                m["weak_freq_shift_class_loss"] = bce(sf_weak,
-                                                      syn_target_weak)
+                m["weak_freq_shift_class_loss"] = mean_of(bce, sf_weak,
+                                                          syn_target_weak)
 
             # self shift consistency: the pairing differs per lineage
             syn_pred_shift = roll_batch(syn_strong.detach(), pool_shift,
@@ -785,17 +894,18 @@ def make_train_step(modules: TrainModules,
                 # (main_baseline.py:524-525)
                 real_pred_shift = roll_batch(r_strong.detach(), pool_shift,
                                              axis=1)
-                c_shift = cost / 2 * (mse(ss_strong, syn_pred_shift)
-                                      + mse(rs_strong, real_pred_shift))
+                c_shift = cost / 2 * (
+                    mean_of(mse, ss_strong, syn_pred_shift)
+                    + mean_of(mse, rs_strong, real_pred_shift))
             elif t.isp_flavor == "scmt":
                 # syn shifted student against the rolled REAL prediction
                 # (main_scmt.py:571)
                 real_pred_shift = roll_batch(r_strong.detach(), pool_shift,
                                              axis=1)
-                c_shift = cost / 2 * mse(ss_strong, real_pred_shift)
+                c_shift = cost / 2 * mean_of(mse, ss_strong, real_pred_shift)
             else:
                 # scmt_ada (:542-544), sct (main_sct_ada_weak.py:512)
-                c_shift = cost / 2 * mse(ss_strong, syn_pred_shift)
+                c_shift = cost / 2 * mean_of(mse, ss_strong, syn_pred_shift)
             m["consistency_shift"] = c_shift
             loss = loss + c_shift
 
@@ -803,18 +913,22 @@ def make_train_step(modules: TrainModules,
             if mean_teacher and t.isp_flavor == "baseline":
                 # strong only, real shifted student, half weight
                 # (main_baseline.py:501-513, 541)
-                c_ss = cost * mse(rs_strong, teacher_out["strong_shift"])
-                c_sf = cost * mse(rf_strong, teacher_out["strong_freq"])
+                c_ss = cost * mean_of(mse, rs_strong,
+                                      teacher_out["strong_shift"])
+                c_sf = cost * mean_of(mse, rf_strong,
+                                      teacher_out["strong_freq"])
                 m["consistency_strong_shift"] = c_ss
                 m["consistency_strong_freq_shift"] = c_sf
                 loss = loss + 0.5 * (c_ss + c_sf)
             elif mean_teacher and t.isp_flavor in ("scmt", "scmt_ada"):
                 # four full-weight terms: syn shifted student against the
                 # real-stream shifted teacher (main_scmt.py:529-547, 579)
-                c_ss = cost * mse(ss_strong, teacher_out["strong_shift"])
-                c_ws = cost * mse(ss_weak, teacher_out["weak_shift"])
-                c_sf = cost * mse(sf_strong, teacher_out["strong_freq"])
-                c_wf = cost * mse(sf_weak, teacher_out["weak_freq"])
+                c_ss = cost * mean_of(mse, ss_strong,
+                                      teacher_out["strong_shift"])
+                c_ws = cost * mean_of(mse, ss_weak, teacher_out["weak_shift"])
+                c_sf = cost * mean_of(mse, sf_strong,
+                                      teacher_out["strong_freq"])
+                c_wf = cost * mean_of(mse, sf_weak, teacher_out["weak_freq"])
                 m["consistency_strong_shift"] = c_ss
                 m["consistency_weak_shift"] = c_ws
                 m["consistency_strong_freq_shift"] = c_sf
@@ -822,60 +936,72 @@ def make_train_step(modules: TrainModules,
                 loss = loss + c_ss + c_ws + c_sf + c_wf
             elif mean_teacher and t.isp_flavor == "sct":
                 # computed, never added (main_sct_ada_weak.py:481-495)
-                m["consistency_strong_shift"] = cost * mse(
-                    rs_strong, teacher_out["strong_shift"])
-                m["consistency_strong_freq_shift"] = cost * mse(
-                    rf_strong, teacher_out["strong_freq"])
+                m["consistency_strong_shift"] = cost * mean_of(
+                    mse, rs_strong, teacher_out["strong_shift"])
+                m["consistency_strong_freq_shift"] = cost * mean_of(
+                    mse, rf_strong, teacher_out["strong_freq"])
 
         if use_mixup:
             # ICT mixup in bsed_tpu's forward order (it fixes the order of
             # the BatchNorm statistics); the λ-weighted BCE pair of
             # mixup_criterion equals BCE against the λ-blended target
+            def mixed_forward(x, y):
+                """Mix a whole input batch and its targets on every rank
+                alike (one λ, one permutation), forward it spread over
+                the group, and return (outputs, this rank's mixed targets,
+                rows)."""
+                mixed_x, mixed_y, _ = mixup(gen, x, y, alpha=t.mixup_alpha,
+                                            rng=rng)
+                n = mixed_x.shape[0]
+                return (model(chunk(mixed_x), chunk_gen(gen, n)),
+                        chunk(mixed_y), n)
+
             if origin_masks:
-                b = r_weak.shape[0]
+                x_all, weak_all = everyone(x_real), everyone(real_weak_target)
+                strong_all = everyone(real_strong_target)
+                b = x_all.shape[0]
                 b4, b34 = b // 4, 3 * b // 4
                 # weak mixup on the mask_weak rows (main.py:386-392)
-                mixed_xw, mixed_yw, _ = mixup(
-                    gen, x_real[:b4], real_weak_target[:b4],
-                    alpha=t.mixup_alpha, rng=rng)
-                _, mw_weak, _ = model(mixed_xw, gen)
-                mix_weak_loss = bce(mw_weak, mixed_yw)
+                (_, mw_weak, _), mixed_yw, n = mixed_forward(x_all[:b4],
+                                                             weak_all[:b4])
+                mix_weak_loss = mean_of(bce, mw_weak, mixed_yw, chunk_rows=n)
                 m["mixup_weak_class_loss"] = mix_weak_loss
                 loss = loss + mix_weak_loss
                 # strong mixup on the mask_strong rows (main.py:426-432)
-                mixed_x, mixed_y, _ = mixup(
-                    gen, x_real[b34:], real_strong_target[b34:],
-                    alpha=t.mixup_alpha, rng=rng)
-                mx_strong, _, _ = model(mixed_x, gen)
-                mix_loss = bce(mx_strong, mixed_y)
+                (mx_strong, _, _), mixed_y, n = mixed_forward(
+                    x_all[b34:], strong_all[b34:])
+                mix_loss = mean_of(bce, mx_strong, mixed_y, chunk_rows=n)
                 m["mixup_strong_loss"] = mix_loss
                 loss = loss + mix_loss
             else:
                 # generic composition: syn strong mixup, labelled real-half
                 # weak mixup, unlabelled-half consistency
-                mixed_x, mixed_y, _ = mixup(gen, x_syn, syn_target,
-                                            alpha=t.mixup_alpha, rng=rng)
-                mx_strong, _, _ = model(mixed_x, gen)
-                mix_loss = bce(mx_strong, mixed_y)
+                (mx_strong, _, _), mixed_y, n = mixed_forward(
+                    everyone(x_syn), everyone(syn_target))
+                mix_loss = mean_of(bce, mx_strong, mixed_y, chunk_rows=n)
                 m["mixup_strong_loss"] = mix_loss
                 loss = loss + mix_loss
                 if real_weak_target is not None:
-                    w_half = x_real.shape[0] // 2
-                    mixed_xw, mixed_yw, _ = mixup(
-                        gen, x_real[:w_half], real_weak_target[:w_half],
-                        alpha=t.mixup_alpha, rng=rng)
-                    _, mw_weak, _ = model(mixed_xw, gen)
-                    mix_weak_loss = bce(mw_weak, mixed_yw)
+                    x_all = everyone(x_real)
+                    w_half = x_all.shape[0] // 2
+                    (_, mw_weak, _), mixed_yw, n = mixed_forward(
+                        x_all[:w_half], everyone(real_weak_target)[:w_half])
+                    mix_weak_loss = mean_of(bce, mw_weak, mixed_yw,
+                                            chunk_rows=n)
                     m["mixup_weak_class_loss"] = mix_weak_loss
                     loss = loss + mix_weak_loss
             # unlabelled mixup-consistency against the EMA teacher
             # (main.py:459-470), × the ramped consistency cost
             if mean_teacher:
-                u_strong, u_weak, _ = model(mixed_x_u, gen)
+                n_u = mixed_x_u.shape[0]
+                u_strong, u_weak, _ = model(chunk(mixed_x_u),
+                                            chunk_gen(gen, n_u))
                 c_u_strong = (t.mixup_consistency * cost
-                              * mse(u_strong, mixed_strong_u))
+                              * mean_of(mse, u_strong, chunk(mixed_strong_u),
+                                        chunk_rows=n_u))
                 c_u_weak = (t.mixup_consistency * cost
-                            * mse(u_weak, mixed_weak_u))
+                            * mean_of(mse, u_weak, chunk(mixed_weak_u),
+                                      chunk_rows=n_u))
                 m["mixup_cons_strong_loss"] = c_u_strong
                 m["mixup_cons_weak_loss"] = c_u_weak
                 loss = loss + c_u_strong + c_u_weak
@@ -894,6 +1020,15 @@ def make_train_step(modules: TrainModules,
         if joint_da:
             state.disc_optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_grads(itertools.chain(
+            model.parameters(),
+            state.discriminator.parameters() if joint_da else ()))
+        if "domain_loss" in metrics:
+            m["domain_loss"] = metrics.pop("domain_loss")
+        # every term is this rank's share: the sum is the global value
+        shares = torch.stack([v.detach().float() for v in m.values()])
+        sum_([shares], grp)
+        m = dict(zip(m, shares.unbind()))
         if grad_flow:
             m.update(_grad_abs(model))
         state.optimizer.step()
@@ -909,7 +1044,7 @@ def make_train_step(modules: TrainModules,
                 # statistics are those of its own forwards
                 ema_update(teacher.buffers(), model.buffers(), state.step,
                            t.ema_alpha)
-        metrics.update({k: v.detach() for k, v in m.items()})
+        metrics.update(m)
         return metrics
 
     return train_step

@@ -32,8 +32,23 @@ In the adaptation stage the state holds a discriminator; a resume at a
 stage boundary keeps its fresh init (``Trainer.resume``), and the domain
 loss reaches the meters, results.tsv and TensorBoard as ``domain_loss``.
 
-Not ported: data parallelism and the multi-host evaluation exchange
-(ROADMAP item 9).
+Data parallelism (``mesh``): in a ``torch.distributed`` job of more than
+one rank, ``mesh='auto'`` (the default, as in ``bsed_tpu``) trains over
+the job's group (``parallel/mesh.auto_data_group``); a ``DataGroup`` may
+be passed, ``'off'`` trains on this process alone. Under a group every
+rank holds the same state (broadcast from rank 0 at the start and after a
+resume, then kept equal by the step's summed gradients), steps with the
+rows of its own loader, strided over the group's ranks
+(``process_index == rank``, ``process_count == size``, as the CLI builds
+it; the global batch is the ranks' batches in rank order), and takes the
+loop path (``bsed_tpu`` keeps its loop for
+multi-process runs). Rank 0 alone writes checkpoints, meta.json,
+results.tsv and TensorBoard, and the ranks meet at a barrier after each
+write. Evaluation is sharded by val batch when the loader has the val
+set's original-resolution events (each rank forwards and decodes every
+``size``-th batch, then the decoded events and the tagging counts are
+gathered), else every rank evaluates the whole set; every rank scores the
+same events.
 """
 from __future__ import annotations
 
@@ -56,6 +71,7 @@ from bsed_tpu_torch.eval.decode import (decode_batch,
 from bsed_tpu_torch.eval.psds import compute_macro_f_score
 from bsed_tpu_torch.eval.sed_scores import event_based_f1
 from bsed_tpu_torch.eval.tagging import TaggingF1Accumulator
+from bsed_tpu_torch.parallel import mesh as pmesh
 from bsed_tpu_torch.train.steps import (TrainModules, build_modules,
                                         create_train_state,
                                         make_epoch_runner, make_predict_fn,
@@ -90,18 +106,42 @@ def _host_metrics(stacked: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 class Trainer:
-    """Port of ``bsed_tpu.train.trainer.Trainer``: the same arguments
-    without ``mesh`` (one device; data parallelism is ROADMAP item 9),
-    plus ``device`` (the card by default) and ``use_kernels`` (False runs
-    the kernels' plain versions)."""
+    """Port of ``bsed_tpu.train.trainer.Trainer``: the same arguments,
+    ``mesh`` included (see the module docstring), plus ``device`` (the
+    card by default; under a group the group's device) and
+    ``use_kernels`` (False runs the kernels' plain versions)."""
 
     def __init__(self, cfg: Config, train_loader, val_loader=None,
                  syn_eval_loader=None, store_dir: Optional[str] = None,
                  use_tensorboard: bool = False,
                  profile_dir: Optional[str] = None,
-                 grad_flow: bool = False, scan_epoch: str = "auto",
-                 device="cuda", use_kernels: bool = True):
+                 mesh="auto", grad_flow: bool = False,
+                 scan_epoch: str = "auto", device="cuda",
+                 use_kernels: bool = True):
         self.cfg = cfg
+        count = getattr(train_loader, "process_count", 1)
+        if mesh == "auto":
+            bs = cfg.train.batch_size
+            mesh = pmesh.auto_data_group(bs, 2 * (bs // 2),
+                                         process_count=count, device=device)
+        elif mesh in (None, "off"):
+            mesh = None
+        self.group: Optional[pmesh.DataGroup] = mesh
+        if mesh is not None:
+            # each rank reads its own rows: a loader strided over the group
+            # (process_index = rank, process_count = size), as the CLI's
+            if (count, getattr(train_loader, "process_index", 0)) != (
+                    mesh.size, mesh.rank):
+                raise ValueError(
+                    f"rank {mesh.rank} of {mesh.size} needs a train loader "
+                    f"strided over the group (process_index={mesh.rank}, "
+                    f"process_count={mesh.size}); this one has "
+                    f"process_count={count}")
+            device = mesh.device
+            if device.type == "cuda" and use_kernels:
+                # rank 0 builds the kernels the ranks will load
+                from bsed_tpu_torch import kernels
+                self._on_rank0(kernels.build)
         # grad_flow: per-parameter mean-|grad| in the step metrics +
         # gradient_flow.png per epoch (plot_grad_flow, main_baseline.py:108)
         self.grad_flow = grad_flow
@@ -127,7 +167,7 @@ class Trainer:
         # anything else is built
         self.modules: TrainModules = build_modules(
             cfg, device=device, use_kernels=use_kernels,
-            norm_stats=norm_stats)
+            norm_stats=norm_stats, group=self.group)
         self.log = create_logger(f"bsed_tpu_torch/{cfg.model_name}")
         self.store_dir = store_dir or os.path.join("stored_data",
                                                    cfg.model_name)
@@ -137,6 +177,7 @@ class Trainer:
             hop_size=cfg.audio.hop_size,
             pooling_time_ratio=cfg.model.pooling_time_ratio)
         self.state = create_train_state(cfg, self.modules, cfg.train.seed)
+        self._replicate()
         self.train_step = make_train_step(
             self.modules, steps_per_epoch=len(train_loader),
             grad_flow=grad_flow)
@@ -159,7 +200,7 @@ class Trainer:
         self.use_tensorboard = use_tensorboard
         self.writer = None
         self.history: list = []
-        self.ckpt.save_meta({
+        self._on_rank0(self.ckpt.save_meta, {
             # full config: the checkpoint is self-describing — `cli eval
             # --store-dir X` rebuilds this exact Config with no --preset
             "config": config_to_dict(cfg),
@@ -184,6 +225,34 @@ class Trainer:
         })
 
     # ------------------------------------------------------------------
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.group is None or self.group.rank == 0
+
+    def _on_rank0(self, fn, *args) -> None:
+        """``fn(*args)`` on rank 0, then every rank waits for it."""
+        if self.is_writer:
+            fn(*args)
+        if self.group is not None:
+            pmesh.barrier(self.group)
+
+    def _replicate(self) -> None:
+        """Under a group, every rank takes rank 0's state: the modules'
+        parameters and buffers and the optimizers' state tensors."""
+        if self.group is None:
+            return
+        st = self.state
+        tensors = []
+        for mod in (st.model, st.ema_model, st.discriminator):
+            if mod is not None:
+                tensors += [t.data for t in mod.state_dict().values()]
+        for opt in (st.optimizer, st.enc_optimizer, st.disc_optimizer):
+            if opt is not None:
+                tensors += [v for slots in opt.state.values()
+                            for v in slots.values() if torch.is_tensor(v)]
+        pmesh.replicate(self.group, tensors)
+
     def resume(self, epoch: int) -> None:
         """Resume from epoch_<epoch-1>: student, teacher, the optimizers'
         states and step count, into the live modules. At the adaptation
@@ -200,6 +269,7 @@ class Trainer:
         if keep is not None:
             st.discriminator.load_state_dict(keep[0])
             st.disc_optimizer.load_state_dict(keep[1])
+        self._replicate()
 
     def _sink_metrics(self, meters: AverageMeterSet,
                       stacked: Dict[str, np.ndarray], base_step: int,
@@ -234,7 +304,7 @@ class Trainer:
         start = time.time()
         seed = self.cfg.train.seed
         ea = (self.train_loader.epoch_arrays(epoch)
-              if self.scan_epoch != "off"
+              if self.scan_epoch != "off" and self.group is None
               and hasattr(self.train_loader, "epoch_arrays") else None)
         if ea is not None:
             arrays, idx = ea
@@ -288,7 +358,13 @@ class Trainer:
         gt_events: Dict[str, list] = true_events if true_events is not None \
             else {}
         tagging = TaggingF1Accumulator(cfg.nclass)
-        for mel, target, names, n_valid in loader:
+        # under a group with the val set's own events, each rank forwards
+        # and decodes every size-th batch (the frame-target fallback needs
+        # every batch's targets on every rank, so it runs whole)
+        shard = self.group is not None and true_events is not None
+        for bi, (mel, target, names, n_valid) in enumerate(loader):
+            if shard and bi % self.group.size != self.group.rank:
+                continue
             strong, weak = predict(params, stats, mel,
                                    inference=cfg.model.use_fpn)
             strong, weak = strong[:n_valid], weak[:n_valid]
@@ -305,6 +381,8 @@ class Trainer:
             else:
                 tagging.update(weak, target)
 
+        if shard:
+            pred_dfs, tagging = self._gather_eval(pred_dfs, tagging)
         merged = merge_prediction_dfs(pred_dfs)
         pred_df = merged[thresholds[0]]
         gt_df = groundtruth_df_from_events(gt_events)
@@ -318,12 +396,32 @@ class Trainer:
             results["psds_f1"] = 0.0
         return results
 
+    def _gather_eval(self, pred_dfs, tagging):
+        """Every rank's decoded batches, in batch order (rank r decoded
+        batches r, r + size, ...), and the tagging counts summed over the
+        group: the port of ``bsed_tpu``'s ``_allgather_eval``, with
+        ``all_gather_object`` carrying the event tables."""
+        import torch.distributed as dist
+
+        counts = (tagging.tp, tagging.fp, tagging.fn, tagging.tn)
+        local = (pred_dfs, counts)
+        gathered = [None] * self.group.size
+        dist.all_gather_object(gathered, local,
+                               group=self.group.process_group)
+        n = sum(len(dfs) for dfs, _ in gathered)
+        ordered = [gathered[i % self.group.size][0][i // self.group.size]
+                   for i in range(n)]
+        summed = TaggingF1Accumulator(self.cfg.nclass)
+        for attr, i in (("tp", 0), ("fp", 1), ("fn", 2), ("tn", 3)):
+            setattr(summed, attr, sum(c[i] for _, c in gathered))
+        return ordered, summed
+
     # ------------------------------------------------------------------
     def fit(self, n_epochs: Optional[int] = None,
             start_epoch: int = 0) -> Dict[str, float]:
         cfg = self.cfg
         n_epochs = n_epochs if n_epochs is not None else cfg.train.n_epoch
-        if self.use_tensorboard and self.writer is None:
+        if self.use_tensorboard and self.writer is None and self.is_writer:
             # purge on resume in STEP units, matching how train_epoch
             # indexes its scalars (the reference's epoch-unit purge_step,
             # main_baseline.py:656, would wipe nearly all earlier curves)
@@ -361,9 +459,10 @@ class Trainer:
                         (epoch + 1) * len(self.train_loader))
                 if cfg.train.checkpoint_epochs and \
                         epoch % cfg.train.checkpoint_epochs == 0:
-                    self.ckpt.save(f"epoch_{epoch}", self.state)
+                    self._on_rank0(self.ckpt.save, f"epoch_{epoch}",
+                                   self.state)
                 if self.saver.apply(score, epoch):
-                    self.ckpt.save("best", self.state)
+                    self._on_rank0(self.ckpt.save, "best", self.state)
                     best = dict(row)
                 if self.early_stopping is not None and \
                         self.early_stopping.apply(score, epoch):
@@ -373,9 +472,10 @@ class Trainer:
             else:
                 if cfg.train.checkpoint_epochs and \
                         epoch % cfg.train.checkpoint_epochs == 0:
-                    self.ckpt.save(f"epoch_{epoch}", self.state)
+                    self._on_rank0(self.ckpt.save, f"epoch_{epoch}",
+                                   self.state)
             self.history.append(row)
-        self._write_results()
+        self._on_rank0(self._write_results)
         return best or (self.history[-1] if self.history else {})
 
     def _write_results(self) -> None:

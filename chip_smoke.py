@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--profile-dir DIR]
+    python3 chip_smoke.py [--profile-dir DIR] [--only PHASE[,PHASE]]
 
 Builds the port's CUDA kernels from ``bsed_tpu_torch/csrc`` (nvcc, at first
 use, all sources in parallel) and drives every slice of the port:
@@ -114,7 +114,18 @@ use, all sources in parallel) and drives every slice of the port:
     subprocesses (TF32 off, as they print) on a full-width ``--data-root``
     and ``train --preset baseline_mt_isp --perf --pseudo-labels``
     in-process, with K2's train form and K3 exactly 6 and 3 times a step
-    and K2's eval form and K4 3 and 2 times a validation batch.
+    and K2's eval form and K4 3 and 2 times a validation batch;
+  * the learning gate (``learning_gate``): ``bsed_tpu``'s event-F1 gate
+    (``baseline_mt_isp`` at 3.2 kHz, 4 s clips, 128 training clips,
+    evaluated every 20 epochs for up to 300: decode-path oracle > 0.9,
+    best event F1 >= 0.10) in the reference form, and the --perf form's
+    trajectory beside it, the two forms in two processes on the card;
+  * data parallelism (``data_parallel_path``): ``train --mesh auto``
+    through torchrun with one NCCL rank, the flagship --perf step on 2
+    gloo ranks sharing the card against 1 rank in float32 and bf16 (the
+    gaps against ``DP_GATES``), a 2-rank Trainer epoch against the 1-rank
+    epoch, and ``make_sharded_forward`` with two replicas of the card at
+    B=64 against the single forward, with each one's times and launches.
 
 One JSON line per phase; then the card's name and power limit as
 nvidia-smi gives them, the kernels line, and last ``{"ok": true,
@@ -3227,10 +3238,503 @@ def tagger_path(torch, dev, card, profile_dir=None):
     return launches
 
 
+GATE_EVAL_EVERY = 20              # epochs between evaluations
+GATE_MAX_EPOCHS = 300
+GATE_STOP_F1 = 0.15               # early stop, as bsed_tpu's gate
+GATE_MIN_F1 = 0.10                # the gate: best event F1 at least this
+GATE_MIN_ORACLE = 0.9             # and the decode-path oracle above this
+
+
+def learning_gate(device="cuda", perf=False, log=print):
+    """The event-F1 learning gate (the port of ``tests/f1_gate_worker.py``
+    and its parent test, ``tests/test_trainer.py::
+    test_training_reaches_event_f1_on_plantable_signal``):
+    ``baseline_mt_isp`` at sr 3200, hop 80, 4 s clips, dropout 0.1,
+    batch 8, constant lr 2e-3; ``SyntheticDataSource`` streams of 128 / 32
+    / 32 clips (seeds 1 / 2 / 3, event rate 0.10, cue boost 8) and 32 val
+    clips (seed 4); the port's ``Trainer`` on ``device``, evaluated every
+    20 epochs for up to 300, stopping once the best event F1 reaches 0.15.
+    ``perf=True`` trains the ``--perf`` form (``perf_config``: bf16, the
+    folded train stem with K2's train form and K3 in every step, fused
+    streams). The decode-path oracle feeds the val set's ground-truth frame
+    targets through ``decode_batch`` and the event matcher.
+
+    Returns {oracle_f1, best_f1, f1_by_epoch, epochs, steps, seconds,
+    steps_per_s} plus the kernel launches of the training epochs and of
+    the evaluations (K2 forward, K3, K4). The gate, as ``bsed_tpu``'s:
+    oracle > 0.9 and best F1 >= 0.10; the caller holds it."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bsed_tpu_torch.config import AudioConfig, get_config, perf_config
+    from bsed_tpu_torch.data.datasets import SyntheticDataSource
+    from bsed_tpu_torch.data.pipeline import EvalLoader, ThreeStreamLoader
+    from bsed_tpu_torch.eval.decode import (decode_batch,
+                                            groundtruth_df_from_events,
+                                            merge_prediction_dfs)
+    from bsed_tpu_torch.eval.sed_scores import event_based_f1
+    from bsed_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("baseline_mt_isp").replace(
+        audio=AudioConfig(sr=3200, hop_size=80, max_len_seconds=4.0))
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, dropout=0.1),
+        train=dataclasses.replace(cfg.train, batch_size=8, adjust_lr=False,
+                                  max_learning_rate=2e-3))
+    if perf:
+        cfg = perf_config(cfg)
+
+    def mk(n, seed):
+        return SyntheticDataSource(cfg, n_items=n, seed=seed,
+                                   event_rate=0.10, signal_boost=8.0)
+
+    loader = ThreeStreamLoader(mk(128, 1), mk(32, 2), mk(32, 3),
+                               batch_size=8, seed=cfg.train.seed,
+                               device=device)
+    val_ds = mk(32, 4)
+    val = EvalLoader(val_ds, batch_size=8, device=device)
+
+    pred_dfs = []
+    for _, target, names, nv in val:
+        t = np.asarray(target)[:nv].astype(np.float32)
+        pred_dfs.append(decode_batch(t, names[:nv], cfg.bird_list, cfg,
+                                     thresholds=(0.5,)))
+    gt = {val_ds.filename(i): list(val_ds.events(i))
+          for i in range(len(val_ds))}
+    oracle = event_based_f1(groundtruth_df_from_events(gt),
+                            merge_prediction_dfs(pred_dfs)[0.5])
+
+    counters = _counters()
+    train_launches = [0, 0, 0]
+    eval_launches = [0, 0, 0]
+
+    def tally(into, before):
+        for i, c in enumerate(counters):
+            into[i] += c.launches - before[i]
+
+    with tempfile.TemporaryDirectory() as store:
+        trainer = Trainer(cfg, loader, val_loader=val, store_dir=store,
+                          mesh="off", scan_epoch="auto", device=device)
+        best, epochs, f1_by_epoch = 0.0, 0, {}
+        t0 = time.perf_counter()
+        for e in range(GATE_MAX_EPOCHS):
+            before = _launch_counts()
+            trainer.train_epoch(e)
+            tally(train_launches, before)
+            epochs = e + 1
+            if epochs % GATE_EVAL_EVERY == 0:
+                before = _launch_counts()
+                f1 = trainer.evaluate(trainer.val_loader)["event_f1"]
+                tally(eval_launches, before)
+                f1_by_epoch[epochs] = f1
+                best = max(best, f1)
+                log(f"learning_gate {'perf' if perf else 'reference'}: "
+                    f"epoch {epochs} event F1 {f1:.4f} (best {best:.4f}, "
+                    f"{time.perf_counter() - t0:.1f} s)")
+                if best >= GATE_STOP_F1:
+                    break
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    steps = epochs * len(loader)
+    keys = ("stem_epilogue_fwd", "stem_epilogue_bwd", "gru_kernel")
+    return {"form": "perf" if perf else "reference",
+            "oracle_f1": float(oracle), "best_f1": float(best),
+            "f1_by_epoch": f1_by_epoch, "epochs": epochs, "steps": steps,
+            "seconds": seconds, "steps_per_s": steps / seconds,
+            "launches_train": dict(zip(keys, train_launches)),
+            "launches_eval": dict(zip(keys, eval_launches))}
+
+
+def _log_stderr(line: str) -> None:
+    print(line, file=sys.stderr, flush=True)
+
+
+def _gate_worker(group):
+    """Rank 0 runs the gate's reference form, rank 1 its --perf form."""
+    return learning_gate(group.device, perf=group.rank == 1,
+                         log=_log_stderr)
+
+
+def learning_gate_phase(torch, dev, card):
+    """Phase ``learning_gate``: the gate in the reference form (gated:
+    oracle > 0.9, best event F1 >= 0.10 within 300 epochs) and the
+    ``--perf`` form (its trajectory printed, not gated). Both forms are
+    host-bound at the recipe's tiny shapes, so they run side by side, one
+    process each on the card (``parallel.launch.spawn`` gives them the
+    process's TF32 settings and a time limit; they share no tensor), and
+    the phase takes the slower one's time. Training launches no kernel in
+    either form: the reference form is unfolded, and the --perf form's
+    folded stem runs its epilogue unfused at the recipe's dropout 0.1,
+    whose keep probability 0.9 is not k/256 (``folded_stem._ep_ok``, the
+    rule of ``bsed_tpu``'s ``folded_stem.py:288-293``). Every evaluation
+    runs K2's eval form 3 and K4 2 times a val batch. Returns the
+    launches by kernel entry."""
+    from bsed_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    forms = spawn(_gate_worker, 2, backend="gloo", device="cuda:0",
+                  timeout=1000)
+    seconds = time.perf_counter() - t0
+    for form in forms:
+        emit(phase="learning_gate", **form, phase_seconds=seconds,
+             card=card)
+    for form in forms:
+        assert form["launches_train"] == {"stem_epilogue_fwd": 0,
+                                          "stem_epilogue_bwd": 0,
+                                          "gru_kernel": 0}, form
+    ref = forms[0]
+    assert ref["form"] == "reference", ref["form"]
+    assert ref["oracle_f1"] > GATE_MIN_ORACLE, ref
+    assert ref["best_f1"] >= GATE_MIN_F1, ref
+    evals = sum(f["epochs"] // GATE_EVAL_EVERY for f in forms)
+    launches = {k: sum(f["launches_eval"][c] for f in forms)
+                for k, c in (("stem_epilogue", "stem_epilogue_fwd"),
+                             ("gru_kernel", "gru_kernel"))}
+    # 32 val clips at batch 8
+    assert launches == {"stem_epilogue": 12 * evals,
+                        "gru_kernel": 8 * evals}, launches
+    return launches
+
+
+DP_WORLD = 2                      # ranks sharing the one card over gloo
+DP_TIMED = 3                      # timed steps after the compared one
+DP_FIT_CLIPS = 24                 # SYN clips of the Trainer epoch (2 steps)
+DP_SERVE_B = 64
+# gaps the 2-rank step may show against the 1-rank step on the card. In
+# float32 only the order of sums and cuDNN's algorithms at B/2 differ (the
+# CPU holds the step at rtol 1e-5, tests/test_torch_parallel.py; its
+# gradients 2.2e-5 apart in relative Frobenius at the tiny size). In bf16
+# the folded stem's activations and K3's bf16 dW passes round another
+# batch split: 1.6e-2 on the CPU at the tiny size, 5.9e-2 on an H100
+# (80GB HBM3, 700 W) at full width
+DP_GATES = {"float32": {"metrics_rel": 1e-4, "grad_rel_fro": 1e-3,
+                        "bn_stats_rel": 1e-4},
+            "bfloat16": {"metrics_rel": 1e-2, "grad_rel_fro": 0.12,
+                         "bn_stats_rel": 1e-2},
+            "fit_rows_rel": 1e-2, "serve_abs": 1e-4}
+
+
+def _structural_zero(path) -> bool:
+    """Leaves whose exact gradient is 0 (a conv bias feeding a BatchNorm,
+    the attention head's softmax bias): their values are noise."""
+    name = "/".join(path)
+    return (name.endswith("bias") and "conv" in name
+            or name.endswith("dense_softmax/bias"))
+
+
+def _dp_counts():
+    return dict(zip(("stem_epilogue_fwd", "stem_epilogue_bwd",
+                     "gru_kernel"), _launch_counts()))
+
+
+def _dp_step(torch, dev, group, dtype="bfloat16"):
+    """The flagship --perf step (``train_setup``: 12 + 12 full-width clips,
+    ``dtype``, seed 0) on the global batch, or under ``group`` on this rank's
+    rows: (metrics, state leaves after one step, the K2 / K3 / K4
+    launches of that step and of all 1 + DP_TIMED steps, ms a step over
+    the DP_TIMED)."""
+    from bsed_tpu_torch.parallel.mesh import shard_batch
+    from bsed_tpu_torch.train import steps
+
+    cfg, state, step, batch = train_setup(torch, dev, dtype, True, B_TRAIN)
+    if group is not None:
+        modules = steps.build_modules(cfg, device=dev, group=group)
+        state = steps.create_train_state(cfg, modules, 0)
+        step = steps.make_train_step(modules)
+        batch = shard_batch(group, batch)
+    c0 = _dp_counts()
+    metrics = step(state, batch, 1, 30.0)
+    torch.cuda.synchronize()
+    first = {k: v - c0[k] for k, v in _dp_counts().items()}
+    out = ({k: float(v) for k, v in metrics.items()}, state_leaves(state))
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        step(state, batch, 1, 30.0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / DP_TIMED * 1e3
+    return out + (first, {k: v - c0[k] for k, v in _dp_counts().items()},
+                  ms)
+
+
+def _dp_step_worker(group, dtype):
+    import torch
+    return _dp_step(torch, group.device, group, dtype)
+
+
+def _dp_trainer(torch, dev, store, group):
+    """A --perf baseline_mt_isp Trainer on full-width synthetic clips:
+    DP_FIT_CLIPS SYN, half as many weak and unlabelled, 24 val (batch 12:
+    2 steps and 2 val batches). Under ``group`` (``mesh='auto'`` joins it)
+    the rank reads its loader strided over the ranks at B_TRAIN / ranks
+    clips a step, as the CLI builds it; without, one process reads the
+    ranks' batches assembled in rank order."""
+    import dataclasses
+
+    from bsed_tpu_torch.config import get_config, perf_config
+    from bsed_tpu_torch.data.datasets import SyntheticDataSource
+    from bsed_tpu_torch.data.pipeline import (AssembledLoader, EvalLoader,
+                                              ThreeStreamLoader)
+    from bsed_tpu_torch.train.trainer import Trainer
+
+    cfg = perf_config(get_config("baseline_mt_isp"))
+    bs = B_TRAIN // DP_WORLD
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=bs))
+    n = DP_FIT_CLIPS
+
+    def strided(rank):
+        return ThreeStreamLoader(
+            SyntheticDataSource(cfg, n_items=n, seed=1),
+            SyntheticDataSource(cfg, n_items=n // 2, seed=2),
+            SyntheticDataSource(cfg, n_items=n // 2, seed=3),
+            batch_size=bs, seed=cfg.train.seed, process_index=rank,
+            process_count=DP_WORLD, device=dev)
+    loader = (strided(group.rank) if group is not None
+              else AssembledLoader([strided(r) for r in range(DP_WORLD)]))
+    val = EvalLoader(SyntheticDataSource(cfg, n_items=24, seed=4),
+                     batch_size=B_TRAIN, device=dev)
+    return Trainer(cfg, loader, val_loader=val, store_dir=store,
+                   mesh="auto", device=dev)
+
+
+def _dp_fit(torch, dev, store, group=None):
+    """(the epoch's row, the K2 / K3 / K4 launches of its train_epoch and
+    of its evaluate, measured apart by a FitRecorder, seconds, and the
+    seconds of its train, evaluate and checkpoint parts) of one Trainer
+    epoch."""
+    trainer = _dp_trainer(torch, dev, store, group)
+    t0 = time.perf_counter()
+    with FitRecorder(torch) as rec:
+        rec.run = "fit"
+        trainer.fit(n_epochs=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {}
+    for kind in ("train_epoch", "evaluate"):
+        calls = rec.of("fit", kind)
+        launches[kind] = {name: sum(c[key] for c in calls) for name, key in
+                          (("stem_epilogue_fwd", "k2"),
+                           ("stem_epilogue_bwd", "k3"),
+                           ("gru_kernel", "k4"))}
+    return trainer.history[0], launches, seconds, rec.epochs("fit")[0]
+
+
+def _dp_fit_worker(group, store):
+    import torch
+    return _dp_fit(torch, group.device, store, group)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def dp_step_gap(np, ref, got):
+    """The 2-rank step's gaps to the 1-rank step: metrics (relative), the
+    gradient through Adam's first moment (relative Frobenius per leaf,
+    structural zeros left out), BatchNorm statistics (relative to each
+    leaf's largest element), params (in units of lr)."""
+    (m1, s1), (m2, s2) = ref[:2], got[:2]
+    gaps = {"metrics_rel": max(_rel(m2[k], m1[k]) for k in m1)}
+    fro = [(float(np.linalg.norm(s2[p] - s1[p])
+                  / max(np.linalg.norm(s1[p]), 1e-30)), p,
+            float(np.linalg.norm(s1[p]) / 0.1))
+           for p in s1 if p[0] == "mu" and not _structural_zero(p)]
+    gaps["grad_rel_fro"] = max(v for v, _, _ in fro)
+    gaps["grad_worst_leaves"] = [{"leaf": "/".join(p), "rel_fro": v,
+                                  "norm": n} for v, p, n in sorted(fro)[-3:]]
+    gaps["bn_stats_rel"] = max(
+        float(np.abs(s2[p] - s1[p]).max() / max(np.abs(s1[p]).max(), 1e-30))
+        for p in s1 if p[0] in ("batch_stats", "ema_batch_stats"))
+    gaps["params_max_abs_over_lr"] = max(
+        float(np.abs(s2[p] - s1[p]).max()) for p in s1
+        if p[0] == "params") / m1["lr"]
+    return gaps
+
+
+def data_parallel_path(torch, dev, card):
+    """Phase ``data_parallel_path``: data parallelism on the one card.
+
+      * a 1-rank NCCL group: ``train --preset baseline_mt_isp --perf -s
+        24 --epochs 1`` through torchrun (``python -m
+        torch.distributed.run --standalone --nproc-per-node 1``), so
+        ``--mesh auto`` joins the job's group;
+      * 2 ranks sharing the card over gloo (``parallel.launch.spawn``):
+        the flagship --perf step (12 + 12 full-width clips) in float32 and
+        in bf16 against the 1-rank step on the same global batch
+        (``dp_step_gap`` against ``DP_GATES``), and a 2-rank ``Trainer``
+        epoch (bf16, ``mesh='auto'``, each rank reading its strided
+        loader) against the 1-rank epoch on the assembled batches, row by
+        row, with the K2 / K3 / K4 launches of each rank's train_epoch
+        and evaluate counted apart;
+      * ``make_sharded_forward`` on ["cuda:0", "cuda:0"] at B=64 (float32,
+        'high': each replica runs K1 once, K2 three times and K4 twice a
+        batch) against the single forward.
+
+    Times by the host clock around synchronised work. Returns the
+    launches of the 2-rank runs and the sharded forward by kernel entry
+    (the ranks' counts summed)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.ops import mel_kernel
+    from bsed_tpu_torch.parallel.launch import spawn
+    from bsed_tpu_torch.serve import make_fast_forward, make_sharded_forward
+    from bsed_tpu_torch.utils.weights import init_params
+
+    t_phase = time.perf_counter()
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "nccl1")
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "1", "-m", "bsed_tpu_torch.cli", "train",
+                "--preset", "baseline_mt_isp", "--perf", "-s", "24",
+                "--epochs", "1", "--store-dir", store]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=600)
+        rows = (read_results(os.path.join(store, "results.tsv"))
+                if proc.returncode == 0 else None)
+        report["nccl_1rank_train"] = {
+            "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+            "rows": rows}
+        if proc.returncode != 0 or not rows or not all(
+                math.isfinite(v) for v in rows[0].values()):
+            raise RuntimeError("torchrun train failed:\n"
+                               + proc.stdout[-3000:] + proc.stderr[-3000:])
+
+        report["step"], step_runs = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            ref = _dp_step(torch, dev, None, dtype)
+            t0 = time.perf_counter()
+            ranks = spawn(_dp_step_worker, DP_WORLD, backend="gloo",
+                          device="cuda:0", args=(dtype,), timeout=600)
+            spawn_s = time.perf_counter() - t0
+            step_runs[dtype] = (ref, ranks)
+            report["step"][dtype] = {
+                "ms_1rank": ref[4], "ms_2rank": [r[4] for r in ranks],
+                "seconds_spawned": spawn_s, "launches_1rank": ref[3],
+                "launches_2rank": [r[3] for r in ranks],
+                "gaps": [dp_step_gap(np, ref, r) for r in ranks],
+                "loss_1rank": ref[0]["loss"],
+                "loss_2rank": ranks[0][0]["loss"]}
+            torch.cuda.empty_cache()
+
+        row1, fit_launches_1, fit_s1, fit_parts_1 = _dp_fit(
+            torch, dev, os.path.join(tmp, "fit1"))
+        t0 = time.perf_counter()
+        fits = spawn(_dp_fit_worker, DP_WORLD, backend="gloo",
+                     device="cuda:0", args=(os.path.join(tmp, "fit2"),),
+                     timeout=600)
+        fit_spawn_s = time.perf_counter() - t0
+        # the train metrics; the val scores at random weights turn on
+        # posteriors at the threshold and are reported, not gated
+        fit_gap = max(_rel(f[0][k], row1[k]) for f in fits for k in row1
+                      if k != "epoch" and not k.startswith("val_")
+                      and abs(row1[k]) > 1e-6)
+        report["fit"] = {
+            "seconds_1rank": fit_s1, "seconds_2rank": [f[2] for f in fits],
+            "parts_1rank": fit_parts_1, "parts_2rank": [f[3] for f in fits],
+            "seconds_spawned": fit_spawn_s,
+            "launches_1rank": fit_launches_1,
+            "launches_2rank": [f[1] for f in fits],
+            "rows_max_rel_gap": fit_gap,
+            "loss_1rank": row1["loss"], "loss_2rank": fits[0][0]["loss"],
+            "val_1rank": {k: v for k, v in row1.items()
+                          if k.startswith("val_")},
+            "val_2rank": {k: v for k, v in fits[0][0].items()
+                          if k.startswith("val_")}}
+    torch.cuda.empty_cache()
+
+    cfg = get_config("baseline")
+    params, stats = init_params(cfg, 0)
+    audio = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (DP_SERVE_B, cfg.audio.n_samples)).astype(np.float32) * 0.1)
+    single = make_fast_forward(cfg, params, stats, device=dev,
+                               precision="high")
+    sharded = make_sharded_forward(cfg, params, stats, [dev, dev],
+                                   precision="high")
+    serve_ms = {}
+    for name, fwd in (("single", single), ("sharded", sharded),
+                      ("sharded_again", sharded), ("single_again", single)):
+        fwd(audio)
+        torch.cuda.synchronize()
+        c0 = _dp_counts()
+        k1 = mel_kernel.fused_block_mel.launches
+        t0 = time.perf_counter()
+        for _ in range(N_TIMED):
+            out = fwd(audio)
+        torch.cuda.synchronize()
+        serve_ms[name] = (time.perf_counter() - t0) / N_TIMED * 1e3
+        if name == "sharded":
+            serve_launches = {k: v - c0[k] for k, v in _dp_counts().items()}
+            serve_launches["mel_kernel"] = (mel_kernel.fused_block_mel.launches
+                                            - k1)
+    want, got = single(audio), sharded(audio)
+    serve_gap = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    report["serve"] = {"batch": DP_SERVE_B, "replicas": [str(dev)] * 2,
+                       "ms": serve_ms, "launches_sharded": serve_launches,
+                       "max_abs_gap": serve_gap}
+
+    emit(phase="data_parallel_path", world=DP_WORLD, backend="gloo",
+         gates=DP_GATES, seconds=time.perf_counter() - t_phase, card=card,
+         **report)
+    step_launch = {"stem_epilogue_fwd": 6, "stem_epilogue_bwd": 3,
+                   "gru_kernel": 0}
+    for dtype, (ref, ranks) in step_runs.items():
+        assert ref[2] == step_launch, ref[2]
+        assert all(r[2] == step_launch for r in ranks), [r[2] for r in ranks]
+        for g in report["step"][dtype]["gaps"]:
+            for k, gate in DP_GATES[dtype].items():
+                assert g[k] <= gate, (dtype, k, g)
+    assert fit_gap <= DP_GATES["fit_rows_rel"], fit_gap
+    # an epoch of 2 steps (K2 train 6, K3 3 a step) and 2 val batches (K2
+    # eval 3, K4 2 a batch), of which each of the 2 ranks evaluates one
+    n_steps = DP_FIT_CLIPS // B_TRAIN
+    fit_train = {"stem_epilogue_fwd": 6 * n_steps,
+                 "stem_epilogue_bwd": 3 * n_steps, "gru_kernel": 0}
+    assert fit_launches_1 == {"train_epoch": fit_train, "evaluate": {
+        "stem_epilogue_fwd": 6, "stem_epilogue_bwd": 0,
+        "gru_kernel": 4}}, fit_launches_1
+    assert all(f[1] == {"train_epoch": fit_train, "evaluate": {
+        "stem_epilogue_fwd": 3, "stem_epilogue_bwd": 0, "gru_kernel": 2}}
+        for f in fits), [f[1] for f in fits]
+    assert serve_launches == {"stem_epilogue_fwd": 6 * N_TIMED,
+                              "stem_epilogue_bwd": 0,
+                              "gru_kernel": 4 * N_TIMED,
+                              "mel_kernel": 2 * N_TIMED}, serve_launches
+    assert serve_gap <= DP_GATES["serve_abs"], serve_gap
+    launches = {"mel_kernel": serve_launches["mel_kernel"],
+                "stem_epilogue": serve_launches["stem_epilogue_fwd"],
+                "stem_epilogue_train": sum(r[3]["stem_epilogue_fwd"]
+                                           for _, rs in step_runs.values()
+                                           for r in rs),
+                "stem_epilogue_bwd": sum(r[3]["stem_epilogue_bwd"]
+                                         for _, rs in step_runs.values()
+                                         for r in rs),
+                "gru_kernel": serve_launches["gru_kernel"]}
+    for f in fits:               # the 2-rank epoch: train and its evaluate
+        train, ev = f[1]["train_epoch"], f[1]["evaluate"]
+        launches["stem_epilogue_train"] += train["stem_epilogue_fwd"]
+        launches["stem_epilogue_bwd"] += train["stem_epilogue_bwd"]
+        launches["stem_epilogue"] += ev["stem_epilogue_fwd"]
+        launches["gru_kernel"] += train["gru_kernel"] + ev["gru_kernel"]
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-dir", default=None,
                         help="write the profile tables here")
+    parser.add_argument("--only", default=None,
+                        help="comma-separated phases to run alone after the "
+                             "build (learning_gate, data_parallel_path); "
+                             "prints their lines and the card's, not the "
+                             "kernels line or the last line")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3259,6 +3763,13 @@ def main() -> int:
                 print(f"[ptxas {src}] {line.strip()}", file=sys.stderr)
     emit(phase="build", seconds=time.perf_counter() - t0,
          built=sorted(reports))
+    if args.only:
+        alone = {"learning_gate": learning_gate_phase,
+                 "data_parallel_path": data_parallel_path}
+        for phase in args.only.split(","):
+            alone[phase](torch, dev, smi)
+        print(smi, flush=True)
+        return 0
 
     k1 = check_mel_kernel(torch, dev)
     k2 = check_stem_epilogue(torch, dev)
@@ -3297,6 +3808,10 @@ def main() -> int:
     da_launches = adaptation_path(torch, dev, smi, args.profile_dir)
     torch.cuda.empty_cache()
     tag_launches = tagger_path(torch, dev, smi, args.profile_dir)
+    torch.cuda.empty_cache()
+    gate_launches = learning_gate_phase(torch, dev, smi)
+    torch.cuda.empty_cache()
+    dp_launches = data_parallel_path(torch, dev, smi)
 
     for k in (k1, k2, k2t, k3):
         k["launches"] = launches[k["name"]]
@@ -3312,6 +3827,10 @@ def main() -> int:
         k["launches_adaptation_path"] = da_launches[k["name"]]
     for k in (k2, k2t, k3, k4):  # tagger_path: train --pseudo-labels
         k["launches_tagger_path"] = tag_launches[k["name"]]
+    for k in (k2, k4):           # learning_gate: the evaluations
+        k["launches_learning_gate"] = gate_launches[k["name"]]
+    for k in (k1, k2, k2t, k3, k4):  # data_parallel_path: ranks summed
+        k["launches_data_parallel_path"] = dp_launches[k["name"]]
     kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)

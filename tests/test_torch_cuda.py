@@ -1136,3 +1136,78 @@ def test_pseudo_label_tsv_card_equals_cpu(dev, tmp_path):
     near = np.abs(post[1] - 0.5) < 1e-4
     assert not near.any(), f"posteriors at the threshold: {post[1][near]}"
     assert files[0] == files[1]
+
+
+def test_learning_gate_on_card(dev):
+    """The event-F1 learning gate (``chip_smoke.learning_gate``, the port
+    of ``tests/f1_gate_worker.py``) in the reference form: the decode-path
+    oracle above 0.9 and the best val event F1 at least 0.10 within 300
+    epochs, as ``bsed_tpu``'s gate on its accelerator."""
+    import chip_smoke
+
+    res = chip_smoke.learning_gate(dev, perf=False)
+    assert res["oracle_f1"] > chip_smoke.GATE_MIN_ORACLE, res
+    assert res["best_f1"] >= chip_smoke.GATE_MIN_F1, res
+
+
+def test_data_parallel_torchrun_nccl_train(dev, tmp_path):
+    """``train --mesh auto`` under torchrun with one rank: the CLI joins a
+    1-rank NCCL group and writes one finite results row."""
+    import math
+    import subprocess
+    import sys
+
+    import chip_smoke
+
+    store = tmp_path / "store"
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "bsed_tpu_torch.cli", "train",
+         "--preset", "baseline", "--tiny-audio", "-s", "24", "--epochs",
+         "1", "--store-dir", str(store)], capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rows = chip_smoke.read_results(store / "results.tsv")
+    assert len(rows) == 1 and all(math.isfinite(v)
+                                  for v in rows[0].values()), rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_data_parallel_step_two_ranks_on_card(dev, dtype):
+    """Two gloo ranks sharing the card: the --perf flagship step (12 + 12
+    full-width clips, K2 train 6 and K3 3 times a step on each rank)
+    against the 1-rank step on the same global batch, within
+    ``chip_smoke.DP_GATES[dtype]``."""
+    import chip_smoke
+    from bsed_tpu_torch.parallel.launch import spawn
+
+    ref = chip_smoke._dp_step(torch, dev, None, dtype)
+    ranks = spawn(chip_smoke._dp_step_worker, 2, backend="gloo",
+                  device="cuda:0", args=(dtype,), timeout=600)
+    for r in ranks:
+        assert r[2] == ref[2] == {"stem_epilogue_fwd": 6,
+                                  "stem_epilogue_bwd": 3, "gru_kernel": 0}
+        gaps = chip_smoke.dp_step_gap(np, ref, r)
+        for k, gate in chip_smoke.DP_GATES[dtype].items():
+            assert gaps[k] <= gate, (k, gaps)
+
+
+def test_data_parallel_sharded_forward_on_card(dev):
+    """``make_sharded_forward`` on ["cuda:0", "cuda:0"] at B=64 (float32,
+    'high': K1, K2 eval and K4 in each replica) against the single
+    forward, within ``chip_smoke.DP_GATES['serve_abs']``."""
+    import chip_smoke
+    from bsed_tpu_torch.serve import make_sharded_forward
+
+    cfg = get_config("baseline")
+    params, stats = init_params(cfg, 0)
+    audio = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (64, cfg.audio.n_samples)).astype(np.float32) * 0.1)
+    want = make_fast_forward(cfg, params, stats, device=dev,
+                             precision="high")(audio)
+    k1 = mel_kernel.fused_block_mel.launches
+    got = make_sharded_forward(cfg, params, stats, ["cuda:0", "cuda:0"],
+                               precision="high")(audio)
+    assert mel_kernel.fused_block_mel.launches - k1 == 2
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= chip_smoke.DP_GATES["serve_abs"]

@@ -42,7 +42,8 @@ def test_imports_with_jax_blocked():
         "          'models.discriminators', 'train.da', 'predict',\n"
         "          'utils.audio', 'data.preprocess', 'data.synthesizer',\n"
         "          'data.analysis', 'eval.visualize', 'models.resnet',\n"
-        "          'train.tagging_trainer'):\n"
+        "          'train.tagging_trainer', 'parallel.mesh',\n"
+        "          'parallel.launch', 'entry'):\n"
         "    assert 'bsed_tpu_torch.' + m in mods, m\n"
         "for m in ('torch.utils.tensorboard', 'tensorboard', 'matplotlib',\n"
         "          'sklearn'):\n"
