@@ -4,7 +4,8 @@ CRNN.py:178-240), CNN → squeeze freq → BiGRU → dropout, and ``CRNNFPN``
 ``CNNFPN`` with the coarse paths upsampled (align_corners=True, as
 ``time_interp_matrix`` matmuls) and fused by dense layers. Both take NHWC
 (B, T, F, 1) and return ``(encoded, d_input)``, both (B, T/4, 2·n_rnn_cell)
-float32.
+float32. ``CRNNPred`` and ``EncodedCRNNPred`` (CRNN_GRL.py:206-290) are
+the conv prediction head over that encoding (``predictor_head='crnn'``).
 
 In training mode (PyTorch's default) BatchNorm runs on batch statistics
 and dropout draws from the generator passed to ``forward``; ``.eval()`` is
@@ -13,6 +14,7 @@ float32 and casts them per call (the train form, whose optimizer updates
 float32 master weights); serving casts them once (``models/rnn.py``)."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Mapping, Optional
 
 import torch
@@ -22,6 +24,7 @@ from bsed_tpu_torch.config import ModelConfig
 from bsed_tpu_torch.models.cnn import CNN, CNNFPN
 from bsed_tpu_torch.models.discriminators import FrameDiscriminatorGRL
 from bsed_tpu_torch.models.layers import time_interp_matrix
+from bsed_tpu_torch.models.predictor import _attention_pool, _inference_gate
 from bsed_tpu_torch.models.rnn import BidirectionalGRU
 from bsed_tpu_torch.ops.dropout import FastDropout
 
@@ -59,7 +62,7 @@ class CRNN(nn.Module):
 
     def forward(self, x, gen: Optional[torch.Generator] = None):
         x = self.cnn(x, gen).squeeze(2)     # (B, T', 1, C) → (B, T', C)
-        x = self.dropout(self.rnn(x), gen)
+        x = self.dropout(self.rnn(x, gen), gen)
         return x, x
 
 
@@ -93,8 +96,10 @@ class CRNNFPN(nn.Module):
         x, x_2, x_4 = self.cnn(x, gen)
 
         def run_rnn(h, name):
-            fn = bigrus[name] if bigrus is not None else getattr(self, name)
-            return self.dropout(fn(h.squeeze(2)), gen)
+            h = h.squeeze(2)
+            h = (bigrus[name](h) if bigrus is not None
+                 else getattr(self, name)(h, gen))
+            return self.dropout(h, gen)
 
         x = run_rnn(x, "rnn")            # (B, 313, 2H)
         x_2 = run_rnn(x_2, "rnn_2")      # (B, 156, 2H)
@@ -104,6 +109,63 @@ class CRNNFPN(nn.Module):
         x_2_up = self._up(x_2.shape[1], x.shape[1], x.device) @ x_2
         x = self.fuse_4(torch.cat([x, x_2_up], dim=-1))
         return x, x
+
+
+class CRNNPred(nn.Module):
+    """The dual-CRNN second model (CRNN_GRL.py:206-290), the port of
+    ``bsed_tpu.models.crnn.CRNNPred``: the conv stack's features are
+    sigmoided directly as the strong prediction, and an attention head
+    (``dense_softmax`` over all of them, softmax over classes) pools
+    ``strong[..., :nclass]`` over time to the weak one. NHWC (B, T, F,
+    C_in) → (strong (B, T', F'·C or C), weak (B, nclass)); a frequency
+    axis the stack leaves wider than 1 is flattened as (F', C) row-major,
+    ``bsed_tpu``'s reshape of its NHWC map. ``inference`` gates
+    ``strong[..., :nclass]`` by (weak > 0.5). The stack's BatchNorm and
+    dropout follow the module's mode, as ``CNN``'s do."""
+
+    def __init__(self, cfg: ModelConfig, in_width: int):
+        super().__init__()
+        self.cnn = CNN(**_cnn_kwargs(cfg))
+        width = in_width
+        for _, pf in cfg.pooling:
+            width //= pf
+        if width < 1:
+            raise ValueError(
+                f"the conv head's frequency pools "
+                f"({[p[1] for p in cfg.pooling]}) reduce an input "
+                f"{in_width} wide to nothing")
+        self.nclass = cfg.nclass
+        self.dense_softmax = nn.Linear(width * cfg.nb_filters[-1],
+                                       cfg.nclass)
+
+    def forward(self, x, gen: Optional[torch.Generator] = None,
+                inference: bool = False):
+        x = self.cnn(x, gen)
+        x = x.reshape(x.shape[0], x.shape[1], -1)       # (B, T', F'·C)
+        strong = torch.sigmoid(x)
+        weak = _attention_pool(strong[..., :self.nclass],
+                               self.dense_softmax(x))
+        if inference:
+            strong = _inference_gate(strong[..., :self.nclass], weak)
+        return strong, weak
+
+
+class EncodedCRNNPred(nn.Module):
+    """``CRNNPred`` as a prediction head over the encoder's (B, T, 2H)
+    output (``bsed_tpu.models.crnn.EncodedCRNNPred``): the encoding is the
+    head's one-channel NHWC input (B, T, 2H, 1). ``cfg`` is the head's
+    model configuration (``models/predictor.make_predictor_head``), whose
+    frequency pools (4·4·4·2·2 = 256) must leave at least one bin of the
+    2H-wide input."""
+
+    def __init__(self, cfg: ModelConfig, in_width: int):
+        super().__init__()
+        self.crnn_pred = CRNNPred(dataclasses.replace(cfg, n_in_channel=1),
+                                  in_width)
+
+    def forward(self, x, gen: Optional[torch.Generator] = None,
+                inference: bool = False):
+        return self.crnn_pred(x[..., None], gen, inference=inference)
 
 
 def make_encoder(cfg: ModelConfig, cast_weights: bool = True) -> nn.Module:

@@ -5,9 +5,10 @@ The JAX module's gate order (r, z, n) with the recurrent bias inside the
 reset gate ("linear before reset") is exactly ``torch.nn.GRU``'s, and its
 parameter names (``weight_ih_l0``, ``bias_hh_l1_reverse``, …) are
 torch's, so the module is an ``nn.GRU``. The JAX package runs this
-recurrence in XLA (``lax.scan``), so cuDNN runs it here. Dtype handling
-follows rnn.py:83-111: the input, the projection and the carry are in the
-compute dtype; the output is cast to float32.
+recurrence in XLA (``lax.scan``), so cuDNN runs it here; its inter-layer
+dropout in training draws from the step's generator (``BidirectionalGRU``).
+Dtype handling follows rnn.py:83-111: the input, the projection and the
+carry are in the compute dtype; the output is cast to float32.
 
 ``HoistedBiGRU`` is the JAX module's own form of the same network, and
 the form the port serves (``serve.make_fast_forward``): one
@@ -36,6 +37,7 @@ import torch
 import torch.nn as nn
 
 from bsed_tpu_torch.ops import gru_kernel
+from bsed_tpu_torch.ops.dropout import FastDropout
 
 
 def gru_scan_bidir(xp2: torch.Tensor, w_hh2: torch.Tensor,
@@ -64,39 +66,73 @@ def gru_scan_bidir(xp2: torch.Tensor, w_hh2: torch.Tensor,
     return torch.stack(ys, dim=2)
 
 
+def _no_flatten() -> None:
+    pass
+
+
+def _template_gru(n_in: int, n_hidden: int) -> nn.GRU:
+    """A one-layer bidirectional ``nn.GRU`` that ``functional_call`` feeds
+    another module's weights. On the card ``nn.GRU`` flattens the weights
+    it is given into one buffer of its own, rebinding their storage in
+    place; these are another module's parameters, so it never flattens,
+    and cuDNN copies them per call."""
+    gru = nn.GRU(n_in, n_hidden, batch_first=True, bidirectional=True)
+    gru.flatten_parameters = _no_flatten
+    return gru
+
+
 class BidirectionalGRU(nn.Module):
-    """(B, T, n_in) → (B, T, 2·n_hidden) float32."""
+    """(B, T, n_in) → (B, T, 2·n_hidden) float32.
+
+    ``dropout`` is ``bsed_tpu``'s inter-layer dropout (rnn.py:109-110):
+    in training, each layer's output but the last goes through
+    ``ops/dropout.FastDropout`` in the compute dtype, drawn from the
+    generator passed to ``forward``. ``nn.GRU``'s own dropout draws from
+    torch's global generator and cuDNN's multi-layer call takes no outside
+    mask, so a training forward with ``dropout > 0`` runs the layers one
+    call each: a one-layer bidirectional ``nn.GRU`` per layer, fed that
+    layer's weights through ``torch.func.functional_call``. The parameters
+    stay those of ``self.gru`` (``weight_ih_l0``, …); without dropout, or
+    in eval mode, one call of ``self.gru`` runs them all."""
 
     def __init__(self, n_in: int, n_hidden: int, num_layers: int = 2,
                  dropout: float = 0.0, dtype: Optional[torch.dtype] = None,
                  cast_weights: bool = True):
         super().__init__()
         self.gru = nn.GRU(n_in, n_hidden, num_layers=num_layers,
-                          batch_first=True, bidirectional=True,
-                          dropout=dropout if num_layers > 1 else 0.0)
+                          batch_first=True, bidirectional=True)
         self.dtype = dtype or torch.float32
         if dtype is not None and cast_weights:
             self.gru.to(dtype)
+        self.dropout = FastDropout(dropout if num_layers > 1 else 0.0)
+        # the one-layer GRUs of a training forward with dropout: templates
+        # whose weights functional_call replaces, kept out of the module's
+        # parameters
+        self._layers = tuple(
+            _template_gru(n_in if i == 0 else 2 * n_hidden, n_hidden)
+            for i in range(num_layers)) if self.dropout.rate > 0 else ()
 
-    def forward(self, x):
-        if self.training and self.gru.dropout > 0:
-            raise NotImplementedError(
-                "inter-layer GRU dropout in training draws from torch's "
-                "global generator; the port's train step does not take it "
-                "(model.dropout_recurrent must be 0)")
+    def forward(self, x, gen: Optional[torch.Generator] = None):
         x = x.to(self.dtype)
-        params = dict(self.gru.named_parameters())
-        if all(p.dtype == self.dtype for p in params.values()):
-            out, _ = self.gru(x)
-        else:
-            cast = {n: p.to(self.dtype) for n, p in params.items()}
-            with warnings.catch_warnings():
-                # the cast weights are separate tensors, so cuDNN compacts
-                # them into one buffer per call and says so every time
-                warnings.filterwarnings("ignore", message=".*contiguous "
-                                        "chunk of memory.*")
-                out, _ = torch.func.functional_call(self.gru, cast, (x,))
-        return out.float()
+        cast = any(p.dtype != self.dtype for p in self.gru.parameters())
+        params = {n: p.to(self.dtype) for n, p in self.gru.named_parameters()}
+        with warnings.catch_warnings():
+            # cast or per-layer weights are separate tensors, so cuDNN
+            # compacts them into one buffer per call and says so every time
+            warnings.filterwarnings("ignore", message=".*contiguous "
+                                    "chunk of memory.*")
+            if not (self.training and self._layers):
+                out = (torch.func.functional_call(self.gru, params, (x,))
+                       if cast else self.gru(x))
+                return out[0].float()
+            for i, layer in enumerate(self._layers):
+                if i:
+                    x = self.dropout(x, gen)
+                own = {n.replace(f"_l{i}", "_l0"): p
+                       for n, p in params.items()
+                       if n.endswith((f"_l{i}", f"_l{i}_reverse"))}
+                x = torch.func.functional_call(layer, own, (x,))[0]
+        return x.float()
 
 
 def bigru_hoisted(rnn: BidirectionalGRU, x: torch.Tensor,

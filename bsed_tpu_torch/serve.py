@@ -136,10 +136,14 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
     return encode
 
 
-def build_predictor(cfg: Config, pred_params: Dict, dev) -> torch.nn.Module:
-    """The eval-mode predictor head on ``dev`` from its flax-layout tree."""
+def build_predictor(cfg: Config, pred_params: Dict, dev,
+                    pred_stats: Optional[Dict] = None) -> torch.nn.Module:
+    """The eval-mode predictor head on ``dev`` from its flax-layout tree;
+    the 'crnn' conv head also takes its statistics (``batch_stats
+    ["predictor"]``), as ``bsed_tpu``'s serving threads them
+    (serve.py:103-107)."""
     predictor = make_predictor_head(cfg)
-    weights.load_predictor(predictor, pred_params)
+    weights.load_predictor(predictor, pred_params, pred_stats)
     return predictor.to(dev).eval()
 
 
@@ -191,7 +195,8 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
                            use_fused_epilogue=use_fused_epilogue,
                            use_fused_stem=use_fused_stem,
                            stem_impl=stem_impl, use_kernels=use_kernels)
-    predictor = build_predictor(cfg, params["predictor"], dev)
+    predictor = build_predictor(cfg, params["predictor"], dev,
+                                batch_stats.get("predictor"))
     fe = MelFrontEnd(a, algorithm=mel_algorithm, device=dev,
                      use_kernel=use_kernels)
 

@@ -61,8 +61,12 @@ the device (the port of the JAX package's ``lax.scan`` over the epoch, as
 a plain loop), and ``make_predict_fn`` is the port of the JAX package's
 inference function; ``train/trainer.py`` drives both.
 
-Not ported: the 'crnn' predictor head and recurrent dropout in training
-(ROADMAP item 8c); ``build_modules`` refuses them.
+The 'crnn' predictor head (``models/crnn.EncodedCRNNPred``) carries
+BatchNorm: every forward, those whose predictions are discarded included,
+advances its running statistics, which the state keeps under
+``batch_stats["predictor"]``. Recurrent dropout
+(``ModelConfig.dropout_recurrent``) draws from the step's generator
+(``models/rnn.BidirectionalGRU``).
 """
 from __future__ import annotations
 
@@ -131,7 +135,7 @@ class _FoldedRestCRNN(nn.Module):
         for blk in self.blocks.values():
             h = blk(h, gen)
         h = h.float().squeeze(2)
-        return self.dropout(self.rnn(h), gen)
+        return self.dropout(self.rnn(h, gen), gen)
 
 
 class FoldedEncoder(nn.Module):
@@ -167,7 +171,9 @@ class TrainModel(nn.Module):
     """Encoder + predictor head: ``forward(x, gen) -> (strong, weak,
     encoded)``. The encoder is ``FoldedEncoder`` under
     ``ModelConfig.folded_train_stem``, else the unfolded ``CRNN`` or
-    ``CRNNFPN`` with float32 master weights."""
+    ``CRNNFPN`` with float32 master weights. The 'crnn' head takes the
+    generator too: its convs drop out and its BatchNorm normalises by the
+    batch (the data group's, under one), as the encoder's do."""
 
     def __init__(self, cfg: Config, device="cuda", use_kernels: bool = True):
         super().__init__()
@@ -181,7 +187,7 @@ class TrainModel(nn.Module):
         enc = self.encoder(x, gen)
         if not self.folded:
             enc = enc[0]
-        strong, weak = self.predictor(enc)
+        strong, weak = self.predictor(enc, gen)
         return strong, weak, enc
 
 
@@ -281,14 +287,6 @@ def _check_supported(cfg: Config) -> None:
             "frame-level CDAN requires da.randomized_dim > 0 (the "
             "full multilinear map over flattened frame features is "
             "infeasibly large; the reference always randomizes)")
-    if m.predictor_head == "crnn":
-        raise NotImplementedError(
-            "the 'crnn' predictor head is not ported yet (ROADMAP.md, open "
-            "item 8c)")
-    if m.dropout_recurrent > 0:
-        raise NotImplementedError(
-            "recurrent dropout in training (model.dropout_recurrent > 0) is "
-            "not ported yet (ROADMAP.md, open item 8c)")
     if m.folded_train_stem and not folded_train_eligible(m,
                                                          cfg.audio.n_mels):
         raise ValueError(_NOT_FOLDABLE)
@@ -1141,9 +1139,6 @@ def make_predict_fn(modules: TrainModules, norm_stats="train"):
     if norm_stats is not None:
         nm = tuple(torch.as_tensor(np.asarray(a, np.float32),
                                    device=dev)[:, None] for a in norm_stats)
-    if cfg.model.predictor_head == "crnn":
-        raise NotImplementedError("the 'crnn' predictor head is not ported "
-                                  "yet (ROADMAP.md, open item 8c)")
     built = {}
 
     def models(params, batch_stats):
@@ -1152,8 +1147,8 @@ def make_predict_fn(modules: TrainModules, norm_stats="train"):
             built["encode"] = build_encoder(
                 cfg, params["encoder"], batch_stats["encoder"], dev,
                 use_kernels=modules.use_kernels)
-            built["predictor"] = build_predictor(cfg, params["predictor"],
-                                                 dev)
+            built["predictor"] = build_predictor(
+                cfg, params["predictor"], dev, batch_stats.get("predictor"))
             # the trees are held so their ids stay theirs
             built["trees"] = (id(params), id(batch_stats))
             built["held"] = (params, batch_stats)

@@ -12,6 +12,14 @@ direction. The trees are the flax layout, as numpy arrays (or anything
   params["predictor"] = {"dense": {kernel, bias}, "dense_softmax": …}
   batch_stats["encoder"]["cnn"]["block{i}"]["bn"] = {mean, var}
 
+The 'crnn' head (``models/crnn.EncodedCRNNPred``) has conv blocks and
+BatchNorm statistics of its own:
+
+  params["predictor"] = {"crnn_pred": {"cnn": {"block{i}": …},
+      "dense_softmax": {kernel, bias}}}
+  batch_stats["predictor"] = {"crnn_pred": {"cnn": {"block{i}":
+      {"bn": {mean, var}}}}}
+
 Layout changes: HWIO conv kernels become OIHW (torch_compat.py:167-168);
 flax Dense (in, out) becomes ``nn.Linear`` (out, in).
 
@@ -97,7 +105,15 @@ def load_gru(rnn, rnn_params: Mapping) -> None:
         _set(param, rnn_params[name])
 
 
-def load_predictor(pred, pred_params: Mapping) -> None:
+def load_predictor(pred, pred_params: Mapping,
+                   pred_stats: Mapping = None) -> None:
+    """A predictor head from its flax-layout tree; the 'crnn' head
+    (``models/crnn.EncodedCRNNPred``) also takes its statistics."""
+    if hasattr(pred, "crnn_pred"):
+        p, s = pred_params["crnn_pred"], pred_stats["crnn_pred"]
+        load_cnn(pred.crnn_pred.cnn, p["cnn"], s["cnn"])
+        load_dense(pred.crnn_pred.dense_softmax, p["dense_softmax"])
+        return
     for name, mod in pred.named_children():
         if mod is not None:
             load_dense(mod, pred_params[name])
@@ -121,41 +137,49 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def init_params(cfg, seed: int = 0,
                 perturb_stats: bool = True) -> Tuple[Dict, Dict]:
     """(params, batch_stats) in the flax layout, drawn from ``seed``, for
-    the CRNN or CRNNFPN encoder of ``cfg`` with a linear or mlp head.
-    Running means are 0.1·N(0, 1) and variances 0.5 + U(0, 1), or 0 and 1
-    with ``perturb_stats=False``; the draw is made either way, so the
-    parameters do not depend on ``perturb_stats``."""
+    the CRNN or CRNNFPN encoder of ``cfg`` with its linear, mlp or 'crnn'
+    head. Running means are 0.1·N(0, 1) and variances 0.5 + U(0, 1), or
+    0 and 1 with ``perturb_stats=False``; the draw is made either way, so
+    the parameters do not depend on ``perturb_stats``. The 'crnn' head's
+    conv blocks draw as the encoder's, its ``dense_softmax`` N(0, 0.01);
+    its statistics are ``batch_stats["predictor"]``."""
+    from bsed_tpu_torch.models.predictor import make_predictor_head
+
     m = cfg.model
-    if m.predictor_head == "crnn":
-        raise NotImplementedError(
-            "the 'crnn' predictor head is not ported yet (ROADMAP.md, open "
-            "item 8c)")
     gen = torch.Generator().manual_seed(seed)
-    cnn, stats = {}, {}
-    cin = m.n_in_channel
+
+    def conv_blocks(names, couts, cin):
+        """(params, stats) of conv blocks ``names`` with ``couts``
+        filters, the first fed ``cin`` channels."""
+        cnn, stats = {}, {}
+        for name, cout in zip(names, couts):
+            blk = {"conv": {"kernel": _np(I.xavier_uniform_gain(
+                                gen, (m.kernel_size, m.kernel_size, cin,
+                                      cout))),
+                            "bias": np.zeros(cout, np.float32)},
+                   "bn": {"scale": _np(I.bn_scale_init(gen, (cout,))),
+                          "bias": np.zeros(cout, np.float32)}}
+            if m.activation in ("glu", "cg"):
+                key = "GLU_0" if m.activation == "glu" else \
+                    "ContextGating_0"
+                blk[key] = {"linear": {
+                    "kernel": _np(I.normal_init(gen, (cout, cout))),
+                    "bias": np.zeros(cout, np.float32)}}
+            cnn[name] = blk
+            mean = _np(0.1 * torch.randn((cout,), generator=gen))
+            var = _np(0.5 + torch.rand((cout,), generator=gen))
+            if not perturb_stats:
+                mean, var = np.zeros_like(mean), np.ones_like(var)
+            stats[name] = {"bn": {"mean": mean, "var": var}}
+            cin = cout
+        return cnn, stats
+
     names = [f"block{i}" for i in range(len(m.nb_filters))]
     couts = list(m.nb_filters)
     if m.use_fpn:
         names.append("block_down")
         couts.append(m.nb_filters[-1])
-    for name, cout in zip(names, couts):
-        blk = {"conv": {"kernel": _np(I.xavier_uniform_gain(
-                            gen, (m.kernel_size, m.kernel_size, cin, cout))),
-                        "bias": np.zeros(cout, np.float32)},
-               "bn": {"scale": _np(I.bn_scale_init(gen, (cout,))),
-                      "bias": np.zeros(cout, np.float32)}}
-        if m.activation in ("glu", "cg"):
-            key = "GLU_0" if m.activation == "glu" else "ContextGating_0"
-            blk[key] = {"linear": {
-                "kernel": _np(I.normal_init(gen, (cout, cout))),
-                "bias": np.zeros(cout, np.float32)}}
-        cnn[name] = blk
-        mean = _np(0.1 * torch.randn((cout,), generator=gen))
-        var = _np(0.5 + torch.rand((cout,), generator=gen))
-        if not perturb_stats:
-            mean, var = np.zeros_like(mean), np.ones_like(var)
-        stats[name] = {"bn": {"mean": mean, "var": var}}
-        cin = cout
+    cnn, stats = conv_blocks(names, couts, m.n_in_channel)
 
     h = m.n_rnn_cell
 
@@ -184,17 +208,28 @@ def init_params(cfg, seed: int = 0,
         encoder["rnn_2"], encoder["rnn_4"] = gru(), gru()
         encoder["fuse_2"] = dense(4 * h, 2 * h)
         encoder["fuse_4"] = dense(4 * h, 2 * h)
+    batch_stats = {"encoder": {"cnn": stats}}
 
     enc_dim, ncls = 2 * h, cfg.nclass
-    if m.predictor_head == "mlp":
-        pred = {"dense1": dense(enc_dim, 64), "dense2": dense(64, 128),
-                "dense3": dense(128, 64), "dense4": dense(64, ncls)}
+    if m.predictor_head == "crnn":
+        head = make_predictor_head(cfg).crnn_pred
+        blocks = dict(head.cnn.blocks.items())
+        h_cnn, h_stats = conv_blocks(
+            list(blocks), [b.conv.out_channels for b in blocks.values()], 1)
+        d = head.dense_softmax
+        pred = {"crnn_pred": {"cnn": h_cnn, "dense_softmax": dense(
+            d.in_features, d.out_features)}}
+        batch_stats["predictor"] = {"crnn_pred": {"cnn": h_stats}}
     else:
-        pred = {"dense": dense(enc_dim, ncls)}
-    if m.attention:
-        pred["dense_softmax"] = dense(enc_dim, ncls)
+        if m.predictor_head == "mlp":
+            pred = {"dense1": dense(enc_dim, 64), "dense2": dense(64, 128),
+                    "dense3": dense(128, 64), "dense4": dense(64, ncls)}
+        else:
+            pred = {"dense": dense(enc_dim, ncls)}
+        if m.attention:
+            pred["dense_softmax"] = dense(enc_dim, ncls)
     params = {"encoder": encoder, "predictor": pred}
-    return params, {"encoder": {"cnn": stats}}
+    return params, batch_stats
 
 
 # ---------------------------------------------------------------------------
@@ -233,38 +268,59 @@ def train_param_map(model) -> List[Tuple[Tuple[str, ...], nn.Parameter,
     out = []
     blocks, grus, denses = encoder_parts(model.encoder)
     for name, blk in blocks.items():
-        base = ("encoder", "cnn", name)
-        out += [(base + ("conv", "kernel"), blk.conv.weight, "conv"),
-                (base + ("conv", "bias"), blk.conv.bias, "plain"),
-                (base + ("bn", "scale"), blk.bn.weight, "plain"),
-                (base + ("bn", "bias"), blk.bn.bias, "plain")]
-        key = {GLU: "GLU_0", ContextGating: "ContextGating_0"}.get(
-            type(blk.act))
-        if key is not None:
-            out += [(base + (key, "linear", "kernel"),
-                     blk.act.linear.weight, "dense"),
-                    (base + (key, "linear", "bias"), blk.act.linear.bias,
-                     "plain")]
+        out += _block_params(("encoder", "cnn", name), blk)
     for gname, rnn in grus.items():
         for name, param in rnn.gru.named_parameters():
             out.append((("encoder", gname, name), param, "plain"))
     for name, mod in denses.items():
         out += [(("encoder", name, "kernel"), mod.weight, "dense"),
                 (("encoder", name, "bias"), mod.bias, "plain")]
-    for name, mod in model.predictor.named_children():
+    head = model.predictor
+    if hasattr(head, "crnn_pred"):
+        base = ("predictor", "crnn_pred")
+        for name, blk in head.crnn_pred.cnn.blocks.items():
+            out += _block_params(base + ("cnn", name), blk)
+        head = {"dense_softmax": head.crnn_pred.dense_softmax}
+    else:
+        base = ("predictor",)
+        head = dict(head.named_children())
+    for name, mod in head.items():
         if mod is not None:
-            out += [(("predictor", name, "kernel"), mod.weight, "dense"),
-                    (("predictor", name, "bias"), mod.bias, "plain")]
+            out += [(base + (name, "kernel"), mod.weight, "dense"),
+                    (base + (name, "bias"), mod.bias, "plain")]
+    return out
+
+
+def _block_params(base, blk) -> List[Tuple[Tuple[str, ...], nn.Parameter,
+                                          str]]:
+    """``train_param_map``'s entries of one conv block at flax path
+    ``base``."""
+    out = [(base + ("conv", "kernel"), blk.conv.weight, "conv"),
+           (base + ("conv", "bias"), blk.conv.bias, "plain"),
+           (base + ("bn", "scale"), blk.bn.weight, "plain"),
+           (base + ("bn", "bias"), blk.bn.bias, "plain")]
+    key = {GLU: "GLU_0", ContextGating: "ContextGating_0"}.get(type(blk.act))
+    if key is not None:
+        out += [(base + (key, "linear", "kernel"), blk.act.linear.weight,
+                 "dense"),
+                (base + (key, "linear", "bias"), blk.act.linear.bias,
+                 "plain")]
     return out
 
 
 def train_stat_map(model) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
-    """(flax batch_stats path, running-stat buffer) of a TrainModel."""
+    """(flax batch_stats path, running-stat buffer) of a TrainModel: the
+    encoder's blocks, and the 'crnn' head's under ``predictor``."""
+    blocks = [(("encoder", "cnn", name), blk) for name, blk
+              in encoder_parts(model.encoder)[0].items()]
+    if hasattr(model.predictor, "crnn_pred"):
+        blocks += [(("predictor", "crnn_pred", "cnn", name), blk)
+                   for name, blk
+                   in model.predictor.crnn_pred.cnn.blocks.items()]
     out = []
-    for name, blk in encoder_parts(model.encoder)[0].items():
-        base = ("encoder", "cnn", name, "bn")
-        out += [(base + ("mean",), blk.bn.running_mean),
-                (base + ("var",), blk.bn.running_var)]
+    for base, blk in blocks:
+        out += [(base + ("bn", "mean"), blk.bn.running_mean),
+                (base + ("bn", "var"), blk.bn.running_var)]
     return out
 
 

@@ -120,6 +120,19 @@ use, all sources in parallel) and drives every slice of the port:
     evaluated every 20 epochs for up to 300: decode-path oracle > 0.9,
     best event F1 >= 0.10) in the reference form, and the --perf form's
     trajectory beside it, the two forms in two processes on the card;
+  * the 'crnn' head and recurrent dropout (``crnn_head_path``, item 8c):
+    ``baseline_mt_isp`` with the head and with recurrent dropout 0.5, and
+    ``baseline_fpn_mt_isp`` with it (three GRUs), at 12 + 12 full-width
+    clips in the reference form and (not FPN) the --perf form: ms and
+    launches a step (K2's train form 6 and K3 3 a --perf step), the
+    head's running statistics moving, the recurrent masks' drop share
+    within 4σ of the rate; the float32 --perf step with the head and
+    with recurrent dropout, kernels against plain versions at
+    ``train_equality``'s gates; the head served by ``make_fast_forward``
+    at B=64, float32 (standard branch: K1 once and K4 twice a batch;
+    fused stem: K5 once more), against the plain versions; a one-epoch
+    ``Trainer.fit`` with both into a store, then ``eval --store-dir`` and
+    ``predict`` on it through the CLI in subprocesses;
   * data parallelism (``data_parallel_path``): ``train --mesh auto``
     through torchrun with one NCCL rank, the flagship --perf step on 2
     gloo ranks sharing the card against 1 rank in float32 and bf16 (the
@@ -2285,7 +2298,7 @@ N_FPN_BATCHES = 3
 
 
 def preset_setup(torch, dev, preset, perf, compute_dtype, use_kernels,
-                 batch_size, adaptation=False):
+                 batch_size, adaptation=False, model=None):
     """(cfg, state, step, batch) of ``preset`` on ``dev`` in its
     reference-parity form (``perf=False``: float32, unfolded, stream by
     stream) or its --perf form in ``compute_dtype``; random weights from
@@ -2293,7 +2306,8 @@ def preset_setup(torch, dev, preset, perf, compute_dtype, use_kernels,
     and real clips (origin: a combined real batch of twice that), strong
     and weak targets; origin's normalisation statistics are the real
     batch's log-mel mean and std per bin. ``adaptation``: in the
-    adaptation stage, with its discriminator."""
+    adaptation stage, with its discriminator. ``model``: model fields set
+    last (the 'crnn' head, recurrent dropout)."""
     from bsed_tpu_torch.config import get_config, perf_config
     from bsed_tpu_torch.ops.mel import amplitude_to_db
     from bsed_tpu_torch.train import steps
@@ -2306,6 +2320,8 @@ def preset_setup(torch, dev, preset, perf, compute_dtype, use_kernels,
         cfg = perf_config(cfg)
         cfg = cfg.replace(model=dataclasses.replace(
             cfg.model, compute_dtype=compute_dtype))
+    if model:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model))
     gen = torch.Generator(device=dev).manual_seed(11)
     t_in, f = cfg.audio.max_frames, cfg.audio.n_mels
     n_real = 2 * batch_size if cfg.train.isp_flavor == "origin" \
@@ -2376,11 +2392,12 @@ def preset_steps(torch, dev, preset, perf, profile_dir=None):
     return out
 
 
-def preset_equality(torch, dev, preset):
-    """The float32 --perf step of ``preset`` with the kernels against the
-    same step on their plain versions, 4 + 4 full-width clips (origin's
-    combined batch 8), dropout 0.5 with the same bits, cuDNN
-    deterministic: train_equality's gates."""
+def preset_equality(torch, dev, preset, model=None):
+    """The float32 --perf step of ``preset`` (``model``: as
+    ``preset_setup``'s) with the kernels against the same step on their
+    plain versions, 4 + 4 full-width clips (origin's combined batch 8),
+    dropout 0.5 with the same bits, cuDNN deterministic: train_equality's
+    gates."""
     import numpy as np
     from bsed_tpu_torch.utils import weights
 
@@ -2389,7 +2406,8 @@ def preset_equality(torch, dev, preset):
         out = {}
         for use_kernels in (True, False):
             _, state, step, batch = preset_setup(torch, dev, preset, True,
-                                                 "float32", use_kernels, 4)
+                                                 "float32", use_kernels, 4,
+                                                 model=model)
             metrics = step(state, batch, 7, 30.0)
             torch.cuda.synchronize()
             out[use_kernels] = ({k: float(v) for k, v in metrics.items()},
@@ -3238,6 +3256,297 @@ def tagger_path(torch, dev, card, profile_dir=None):
     return launches
 
 
+# --- the 'crnn' head and recurrent dropout (item 8c) -----------------------
+
+HEAD = {"predictor_head": "crnn"}
+REC_RATE = 0.5
+REC_DROP = {"dropout_recurrent": REC_RATE}
+# (name, preset, --perf form, model fields) of crnn_head_path's step runs
+HEAD_RUNS = (("head", "baseline_mt_isp", False, HEAD),
+             ("head", "baseline_mt_isp", True, HEAD),
+             ("recurrent_dropout", "baseline_mt_isp", False, REC_DROP),
+             ("recurrent_dropout", "baseline_mt_isp", True, REC_DROP),
+             ("recurrent_dropout", "baseline_fpn_mt_isp", False, REC_DROP))
+N_HEAD_TIMED = 3
+HEAD_FIT_CLIPS = 24               # SYN clips of the store's epoch (2 steps)
+
+
+def _k_counters():
+    """Every kernel entry's launch counter: K1, K2 (both forms), K3, K4,
+    K5."""
+    from bsed_tpu_torch.ops import (gru_kernel, mel_kernel, stem_epilogue,
+                                    stem_kernel)
+    return {"mel_kernel": mel_kernel.fused_block_mel,
+            "stem_epilogue_fwd": stem_epilogue.stem_epilogue_fwd,
+            "stem_epilogue_bwd": stem_epilogue.stem_epilogue_bwd,
+            "gru_kernel": gru_kernel.gru_bidir_recurrence,
+            "stem_kernel": stem_kernel.fused_stem_block}
+
+
+class Tally:
+    """Launches of the driven parts of a phase: ``with tally.part():``
+    sets every counter to 0 just before the part and adds what it reads
+    just after; ``last`` holds the part's own counts."""
+
+    def __init__(self):
+        self.total = dict.fromkeys(_k_counters(), 0)
+        self.last = {}
+
+    def part(self):
+        import contextlib
+
+        @contextlib.contextmanager
+        def counted():
+            counters = _k_counters()
+            for c in counters.values():
+                c.launches = 0
+            yield
+            self.last = {k: c.launches for k, c in counters.items()}
+            for k, v in self.last.items():
+                self.total[k] += v
+        return counted()
+
+
+def _gru_masks(torch, model):
+    """Record the keep masks every BidirectionalGRU of ``model`` draws for
+    its inter-layer dropout (the same draw, from the same generator)."""
+    from bsed_tpu_torch.models.rnn import BidirectionalGRU
+    from bsed_tpu_torch.ops import dropout as dropout_mod
+
+    masks = []
+    for mod in model.modules():
+        if isinstance(mod, BidirectionalGRU) and mod.dropout.rate > 0:
+            drop = mod.dropout
+
+            def forward(x, gen=None, keep=None, _drop=drop):
+                if _drop.training and keep is None:
+                    keep = dropout_mod.keep_mask(gen, x.shape, _drop.rate,
+                                                 x.device)
+                    masks.append(keep)
+                return type(_drop).forward(_drop, x, gen, keep=keep)
+            drop.forward = forward
+    return masks
+
+
+def head_steps(torch, dev, tally, name, preset, perf, model):
+    """2 warm-up and N_HEAD_TIMED timed steps (epoch 30, 12 + 12
+    full-width clips, bf16 in the --perf form) of ``preset`` with
+    ``model``'s fields: ms a step, launches a step (K2's train form 6 and
+    K3 3 in the --perf form, nothing in the reference form), finite
+    metrics; with the head, its running statistics must move; with
+    recurrent dropout, the GRUs' masks of the timed steps must drop within
+    4σ of the rate."""
+    cfg, state, step, batch = preset_setup(torch, dev, preset, perf,
+                                           "bfloat16", True, B_TRAIN,
+                                           model=model)
+    for _ in range(N_PRESET_WARMUP):
+        step(state, batch, 1, 30.0)
+    torch.cuda.synchronize()
+    head0 = [b.clone() for b in state.model.predictor.buffers()]
+    masks = _gru_masks(torch, state.model)
+    with tally.part():
+        t0 = time.perf_counter()
+        for _ in range(N_HEAD_TIMED):
+            metrics = step(state, batch, 1, 30.0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / N_HEAD_TIMED * 1e3
+    launched = tally.last
+    values = {k: float(v) for k, v in metrics.items()}
+    assert all(math.isfinite(v) for v in values.values()), (name, values)
+    want = ({"stem_epilogue_fwd": 6 * N_HEAD_TIMED,
+             "stem_epilogue_bwd": 3 * N_HEAD_TIMED} if perf else {})
+    assert {k: v for k, v in launched.items() if v} == want, \
+        (name, perf, launched)
+    out = {"run": name, "preset": preset, "form": "perf" if perf
+           else "reference", "ms_per_step": ms, "loss": values["loss"],
+           "launches_per_step": {k: v / N_HEAD_TIMED
+                                 for k, v in launched.items() if v}}
+    if "predictor_head" in model:
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(head0, state.model.predictor.buffers()))
+        assert moved > 0, "the head's running statistics did not move"
+        out["head_stats_max_move"] = moved
+        out["head_buffers"] = len(head0)
+    if "dropout_recurrent" in model:
+        n = sum(m.numel() for m in masks)
+        share = 1.0 - sum(float(m.float().sum()) for m in masks) / n
+        sigma = math.sqrt(REC_RATE * (1 - REC_RATE) / n)
+        assert abs(share - REC_RATE) <= 4 * sigma, (share, sigma)
+        out.update(recurrent_masks=len(masks),
+                   recurrent_masks_per_step=len(masks) / N_HEAD_TIMED,
+                   recurrent_drop_share=share, recurrent_4_sigma=4 * sigma)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def head_serving(torch, dev, tally, fused_stem):
+    """make_fast_forward with the head on preset baseline, float32, B=64
+    full-width clips (random weights from seed 0): the head turns the
+    folded stem off, so the standard branch runs K1 once and K4 twice a
+    batch (with ``fused_stem``, K5 once too) and K2 never; N_TIMED timed
+    batches, then the plain versions' posteriors on the same clips."""
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.serve import make_fast_forward
+    from bsed_tpu_torch.utils.weights import init_params
+
+    cfg = get_config("baseline")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **HEAD))
+    params, stats = init_params(cfg, 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    audio = torch.randn((B_SERVE, cfg.audio.n_samples), generator=gen,
+                        device=dev) * 0.1
+    kw = dict(device=dev, precision="high", use_fused_stem=fused_stem)
+    forward = make_fast_forward(cfg, params, stats, **kw)
+    for _ in range(2):
+        forward(audio)
+    torch.cuda.synchronize()
+    with tally.part():
+        t0 = time.perf_counter()
+        for _ in range(N_TIMED):
+            strong, weak = forward(audio)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / N_TIMED * 1e3
+    launched = {k: v for k, v in tally.last.items() if v}
+    want = {"mel_kernel": N_TIMED, "gru_kernel": 2 * N_TIMED}
+    if fused_stem:
+        want["stem_kernel"] = N_TIMED
+    assert launched == want, (fused_stem, launched)
+    assert strong.shape == (B_SERVE, cfg.n_frames, cfg.nclass), strong.shape
+    ps, pw = make_fast_forward(cfg, params, stats, use_kernels=False,
+                               **kw)(audio)
+    torch.cuda.synchronize()
+    gap = max(float((strong - ps).abs().max()), float((weak - pw).abs().max()))
+    assert torch.isfinite(strong).all() and gap <= EVAL_GATE, gap
+    return {"fused_stem": fused_stem, "dtype": "float32", "batch": B_SERVE,
+            "batches": N_TIMED, "ms_per_batch": ms,
+            "clips_per_s": B_SERVE / ms * 1e3,
+            "launches_per_batch": {k: v / N_TIMED
+                                   for k, v in launched.items()},
+            "max_abs_err_vs_plain": gap, "gate": EVAL_GATE}
+
+
+def head_store(torch, dev, tally, store):
+    """A one-epoch ``Trainer.fit`` of baseline_mt_isp --perf with the head
+    and recurrent dropout into ``store`` (HEAD_FIT_CLIPS SYN, half as many
+    weak and unlabelled, 24 val clips, batch 12: 2 steps, 2 val batches),
+    then the port's CLI ``eval --store-dir`` and ``predict`` on the store
+    in subprocesses, which rebuild the configuration from its meta."""
+    import ast
+    import os
+
+    import numpy as np
+
+    from bsed_tpu_torch.config import get_config, perf_config
+    from bsed_tpu_torch.data.datasets import SyntheticDataSource
+    from bsed_tpu_torch.data.pipeline import EvalLoader, ThreeStreamLoader
+    from bsed_tpu_torch.train.trainer import Trainer
+    from bsed_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg = perf_config(get_config("baseline_mt_isp"))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **HEAD,
+                                                **REC_DROP))
+    n = HEAD_FIT_CLIPS
+    loader = ThreeStreamLoader(
+        SyntheticDataSource(cfg, n_items=n, seed=1),
+        SyntheticDataSource(cfg, n_items=n // 2, seed=2),
+        SyntheticDataSource(cfg, n_items=n // 2, seed=3),
+        batch_size=B_TRAIN, seed=cfg.train.seed, device=dev)
+    val = EvalLoader(SyntheticDataSource(cfg, n_items=24, seed=4),
+                     batch_size=B_TRAIN, device=dev)
+    trainer = Trainer(cfg, loader, val_loader=val, store_dir=store,
+                      mesh="off", device=dev)
+    with tally.part():
+        t0 = time.perf_counter()
+        trainer.fit(n_epochs=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    fit_launches = {k: v for k, v in tally.last.items() if v}
+    # 2 steps: K2 train 6 and K3 3 a step; 2 val batches: K4 2 a batch
+    assert fit_launches == {"stem_epilogue_fwd": 12, "stem_epilogue_bwd": 6,
+                            "gru_kernel": 4}, fit_launches
+    row = trainer.history[0]
+    assert all(math.isfinite(v) for v in row.values()
+               if isinstance(v, float)), row
+    meta = CheckpointManager(store).load_meta()
+    assert meta["config"]["model"]["predictor_head"] == "crnn", meta
+    assert meta["config"]["model"]["dropout_recurrent"] == REC_RATE, meta
+    trees = CheckpointManager(store).load("best")
+    assert "predictor" in trees["batch_stats"]
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bsed_tpu_torch.cli",
+                           "eval", "--store-dir", store, "-s", str(n)],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    eval_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"eval --store-dir exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    scores = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    rec = os.path.join(store, "recording.npy")
+    np.save(rec, np.random.default_rng(8).standard_normal(
+        3 * cfg.audio.n_samples).astype(np.float32) * 0.1)
+    tsv = os.path.join(store, "events.tsv")
+    pred = _predict_cli(["--store-dir", store, "--audio", rec,
+                         "--out-tsv", tsv], "crnn head store")
+    with open(tsv) as fh:
+        assert fh.readline().split() == ["filename", "event_label",
+                                         "onset", "offset"]
+    return {"clips": {"syn": n, "weak": n // 2, "unlabeled": n // 2,
+                      "val": 24}, "fit_seconds": fit_s,
+            "fit_launches": fit_launches,
+            "val_event_f1": row.get("val_event_f1"),
+            "eval_store_dir": {"rc": proc.returncode,
+                               "event_f1": scores["event_f1"],
+                               "psds_f1": scores["psds_f1"],
+                               "subprocess_wall_s": eval_wall},
+            "predict": {"rc": 0, "events": pred["events"],
+                        "batches": pred["batches"],
+                        "subprocess_wall_s": pred["subprocess_wall_s"]}}
+
+
+def crnn_head_path(torch, dev, card):
+    """Phase ``crnn_head_path`` (item 8c): ``HEAD_RUNS``' steps at full
+    width (``head_steps``); the f32 --perf step with the head and with
+    recurrent dropout, kernels against plain versions at train_equality's
+    gates (``preset_equality``: the comparisons' launches do not count);
+    the head served through make_fast_forward, standard and fused-stem
+    branches (``head_serving``); a store trained with the head and
+    recurrent dropout, then ``eval --store-dir`` and ``predict`` on it
+    (``head_store``). Returns the launches of the driven parts (the timed
+    steps, the timed batches and the fit) by kernel entry."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tally = Tally()
+    runs = [head_steps(torch, dev, tally, *r) for r in HEAD_RUNS]
+    equality = {name: preset_equality(torch, dev, "baseline_mt_isp", model)
+                for name, model in (("head", HEAD),
+                                    ("recurrent_dropout", REC_DROP))}
+    torch.cuda.empty_cache()
+    serving = [head_serving(torch, dev, tally, fused)
+               for fused in (False, True)]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = head_store(torch, dev, tally, tmp)
+    t = tally.total
+    launches = {"mel_kernel": t["mel_kernel"],
+                "stem_epilogue_train": t["stem_epilogue_fwd"],
+                "stem_epilogue_bwd": t["stem_epilogue_bwd"],
+                "gru_kernel": t["gru_kernel"],
+                "stem_kernel": t["stem_kernel"]}
+    emit(phase="crnn_head_path", batch_syn=B_TRAIN, batch_real=B_TRAIN,
+         epoch=30.0, warmup_steps=N_PRESET_WARMUP, timed_steps=N_HEAD_TIMED,
+         perf_compute_dtype="bfloat16", recurrent_rate=REC_RATE,
+         steps=runs, f32_kernels_vs_plain=equality,
+         equality_gates={"metrics": 1e-4, "mu": 3e-5, "bn_stats": 1e-5},
+         serving=serving, store=store, launches=launches,
+         seconds=time.perf_counter() - t_phase, card=card)
+    return launches
+
+
 GATE_EVAL_EVERY = 20              # epochs between evaluations
 GATE_MAX_EPOCHS = 300
 GATE_STOP_F1 = 0.15               # early stop, as bsed_tpu's gate
@@ -3732,7 +4041,8 @@ def main() -> int:
                         help="write the profile tables here")
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run alone after the "
-                             "build (learning_gate, data_parallel_path); "
+                             "build (learning_gate, data_parallel_path, "
+                             "crnn_head_path); "
                              "prints their lines and the card's, not the "
                              "kernels line or the last line")
     args = parser.parse_args()
@@ -3765,7 +4075,8 @@ def main() -> int:
          built=sorted(reports))
     if args.only:
         alone = {"learning_gate": learning_gate_phase,
-                 "data_parallel_path": data_parallel_path}
+                 "data_parallel_path": data_parallel_path,
+                 "crnn_head_path": crnn_head_path}
         for phase in args.only.split(","):
             alone[phase](torch, dev, smi)
         print(smi, flush=True)
@@ -3809,6 +4120,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     tag_launches = tagger_path(torch, dev, smi, args.profile_dir)
     torch.cuda.empty_cache()
+    head_launches = crnn_head_path(torch, dev, smi)
+    torch.cuda.empty_cache()
     gate_launches = learning_gate_phase(torch, dev, smi)
     torch.cuda.empty_cache()
     dp_launches = data_parallel_path(torch, dev, smi)
@@ -3831,6 +4144,8 @@ def main() -> int:
         k["launches_learning_gate"] = gate_launches[k["name"]]
     for k in (k1, k2, k2t, k3, k4):  # data_parallel_path: ranks summed
         k["launches_data_parallel_path"] = dp_launches[k["name"]]
+    for k in (k1, k2t, k3, k4, k5):  # crnn_head_path's driven parts
+        k["launches_crnn_head_path"] = head_launches[k["name"]]
     kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -725,7 +725,8 @@ def test_epoch_runner_matches_loop_on_card(dev, tmp_path,
 PRESET_LAUNCHES = {"origin": (18, 12), "scmt": (6, 3)}
 
 
-def _preset_step_on_card(dev, preset, use_kernels, stage="pretrain"):
+def _preset_step_on_card(dev, preset, use_kernels, stage="pretrain",
+                         model=None):
     from bsed_tpu_torch.config import perf_config
     from bsed_tpu_torch.train import steps
     from bsed_tpu_torch.utils.weights import export_train_state
@@ -734,7 +735,8 @@ def _preset_step_on_card(dev, preset, use_kernels, stage="pretrain"):
     cfg = perf_config(cfg.replace(train=dataclasses.replace(cfg.train,
                                                             stage=stage)))
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                compute_dtype="float32"))
+                                                compute_dtype="float32",
+                                                **(model or {})))
     ns = None
     if cfg.train.normalize:
         ns = (np.full(cfg.audio.n_mels, -20.0, np.float32),
@@ -763,6 +765,73 @@ def _preset_step_on_card(dev, preset, use_kernels, stage="pretrain"):
                 stem_epilogue.stem_epilogue_bwd.launches - counts[1])
     return ({k: float(v) for k, v in metrics.items()},
             export_train_state(state), launched)
+
+
+def _assert_f32_steps_match(got, want):
+    """chip_smoke's train_equality gates: metrics 1e-4 relative, Adam
+    moments 3e-5, BN statistics 1e-5 + 1e-5 relative."""
+    (mk, tk), (mp, tp) = got, want
+    assert mk.keys() == mp.keys()
+    for k, v in mp.items():
+        assert np.isfinite(mk[k]) and abs(mk[k] - v) <= 1e-4 * abs(v), k
+    a = dict(_tree_leaves({k: tk[k] for k in ("mu", "batch_stats",
+                                              "ema_batch_stats")}))
+    for path, v in _tree_leaves({k: tp[k] for k in ("mu", "batch_stats",
+                                                    "ema_batch_stats")}):
+        rtol = 0 if path[0] == "mu" else 1e-5
+        atol = 3e-5 if path[0] == "mu" else 1e-5
+        np.testing.assert_allclose(a[path], v, rtol=rtol, atol=atol,
+                                   err_msg=str(path))
+
+
+# the 'crnn' head and recurrent dropout on the flagship preset: K2's train
+# form 6 and K3 3 times a step, as without them
+SLICE_8C = {"crnn_head": dict(predictor_head="crnn"),
+            "recurrent_dropout": dict(dropout_recurrent=0.5)}
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_8C))
+def test_8c_f32_step_kernels_match_plain(dev, case, deterministic_cudnn):
+    """baseline_mt_isp's float32 --perf step with the 'crnn' head, and
+    with recurrent dropout 0.5, on the kernels against the same step on
+    their plain versions, full width, dropout 0.5 with the same bits
+    (the GRUs' masks too): train_equality's gates; the head's statistics
+    are among the BN statistics held."""
+    mk, tk, launched = _preset_step_on_card(dev, "baseline_mt_isp", True,
+                                            model=SLICE_8C[case])
+    mp, tp, plain_launched = _preset_step_on_card(
+        dev, "baseline_mt_isp", False, model=SLICE_8C[case])
+    assert launched == (6, 3) and plain_launched == (0, 0)
+    assert ("predictor" in tk["batch_stats"]) == (case == "crnn_head")
+    _assert_f32_steps_match((mk, tk), (mp, tp))
+
+
+@pytest.mark.parametrize("fused_stem", [False, True])
+def test_crnn_head_serving_kernels_match_plain(dev, fused_stem):
+    """make_fast_forward with the 'crnn' head, full width, B=8, float32:
+    the head turns the folded stem off, so the standard branch runs K1
+    once and K4 twice a batch and K2 never (with use_fused_stem, K5
+    once); within 2e-3 of the plain versions."""
+    cfg = get_config("baseline")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                predictor_head="crnn"))
+    params, stats = init_params(cfg, 0)
+    audio = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (8, cfg.audio.n_samples)).astype(np.float32) * 0.1).to(dev)
+    counters = (mel_kernel.fused_block_mel, stem_epilogue.stem_epilogue_fwd,
+                gru_kernel.gru_bidir_recurrence, stem_kernel.fused_stem_block)
+    before = [c.launches for c in counters]
+    got = make_fast_forward(cfg, params, stats, device=dev,
+                            use_fused_stem=fused_stem)(audio)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == [1, 0, 2, int(fused_stem)], launched
+    want = make_fast_forward(cfg, params, stats, device=dev,
+                             use_fused_stem=fused_stem,
+                             use_kernels=False)(audio)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-3)
 
 
 @pytest.mark.parametrize("preset", sorted(PRESET_LAUNCHES))

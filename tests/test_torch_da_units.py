@@ -66,7 +66,8 @@ from bsed_tpu_torch.utils.checkpoint import CheckpointManager
 from tests.test_torch_preset_units import (EPOCH, RUNS, STEPS_PER_EPOCH,
                                            _batch, _n_real, _norm_stats,
                                            _replayed_draws,
-                                           assert_step_matches, run_cfg)
+                                           assert_step_matches, run_cfg,
+                                           spread_crnn_head)
 from tests.test_torch_train_step import _assert_trees, _leaves
 
 DA_STEP = 200
@@ -124,15 +125,17 @@ def _widen_head(params, scales):
     return dict(params, predictor=pred)
 
 
-def jax_da_step(run, folded=False, step=DA_STEP):
+def jax_da_step(run, folded=False, step=DA_STEP, model=()):
     """(trees before, trees after, metrics, mixup calls, ADDA draws, JAX's
-    R_f / R_g or None) of one JAX step of ``run``."""
-    cfg = run_cfg(j_get_config, JAudioConfig, run, folded, folded)
+    R_f / R_g or None) of one JAX step of ``run`` (``model``: as
+    ``run_cfg``'s)."""
+    cfg = run_cfg(j_get_config, JAudioConfig, run, folded, folded, model)
     ns = _norm_stats(cfg) if cfg.train.normalize else None
     modules = j_steps.build_modules(cfg, norm_stats=ns)
     state = jax.jit(lambda k: j_steps.create_train_state(cfg, modules, k))(
         jax.random.key(3))
-    state = state.replace(step=jnp.asarray(step, jnp.int32))
+    state = spread_crnn_head(state.replace(step=jnp.asarray(step,
+                                                            jnp.int32)))
     scales = ({"dense1": 10.0, "dense2": 10.0, "dense3": 10.0}
               if cfg.model.predictor_head == "mlp" else
               {"dense": 100.0} if cfg.da.entropy_conditioning else {})
@@ -155,7 +158,7 @@ def jax_da_step(run, folded=False, step=DA_STEP):
             mix["jax"], choice["jax"], maps)
 
 
-def port_da_step(run, jax_result, folded=False):
+def port_da_step(run, jax_result, folded=False, model=()):
     """(trees after, metrics, mixup calls, ADDA draws, the discriminator's
     params after ADDA's discriminator step or None) of the port's step
     from the JAX state (and JAX's randomized map).
@@ -169,7 +172,7 @@ def port_da_step(run, jax_result, folded=False):
     for its own gate and JAX's result is handed to the confusion step, as
     the replayed draws hand over JAX's random draws."""
     before, after, maps = jax_result[0], jax_result[1], jax_result[5]
-    cfg = run_cfg(get_config, AudioConfig, run, folded, folded)
+    cfg = run_cfg(get_config, AudioConfig, run, folded, folded, model)
     ns = _norm_stats(cfg) if cfg.train.normalize else None
     modules = steps.build_modules(cfg, device="cpu", norm_stats=ns,
                                   rand_maps=maps)
@@ -244,10 +247,14 @@ def _without_conv_bias(grads):
     return dict(grads, convs=convs)
 
 
-def assert_da_step_matches(jax_result, port_result, cfg):
-    """``assert_step_matches``, the encoder's params held to the
-    allowances of both their optimizers, then the DA state (module
-    docstring)."""
+def assert_da_step_matches(jax_result, port_result, cfg, sign_noise=False,
+                           **step_gates):
+    """``assert_step_matches`` (``step_gates``: its options), the
+    encoder's params held to the allowances of both their optimizers,
+    then the DA state (module docstring). ``sign_noise``: the
+    discriminator's params also get the 2.2·lr allowance where the two
+    sides' gradients (each within the gradient gate) differ in sign, since
+    Adam's first step is ±lr by the sign."""
     before, after, j_metrics, j_mix, j_choice, _ = jax_result
     got, metrics, p_mix, p_choice, disc_step_params = port_result
     skipped = cfg.da.mode == "adda" and before["step"] % cfg.da.update_step
@@ -278,7 +285,7 @@ def assert_da_step_matches(jax_result, port_result, cfg):
     assert_step_matches((before, after, j_metrics, j_mix),
                         (dict(got, params=after["params"],
                               batch_stats=after["batch_stats"]),
-                         metrics, p_mix), cfg)
+                         metrics, p_mix), cfg, **step_gates)
     for key in ("enc_opt_state", "disc_opt_state"):
         assert got[key].keys() == after[key].keys(), key
         if aux_family == "adam":
@@ -293,6 +300,12 @@ def assert_da_step_matches(jax_result, port_result, cfg):
                       rtol=1e-4)
     disc_allowance = _noise(after["disc_opt_state"], aux_family,
                             2.2 * aux_lr)
+    if sign_noise:
+        disc_allowance = jax.tree.map(
+            lambda a, gw, gg: np.where(np.sign(gw) != np.sign(gg),
+                                       2.2 * aux_lr, a), disc_allowance,
+            _slot_grads(after["disc_opt_state"], aux_family),
+            _slot_grads(got["disc_opt_state"], aux_family))
     if "convs" in disc_allowance:
         # the conv biases' gradients are all float residual (see
         # _assert_bias_noise): an Adam step of arbitrary sign each
@@ -306,14 +319,19 @@ def assert_da_step_matches(jax_result, port_result, cfg):
                   "disc_batch_stats", atol=1e-5, rtol=1e-4)
 
 
-def check_run(run, jax_cache, folded=False, step=DA_STEP):
+def check_run(run, jax_cache, folded=False, step=DA_STEP, model=(),
+              **gates):
     """One step of ``run`` against JAX's (``jax_cache(run, folded,
-    step)``, a per-file cache of ``jax_da_step``); returns both."""
-    want = jax_cache(run, folded, step)
-    got = port_da_step(run, want, folded)
+    step)``, or ``jax_cache(run, folded, step, model)`` with ``model``, a
+    per-file cache of ``jax_da_step``; ``gates``: the options of
+    ``assert_da_step_matches``); returns both."""
+    want = (jax_cache(run, folded, step, model) if model
+            else jax_cache(run, folded, step))
+    got = port_da_step(run, want, folded, model)
     assert got[0]["step"] == want[1]["step"] == step + 1
     assert_da_step_matches(want, got, run_cfg(get_config, AudioConfig, run,
-                                              folded, folded))
+                                              folded, folded, model),
+                           **gates)
     return want, got
 
 

@@ -47,10 +47,11 @@ NARROW = dict(nb_filters=(16, 32, 64, 32),
               pooling=((2, 2), (2, 2), (1, 2), (1, 2)), n_rnn_cell=32)
 
 
-def small_cfg(preset, dropout=0.0, stage="pretrain"):
-    """``preset`` at 2 s clips of 16 mel bins and four narrow blocks; a
-    clip discriminator's five stride-2 VALID convs need ≥ 63 frames, so
-    its runs take 13 s clips (``tests/test_torch_preset_units.run_cfg``)."""
+def small_cfg(preset, dropout=0.0, stage="pretrain", model=None):
+    """``preset`` at 2 s clips of 16 mel bins and four narrow blocks
+    (``model``: model fields set last); a clip discriminator's five
+    stride-2 VALID convs need ≥ 63 frames, so its runs take 13 s clips
+    (``tests/test_torch_preset_units.run_cfg``)."""
     cfg = get_config(preset)
     clip_disc = (stage == "adaptation" and cfg.da.level == "clip"
                  and cfg.da.mode in ("cdan", "adda"))
@@ -58,7 +59,8 @@ def small_cfg(preset, dropout=0.0, stage="pretrain"):
         sr=3200, hop_size=160, max_len_seconds=13.0 if clip_disc else 2.0,
         n_mels=16))
     return cfg.replace(
-        model=dataclasses.replace(cfg.model, dropout=dropout, **NARROW),
+        model=dataclasses.replace(cfg.model, dropout=dropout,
+                                  **{**NARROW, **(model or {})}),
         train=dataclasses.replace(cfg.train, batch_size=BS, stage=stage),
         da=dataclasses.replace(cfg.da, disc_dropout=dropout))
 
@@ -254,6 +256,17 @@ STEP_CASES = {
                     True),
     "pseudo_labeling_cdan": (dict(preset="pseudo_labeling", **ADAPT), {},
                              False),
+    # the 'crnn' head (at n_rnn_cell 128: its pools divide the width by
+    # 256) with its convs dropping out: its BatchNorm takes the global
+    # batch's statistics, its masks the global batch's draw
+    "crnn_head": (dict(preset="baseline_mt_isp", dropout=0.5,
+                       model=dict(predictor_head="crnn", n_rnn_cell=128)),
+                  {}, False),
+    # recurrent dropout alone: the GRUs' inter-layer masks are the global
+    # batch's draw
+    "recurrent_dropout": (dict(preset="baseline_mt_isp",
+                               model=dict(dropout_recurrent=0.5)), {},
+                          False),
 }
 
 

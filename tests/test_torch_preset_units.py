@@ -65,10 +65,12 @@ PRESETS = ("baseline", "baseline_mt", "baseline_mt_isp", "baseline_ena",
 
 # --- shared by the one-step preset tests ---------------------------------
 
-def _small(cfg, audio_cls, folded=False, fused=False, narrow=True):
+def _small(cfg, audio_cls, folded=False, fused=False, narrow=True,
+           model=()):
     """The test configuration of ``cfg``: see the module docstring;
     ``folded``/``fused`` select the folded train stem with the fused
-    epilogue and fused streams (the --perf form in float32). The JAX
+    epilogue and fused streams (the --perf form in float32); ``model``:
+    (field, value) pairs set on the model configuration last. The JAX
     GRU's scan is not unrolled (``rnn_unroll``, numerics-neutral): that
     halves each JAX step's compile."""
     cfg = cfg.replace(audio=audio_cls(sr=3200, hop_size=160,
@@ -78,7 +80,8 @@ def _small(cfg, audio_cls, folded=False, fused=False, narrow=True):
         model=dataclasses.replace(cfg.model, folded_train_stem=folded,
                                   fused_stem_epilogue=True, dropout=0.0,
                                   rnn_unroll=1,
-                                  **(NARROW if narrow else {})),
+                                  **{**(NARROW if narrow else {}),
+                                     **dict(model)}),
         train=dataclasses.replace(cfg.train, fused_streams=fused))
 
 
@@ -90,16 +93,17 @@ RUNS = {"a": "baseline_adaptation", "b": "scmt_ada_weak_separate_2crnn",
 CLIP_SECONDS = 13.0       # 260 input frames → 65 ≥ 63 output frames
 
 
-def run_cfg(get, audio_cls, run, folded=False, fused=False):
+def run_cfg(get, audio_cls, run, folded=False, fused=False, model=()):
     """Run ``run``'s preset in the adaptation stage, in ``_small``'s
-    configuration with the discriminator's dropout 0; a clip
+    configuration (``model`` as there) with the discriminator's dropout
+    0; a clip
     discriminator's five stride-2 VALID convs need ≥ 63 frames (the JAX
     one returns nan below that), so those runs take 13 s clips."""
     cfg = get(RUNS[run])
     cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                 stage="adaptation"),
                       da=dataclasses.replace(cfg.da, disc_dropout=0.0))
-    cfg = _small(cfg, audio_cls, folded, fused)
+    cfg = _small(cfg, audio_cls, folded, fused, model=model)
     if cfg.da.level == "clip" and cfg.da.mode in ("cdan", "adda"):
         cfg = cfg.replace(audio=dataclasses.replace(
             cfg.audio, max_len_seconds=CLIP_SECONDS))
@@ -191,15 +195,43 @@ def _start_step(cfg):
     return EXP_STEP if cfg.train.cost_ramp == "exp_step" else 0
 
 
-def jax_step(preset, folded=False, fused=False, narrow=True):
+def spread_crnn_head(state):
+    """At its init the 'crnn' head's posteriors are 0.5 within ~1e-5, so
+    the consistency MSEs between student and teacher (~1e-10) are float32
+    cancellation noise, which a relative gate cannot hold (measured:
+    consistency_weak 1.5e-3 apart). The bias of the head's last GLU is
+    spread, N(0, 4), in the student and the teacher (other seeds), so the
+    posteriors leave 0.5 and differ; other heads pass unchanged."""
+    if "crnn_pred" not in state.params["predictor"]:
+        return state
+
+    def spread(params, seed):
+        if params is None:
+            return None
+        head = params["predictor"]["crnn_pred"]
+        glu = head["cnn"]["block4"]["GLU_0"]["linear"]
+        bias = np.random.default_rng(seed).normal(
+            0.0, 4.0, glu["bias"].shape).astype(np.float32)
+        block4 = dict(head["cnn"]["block4"],
+                      GLU_0={"linear": dict(glu, bias=jnp.asarray(bias))})
+        head = dict(head, cnn=dict(head["cnn"], block4=block4))
+        return dict(params, predictor=dict(params["predictor"],
+                                           crnn_pred=head))
+    return state.replace(params=spread(state.params, 1),
+                         ema_params=spread(state.ema_params, 2))
+
+
+def jax_step(preset, folded=False, fused=False, narrow=True, model=()):
     """(trees before, trees after, metrics) of one JAX step of ``preset``
     in the test configuration; callers cache it per file."""
-    cfg = _small(j_get_config(preset), JAudioConfig, folded, fused, narrow)
+    cfg = _small(j_get_config(preset), JAudioConfig, folded, fused, narrow,
+                 model)
     ns = _norm_stats(cfg) if cfg.train.normalize else None
     modules = j_steps.build_modules(cfg, norm_stats=ns)
     state = jax.jit(lambda k: j_steps.create_train_state(cfg, modules, k))(
         jax.random.key(3))
-    state = state.replace(step=jnp.asarray(_start_step(cfg), jnp.int32))
+    state = spread_crnn_head(state.replace(
+        step=jnp.asarray(_start_step(cfg), jnp.int32)))
     before = weights.trees_from_jax_state(state)
     with _replayed_draws(_n_real(cfg)) as calls, \
             jax.default_matmul_precision("float32"):
@@ -213,10 +245,12 @@ def jax_step(preset, folded=False, fused=False, narrow=True):
     return before, after, {k: float(v) for k, v in metrics.items()}, n_mix
 
 
-def port_step(preset, before, folded=False, fused=False, narrow=True):
+def port_step(preset, before, folded=False, fused=False, narrow=True,
+              model=()):
     """(trees after, metrics, mixup calls) of the port's step from the JAX
     initial trees."""
-    cfg = _small(get_config(preset), AudioConfig, folded, fused, narrow)
+    cfg = _small(get_config(preset), AudioConfig, folded, fused, narrow,
+                 model)
     ns = _norm_stats(cfg) if cfg.train.normalize else None
     modules = steps.build_modules(cfg, device="cpu", norm_stats=ns)
     state = steps.load_train_state(modules, before)
@@ -227,8 +261,14 @@ def port_step(preset, before, folded=False, fused=False, narrow=True):
     return weights.export_train_state(state), metrics, calls["port"]
 
 
-def assert_step_matches(jax_result, port_result, cfg):
-    """The gates of the module docstring."""
+def assert_step_matches(jax_result, port_result, cfg, adam_noise=1.1,
+                        structural_zero=None):
+    """The gates of the module docstring; ``adam_noise``: the Adam-noise
+    allowance in units of lr (2.2 where noise gradients were measured
+    stepping with opposite signs on the two sides); ``structural_zero``:
+    a predicate on a leaf's path that gives the allowance to the whole
+    leaf, whatever its |g| (a conv bias that feeds a BatchNorm, whose
+    exact gradient is 0)."""
     before, after, j_metrics, j_mix = jax_result
     got, metrics, p_mix = port_result
     assert p_mix == j_mix
@@ -244,8 +284,10 @@ def assert_step_matches(jax_result, port_result, cfg):
         assert got["count"] == after["count"] == 1
         grads = jax.tree.map(lambda m: m / 0.1, after["mu"])
         got_g = jax.tree.map(lambda m: m / 0.1, got["mu"])
-        noise = 1.1 * j_metrics["lr"]
+        noise = adam_noise * j_metrics["lr"]
     _assert_trees(got_g, grads, "gradient", atol=3e-4, rtol=1e-4)
+    if structural_zero is not None:
+        grads = _zero_leaves(grads, structural_zero)
     keys = ["params"] + (["ema_params"] if cfg.train.mean_teacher else [])
     for key in keys:
         _assert_trees(got[key], after[key], key, atol=1e-5, grads=grads,
@@ -256,6 +298,14 @@ def assert_step_matches(jax_result, port_result, cfg):
         _assert_trees(got[key], after[key], key, atol=1e-5, rtol=1e-4)
     if not cfg.train.mean_teacher:
         assert got["ema_params"] is None and after["ema_params"] is None
+
+
+def _zero_leaves(tree, pred, prefix=()):
+    """``tree`` with the leaves whose path satisfies ``pred`` zeroed."""
+    if isinstance(tree, dict):
+        return {k: _zero_leaves(v, pred, prefix + (k,))
+                for k, v in tree.items()}
+    return np.zeros_like(tree) if pred(prefix) else tree
 
 
 # --- units ---------------------------------------------------------------
@@ -470,9 +520,11 @@ def test_build_modules_accepts_pretrain_presets(preset, perf):
     ("baseline_adaptation", "8b"), ("scmt_ada_weak_separate", "8b"),
     ("crnn_head", "8c"), ("recurrent_dropout", "8c")])
 def test_build_modules_refuses_naming_its_item(case, item):
-    """What ``build_modules`` still refuses names its ROADMAP item (8c);
-    item 8b's adaptation presets, refused until their port, are now
-    accepted with their discriminator."""
+    """What ``build_modules`` refused until its ROADMAP item was ported is
+    now accepted and built: item 8b's adaptation presets with their
+    discriminator, item 8c's 'crnn' head (with its BatchNorm statistics in
+    the train state) and recurrent dropout (in the GRUs' training
+    forward)."""
     if item == "8b":
         cfg = get_config(case)
         assert cfg.train.stage == "adaptation" and cfg.da.mode != "none"
@@ -488,8 +540,17 @@ def test_build_modules_refuses_naming_its_item(case, item):
         cfg = get_config("baseline_mt_isp")
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     dropout_recurrent=0.2))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        steps.build_modules(cfg, device="cpu")
+    modules = steps.build_modules(cfg, device="cpu")
+    assert modules.cfg is cfg
+    model = modules.make_model()
+    if case == "crnn_head":
+        head = model.predictor.crnn_pred
+        assert head.dense_softmax.in_features == cfg.nclass
+        assert any(path[0] == "predictor"
+                   for path, _ in weights.train_stat_map(model))
+    else:
+        assert model.encoder.rnn.dropout.rate == 0.2
+        assert len(model.encoder.rnn._layers) == cfg.model.n_layers_rnn
 
 
 def test_cli_flags_reach_the_step():

@@ -175,19 +175,9 @@ def test_perf_config_is_the_cli_perf_flag():
 
 
 def test_unsupported_step_options_raise():
-    """What the train step still refuses: the 'crnn' head and recurrent
-    dropout, naming their ROADMAP item (8c), and origin's masked batch
-    with a joint GRL domain loss (DANN here), with bsed_tpu's ValueError
+    """What the train step refuses: origin's masked batch with a joint GRL
+    domain loss (DANN here), with bsed_tpu's ValueError
     (steps.py:377-386)."""
-    cfg = perf_config(get_config("baseline_mt_isp"))
-    bad_cfgs = [
-        cfg.replace(model=dataclasses.replace(cfg.model,
-                                              predictor_head="crnn")),
-        cfg.replace(model=dataclasses.replace(cfg.model,
-                                              dropout_recurrent=0.1))]
-    for bad in bad_cfgs:
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            steps.build_modules(bad, device="cpu")
     origin = get_config("origin")
     joint_dann = origin.replace(
         train=dataclasses.replace(origin.train, stage="adaptation"),

@@ -440,18 +440,25 @@ def test_nan_guard_names_step_range(tmp_path, bad):
 
 
 def test_unsupported_preset_is_refused(tmp_path):
-    """Configurations the train step cannot run yet (the 'crnn' head)
-    fail in build_modules with their ROADMAP item, before anything is
-    built."""
+    """The 'crnn' head, which the trainer refused until item 8c was
+    ported, is accepted: the Trainer builds its state, the head's
+    statistics 0 / 1 under ``batch_stats["predictor"]``, and records it
+    in the store's meta."""
     cfg = get_config("baseline_mt_isp")
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                 predictor_head="crnn"))
     syn, weak, unlab, _ = _sources(SyntheticDataSource, cfg, 2 * BS)
     loader = ThreeStreamLoader(syn, weak, unlab, batch_size=BS,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        trainer_mod.Trainer(cfg, loader, store_dir=str(tmp_path),
-                            device="cpu")
+    trainer = trainer_mod.Trainer(cfg, loader, store_dir=str(tmp_path),
+                                  device="cpu")
+    trees = weights.export_train_state(trainer.state)
+    for key in ("batch_stats", "ema_batch_stats"):
+        var = trees[key]["predictor"]["crnn_pred"]["cnn"]["block0"]["bn"][
+            "var"]
+        np.testing.assert_array_equal(var, np.ones_like(var))
+    meta = trainer.ckpt.load_meta()
+    assert meta["config"]["model"]["predictor_head"] == "crnn"
 
 
 def _meter_ops(seed):
