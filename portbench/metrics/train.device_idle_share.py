@@ -1,0 +1,3 @@
+"""% of the busy stretch (device activity alone profiled) in which
+the device ran no operation, training."""
+from portbench.harness.readers import idle_share as read  # noqa: F401
