@@ -35,6 +35,7 @@ from bsed_tpu_torch.data.annotations import (clean_annotations,
                                              seeded_split,
                                              segment_annotations)
 from bsed_tpu_torch.utils.logger import create_logger
+from bsed_tpu_torch.utils.profiling import span
 
 log = create_logger("bsed_tpu_torch/preprocess")
 
@@ -42,7 +43,8 @@ ANNOTATION_COLUMNS = ("onset", "offset", "event_label")
 
 
 def read_wav(path: str, target_sr: int) -> np.ndarray:
-    """Load a wav file as mono float32 at ``target_sr``."""
+    """Load a wav file as mono float32 at ``target_sr``; the resample is
+    the span ``bsed.predict.resample`` (``utils/profiling.span``)."""
     from scipy.io import wavfile
     from scipy.signal import resample_poly
 
@@ -58,8 +60,9 @@ def read_wav(path: str, target_sr: int) -> np.ndarray:
         data = data.mean(axis=1)
     if sr != target_sr:
         frac = Fraction(target_sr, sr).limit_denominator(1000)
-        data = resample_poly(data, frac.numerator, frac.denominator
-                             ).astype(np.float32)
+        with span("predict.resample"):
+            data = resample_poly(data, frac.numerator, frac.denominator
+                                 ).astype(np.float32)
     return data
 
 

@@ -18,18 +18,25 @@ The precision tier also sets TF32 for the length of the call
 (``utils/device.float32_precision``): 'highest' and 'high' compute in
 full float32, 'fast' lets matmuls and cuDNN convolutions round to TF32;
 'highest' serves the dense front end, 'high' and 'fast' the mel kernel.
+
+Under a ``torch.profiler`` profile a call marks its parts as spans
+(``utils/profiling.span``): ``bsed.predict.build`` (the forward, built
+once a call), ``read`` (a recording to float32 at the model's rate, with
+``bsed.predict.resample`` inside where the file's rate differs),
+``forward`` (the ``bsed.serve.*`` spans inside), ``filter`` and
+``decode``; the returned ``seconds`` time the same regions.
 """
 from __future__ import annotations
 
 import csv
 import os
-import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from bsed_tpu_torch.config import Config
+from bsed_tpu_torch.utils.profiling import span
 
 TSV_COLUMNS = ("filename", "event_label", "onset", "offset")
 
@@ -63,21 +70,17 @@ def decode_events(strong, cfg: Config, threshold: float = 0.5,
     from bsed_tpu_torch.eval.decode import extract_events_batch
     from bsed_tpu_torch.ops.median import threshold_and_filter
 
-    t0 = time.perf_counter()
-    probs = torch.as_tensor(strong, dtype=torch.float32, device=device)
-    act = threshold_and_filter(
-        probs[None], [threshold], window=cfg.median_window,
-        windows=cfg.median_window_classwise if learned_post else None)
-    act = act.cpu().numpy()
-    t1 = time.perf_counter()
-    _, _, c_idx, on_t, off_t = extract_events_batch(act)
-    sec = frame_seconds(cfg)
-    events = [(cfg.bird_list[c], a * sec, b * sec)
-              for c, a, b in zip(c_idx, on_t, off_t)]
-    if seconds is not None:
-        seconds["filter"] = seconds.get("filter", 0.0) + (t1 - t0)
-        seconds["decode"] = (seconds.get("decode", 0.0)
-                             + time.perf_counter() - t1)
+    with span("predict.filter", seconds, "filter"):
+        probs = torch.as_tensor(strong, dtype=torch.float32, device=device)
+        act = threshold_and_filter(
+            probs[None], [threshold], window=cfg.median_window,
+            windows=cfg.median_window_classwise if learned_post else None)
+        act = act.cpu().numpy()
+    with span("predict.decode", seconds, "decode"):
+        _, _, c_idx, on_t, off_t = extract_events_batch(act)
+        sec = frame_seconds(cfg)
+        events = [(cfg.bird_list[c], a * sec, b * sec)
+                  for c, a, b in zip(c_idx, on_t, off_t)]
     return events
 
 
@@ -117,35 +120,35 @@ def predict_recordings(cfg: Config, params: Dict, batch_stats: Dict,
            "batches": [], "posteriors": []}
     with float32_precision(precision) as tf32:
         out["tf32"] = dict(tf32)
-        if devices is None:
-            forward = make_fast_forward(cfg, params, batch_stats,
-                                        device=dev, precision=precision,
-                                        use_kernels=use_kernels)
-        else:
-            sharded = make_sharded_forward(cfg, params, batch_stats,
-                                           devices, precision=precision,
-                                           use_kernels=use_kernels)
+        with span("predict.build"):
+            if devices is None:
+                forward = make_fast_forward(cfg, params, batch_stats,
+                                            device=dev, precision=precision,
+                                            use_kernels=use_kernels)
+            else:
+                sharded = make_sharded_forward(cfg, params, batch_stats,
+                                               devices, precision=precision,
+                                               use_kernels=use_kernels)
 
-            def forward(chunk):
-                b = len(chunk)
-                if b != batch_size:   # pad a ragged tail to the batch
-                    chunk = np.concatenate(
-                        [chunk, np.repeat(chunk[-1:], batch_size - b, 0)])
-                strong, weak = sharded(chunk)
-                return strong[:b], weak[:b]
+                def forward(chunk):
+                    b = len(chunk)
+                    if b != batch_size:   # pad a ragged tail to the batch
+                        chunk = np.concatenate(
+                            [chunk, np.repeat(chunk[-1:], batch_size - b, 0)])
+                    strong, weak = sharded(chunk)
+                    return strong[:b], weak[:b]
         for path in paths:
-            t0 = time.perf_counter()
-            audio = load_recording(path, cfg.audio.sr)
-            t1 = time.perf_counter()
+            with span("predict.read", seconds, "read"):
+                audio = load_recording(path, cfg.audio.sr)
             batches = []
 
             def counted(chunk):
                 batches.append(len(chunk))
                 return forward(chunk)
-            strong, _ = predict_long_recording(
-                counted, audio, cfg, batch_size=batch_size,
-                hop_seconds=hop_seconds)
-            t2 = time.perf_counter()
+            with span("predict.forward", seconds, "forward"):
+                strong, _ = predict_long_recording(
+                    counted, audio, cfg, batch_size=batch_size,
+                    hop_seconds=hop_seconds)
             events = decode_events(strong, cfg, threshold, learned_post,
                                    device=dev, seconds=seconds)
             name = os.path.basename(path)
@@ -154,8 +157,6 @@ def predict_recordings(cfg: Config, params: Dict, batch_stats: Dict,
             out["audio_seconds"] += len(audio) / cfg.audio.sr
             if keep_posteriors:
                 out["posteriors"].append(strong)
-            seconds["read"] += t1 - t0
-            seconds["forward"] += t2 - t1
     return out
 
 

@@ -11,7 +11,11 @@ recurrences of a layer in one call of kernel K4 (``ops/gru_kernel.py``,
 through ``models/rnn.HoistedBiGRU``). Everything else is ordinary
 PyTorch/cuDNN, as the JAX package leaves it to XLA.
 ``make_sharded_forward`` serves a batch over several devices, a replica
-each.
+each. Under a ``torch.profiler`` profile a forward marks its parts as
+spans (``utils/profiling.span``): ``bsed.serve.mel``, ``stem`` (folded
+and fused branches), ``cnn`` (the conv blocks after the stem, or the
+whole stack), ``bigru`` and ``head``; the feature-pyramid encoder's
+forward is not split.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from bsed_tpu_torch.ops.folded_stem import build_folded_stem
 from bsed_tpu_torch.ops.mel import PRECISIONS, MelFrontEnd
 from bsed_tpu_torch.utils import weights
 from bsed_tpu_torch.utils.device import resolve_device
+from bsed_tpu_torch.utils.profiling import span
 
 
 class _RestCNN(CNN):
@@ -99,7 +104,10 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
         bigru = HoistedBiGRU(encoder.rnn, use_kernel=use_kernels)
 
         def encode(mel):                   # CRNN.forward, eval
-            return bigru(encoder.cnn(mel).squeeze(2))
+            with span("serve.cnn"):
+                h = encoder.cnn(mel).squeeze(2)
+            with span("serve.bigru"):
+                return bigru(h)
         return encode
     if folded:
         dtype = compute_dtype(m)
@@ -132,7 +140,12 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
     bigru = HoistedBiGRU(rnn.to(dev), use_kernel=use_kernels)
 
     def encode(mel):
-        return bigru(rest(stem(mel)).squeeze(2))
+        with span("serve.stem"):
+            h = stem(mel)
+        with span("serve.cnn"):
+            h = rest(h).squeeze(2)
+        with span("serve.bigru"):
+            return bigru(h)
     return encode
 
 
@@ -203,8 +216,11 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
     @torch.inference_mode()
     def forward(audio):
         audio = torch.as_tensor(audio, dtype=torch.float32, device=dev)
-        mel = fe(audio, log=True)[..., None]
-        return predictor(encode(mel))
+        with span("serve.mel"):
+            mel = fe(audio, log=True)[..., None]
+        h = encode(mel)
+        with span("serve.head"):
+            return predictor(h)
 
     return forward
 

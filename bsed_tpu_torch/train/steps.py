@@ -41,6 +41,14 @@ parity tests inject them (ADDA's half-batch draws through
 ``sample_adda_choice``, the randomized map's matrices through
 ``TrainModules.rand_maps``).
 
+Under a ``torch.profiler`` profile a step marks its phases as spans
+(``utils/profiling.span``), one after the other: ``bsed.train.inputs``
+(the batch to the device, the teacher's noise, the ISP shifts and
+rolls), ``teacher`` (its forwards under ``no_grad``), ``student`` (the
+student's forwards and every loss term), ``backward`` (with the
+gradients' and the metrics' sums over the group), ``optimizer`` and
+``ema``; the domain-adaptation updates before the main step lie in none.
+
 Data parallelism (``TrainModules.group``, a ``parallel.mesh.DataGroup``):
 each rank steps with its rows of every stream (``rank · b`` onwards) and
 the step equals one step on the global batch, as ``bsed_tpu``'s SPMD step
@@ -70,6 +78,7 @@ advances its running statistics, which the state keeps under
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from typing import Dict, Optional
@@ -104,6 +113,7 @@ from bsed_tpu_torch.train.schedule import learning_rate
 from bsed_tpu_torch.train.state import TrainState, make_optimizer
 from bsed_tpu_torch.utils import weights
 from bsed_tpu_torch.utils.device import resolve_device
+from bsed_tpu_torch.utils.profiling import span
 
 _NOT_FOLDABLE = ("folded_train_stem=True but the topology is not foldable "
                  "(needs non-FPN, kernel 3, glu/cg/relu/leakyrelu "
@@ -607,6 +617,17 @@ def make_train_step(modules: TrainModules,
 
     def train_step(state: TrainState, batch: Dict, seed: int,
                    epoch) -> Dict:
+        with contextlib.ExitStack() as phase:
+            return _train_step(state, batch, seed, epoch, phase)
+
+    def _train_step(state: TrainState, batch: Dict, seed: int, epoch,
+                    phase: contextlib.ExitStack) -> Dict:
+        def enter(name):
+            """End the open phase's span and open ``name``'s."""
+            phase.close()
+            phase.enter_context(span(name))
+
+        enter("train.inputs")
         model, teacher = state.model, state.ema_model
         gen = step_generator(seed, state.step, dev)
         rng = step_rng(seed, state.step)
@@ -647,14 +668,19 @@ def make_train_step(modules: TrainModules,
         x_real = _inp(real_lin) if real_lin is not None else None
         metrics: Dict = {"lr": lr, "consistency_cost": cost}
 
-        # the domain-adaptation updates that precede the main step
+        # the domain-adaptation updates that precede the main step, in no
+        # phase's span
         if da_mode != "none":
+            phase.close()
             model.train()
             state.discriminator.train()
-        if da_mode in ("dann", "cdan", "cdan_frame") and not joint_da:
-            metrics["domain_loss"] = grl_pre_step(state, x_syn, x_real, gen)
-        elif da_mode == "adda":
-            metrics["domain_loss"] = adda_steps(state, x_syn, x_real, gen)
+            if da_mode in ("dann", "cdan", "cdan_frame") and not joint_da:
+                metrics["domain_loss"] = grl_pre_step(state, x_syn, x_real,
+                                                      gen)
+            elif da_mode == "adda":
+                metrics["domain_loss"] = adda_steps(state, x_syn, x_real,
+                                                    gen)
+            enter("train.inputs")
         if (mean_teacher or isp) and real_lin is None:
             raise ValueError(
                 "mean_teacher/isp presets need the real streams — build "
@@ -689,6 +715,7 @@ def make_train_step(modules: TrainModules,
         # advance in the reference's call order
         teacher_out = {}
         if mean_teacher:
+            enter("train.teacher")
             teacher.train()
             with torch.no_grad():
                 if isp and t.fused_streams and not origin_masks:
@@ -725,7 +752,8 @@ def make_train_step(modules: TrainModules,
                         gen, x_u, unchunk(ts_u, n_u), unchunk(tw_u, n_u),
                         alpha=t.mixup_usup_alpha, rng=rng)
 
-        # student forwards
+        # student forwards and the loss
+        enter("train.student")
         model.train()
         fused = t.fused_streams and real_lin is not None
         if fused:
@@ -1014,6 +1042,7 @@ def make_train_step(modules: TrainModules,
             loss = loss + da.adv_weight * dl
         m["loss"] = loss
 
+        enter("train.backward")
         state.optimizer.zero_grad(set_to_none=True)
         if joint_da:
             state.disc_optimizer.zero_grad(set_to_none=True)
@@ -1029,11 +1058,13 @@ def make_train_step(modules: TrainModules,
         m = dict(zip(m, shares.unbind()))
         if grad_flow:
             m.update(_grad_abs(model))
+        enter("train.optimizer")
         state.optimizer.step()
         if joint_da:
             state.disc_optimizer.step()
         state.step += 1
         if mean_teacher:
+            enter("train.ema")
             ema_update(teacher.parameters(), model.parameters(), state.step,
                        t.ema_alpha)
             if t.ema_scope == "state_dict":

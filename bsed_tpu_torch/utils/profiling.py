@@ -3,16 +3,25 @@
 Port of ``bsed_tpu/utils/profiling.py``. The reference's observability is
 a wall-clock line per epoch (reference src/main_baseline.py:190,596-597).
 Here: ``torch.profiler`` traces (Chrome trace JSON, viewable in Perfetto
-or TensorBoard) plus lightweight step timers.
+or TensorBoard), and ``span``, the named regions the port marks on them:
+the serving forward's parts (``bsed.serve.mel``, ``stem``, ``cnn``,
+``bigru``, ``head``), the train step's phases (``bsed.train.inputs``,
+``teacher``, ``student``, ``backward``, ``optimizer``, ``ema``) and
+``predict``'s (``bsed.predict.build``, ``read``, ``resample``, ``forward``,
+``filter``, ``decode``).
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+PREFIX = "bsed."        # every span of the port is named bsed.<layer>.<part>
+_NULL = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -33,44 +42,27 @@ def trace(log_dir: str):
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
 
 
-def annotate(name: str):
-    """Named region that shows up in profiler timelines."""
-    return torch.profiler.record_function(name)
+def span(name: str, seconds: Optional[Dict[str, float]] = None,
+         key: Optional[str] = None):
+    """The port's span: ``with span('serve.mel'): ...`` marks a region
+    ``bsed.serve.mel`` on the running ``torch.profiler`` profile's
+    timeline (a ``record_function``, on the clock of the device activity
+    it traces). With no profiler running it checks one flag and returns a
+    shared null context. With ``seconds`` and ``key`` it also adds the
+    region's wall seconds to ``seconds[key]``, profiled or not."""
+    if seconds is not None:
+        return _timed(name, seconds, key)
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return torch.profiler.record_function(PREFIX + name)
 
 
-class StepTimer:
-    """Blocking step timer with simple percentile summaries. Once CUDA is
-    in use it synchronises the card on entry and exit, so a step's time
-    includes its device work."""
-
-    def __init__(self):
-        self.times = []
-        self._t0 = None
-
-    @staticmethod
-    def _sync():
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-
-    def __enter__(self):
-        self._sync()
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self._sync()
-        self.times.append(time.perf_counter() - self._t0)
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        import numpy as np
-        a = np.asarray(self.times)
-        return {"mean_s": float(a.mean()),
-                "p50_s": float(np.percentile(a, 50)),
-                "p90_s": float(np.percentile(a, 90)),
-                "max_s": float(a.max()),
-                "steps": len(a)}
+@contextlib.contextmanager
+def _timed(name: str, seconds: Dict[str, float], key: str):
+    with span(name):
+        t0 = time.perf_counter()
+        yield
+        seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
 
 
 def plot_grad_flow(metrics: Dict[str, float], path: str) -> bool:

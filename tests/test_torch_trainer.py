@@ -492,22 +492,20 @@ def test_meters_match_jax(seed):
 
 
 def test_profiling_helpers_match_jax(tmp_path):
-    """StepTimer's summary keys and annotate's region, and plot_grad_flow
-    (False without grad_abs entries, a PNG with them when matplotlib is
-    present), as bsed_tpu's."""
+    """span's region on a profile's timeline (the port's in place of
+    bsed_tpu's annotate), and plot_grad_flow (False without grad_abs
+    entries, a PNG with them when matplotlib is present), as bsed_tpu's."""
     from bsed_tpu.utils import profiling as j_profiling
+    from torch.profiler import ProfilerActivity, profile
 
     from bsed_tpu_torch.utils import profiling
 
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        with timer, profiling.annotate("step"):
-            torch.ones(4).sum()
-    j_timer = j_profiling.StepTimer()
-    with j_timer:
-        pass
-    assert timer.summary().keys() == j_timer.summary().keys()
-    assert timer.summary()["steps"] == 3
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with profiling.span("step"):
+                torch.ones(4).sum()
+    names = [e.name for e in prof.events()]
+    assert names.count("bsed.step") == 3
     assert profiling.plot_grad_flow({"loss": 1.0}, str(tmp_path / "a.png")) \
         is j_profiling.plot_grad_flow({"loss": 1.0}, str(tmp_path / "b.png")) \
         is False
