@@ -242,6 +242,15 @@ def _fold_kernel_torch(kernel: torch.Tensor, f: int, pos: torch.Tensor,
     return out.reshape(kt, 3, f * cin, f * cout)
 
 
+def bn_affine(bn, bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+              eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BatchNorm ``bn`` of h + ``bias`` under statistics (mean, var) as the
+    epilogue's per-lane affine h·inv + c: inv = γ·rsqrt(var + ε),
+    c = (bias − mean)·inv + β."""
+    inv = bn.weight * torch.rsqrt(var + eps)
+    return inv, (bias - mean) * inv + bn.bias
+
+
 def folded_train_eligible(model_cfg, n_mels: int, fold0: int = 8) -> bool:
     """Whether the train-form folded stem can run this topology (non-FPN,
     kernel 3, glu/cg/relu/leakyrelu, each leading frequency pool dividing
@@ -338,8 +347,7 @@ def make_folded_train_stem(model_cfg, n_mels: int, fold0: int = 8,
                 # it and the variance does not see it
                 bias = blk.conv.bias
                 mean, var = _stats(bn, h, fi, bias, train)
-                inv = bn.weight * torch.rsqrt(var + bn_eps)
-                cvec = (bias - mean) * inv + bn.bias
+                inv, cvec = bn_affine(bn, bias, mean, var, bn_eps)
                 lin = blk.act.linear
                 w = torch.block_diag(*[lin.weight.t().to(dtype)] * fi)
                 b_t = lin.bias.repeat(fi)

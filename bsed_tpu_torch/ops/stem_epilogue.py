@@ -44,8 +44,9 @@ unrounded operands. See the sources for the fragment layout
 matmul as the pair average it is. The group-pool form (``pool_w=None``,
 the standard-layout blocks 3-6 with G = 16, 8, 4, 2) takes any G that
 divides 64 (with 64/G a multiple of pt and G of pg); ``bsed_tpu`` builds it
-but wires it into no path (``folded_stem.py:351-360``), and neither does
-the port.
+but wires it into no path (``folded_stem.py:351-360``). The port serves
+blocks 3-6 on its eval form (``serve.GroupPoolCNN``), with the eval-mode
+BatchNorm's inv and c from the running statistics.
 """
 from __future__ import annotations
 
@@ -251,16 +252,29 @@ def pair_pool_channels(pool_w: np.ndarray) -> int:
                      "stem's (128, 64) pair-averaging pool_w")
 
 
-def check_group_form(g: int, pt: int, pg: int) -> None:
+def check_group_form(g: int, pt: int, pg: int, cout: int = L) -> None:
     """Raise ValueError unless the kernels take the group-pool form for G
-    groups: G divides the 64-row panel, which holds whole time pairs, and
-    pg ∈ {1, 2} divides G."""
+    groups of ``cout`` channels: 128 channels, pt ∈ {1, 2}, G divides the
+    64-row panel, which holds whole time pairs, and pg ∈ {1, 2} divides
+    G."""
+    if cout != L or pt not in (1, 2):
+        raise ValueError(f"group pool needs {L} channels and pt 1/2, got "
+                         f"{cout} channels, pt={pt}")
     if pg not in (1, 2):
         raise ValueError(f"group pool supports pg 1/2, got {pg}")
     if (g < 1 or PANEL_ROWS % g or (PANEL_ROWS // g) % pt or g % pg):
         raise ValueError(f"group-pool kernels need G | {PANEL_ROWS} with "
                          f"({PANEL_ROWS}/G) % pt == 0 and G % pg == 0; got "
                          f"G={g}, pt={pt}, pg={pg}")
+
+
+def group_form_ok(g: int, pt: int, pg: int, cout: int = L) -> bool:
+    """Whether ``check_group_form`` admits the layout."""
+    try:
+        check_group_form(g, pt, pg, cout)
+    except ValueError:
+        return False
+    return True
 
 
 def _out_shape(h, pt: int, lane_form: bool, pg: int):
@@ -284,7 +298,7 @@ def _check_inputs(h, inv, c, w, b, act, pt, bits, keep_k, lane_form,
         raise ValueError(f"the pool_w form needs G = {LANE_G}, got "
                          f"{h.shape[2]}")
     if not lane_form:
-        check_group_form(h.shape[2], pt, pg)
+        check_group_form(h.shape[2], pt, pg, h.shape[3])
     if w.shape != (L, L) or w.dtype != h.dtype or not w.is_contiguous():
         raise ValueError("w must be a contiguous (128, 128) tensor in h's "
                          "dtype")
@@ -342,10 +356,15 @@ def stem_epilogue_fwd(h, inv, c, w, b, act: str, pt: int,
              pool_c if lane_form else 0, pg, stream)
     kernels.check(err, "stem epilogue kernel")
     stem_epilogue_fwd.launches += 1
+    _FWD.launches_pg += not lane_form
     return out
 
 
-stem_epilogue_fwd.launches = 0
+stem_epilogue_fwd.launches = 0          # every launch, both forms
+stem_epilogue_fwd.launches_pg = 0       # of which the group-pool form's
+# launches_pg stays on this function object even where a profiler has put
+# a wrapper in the module's place that carries only ``launches``
+_FWD = stem_epilogue_fwd
 
 _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
 

@@ -4,7 +4,9 @@ Port of ``bsed_tpu/serve.py`` (``make_fast_forward``,
 ``predict_long_recording``): mel front end → folded stem (blocks 0-2) →
 remaining conv blocks → BiGRU → predictor. On CUDA the front end is kernel
 K1 (``ops/mel_kernel.py``), each folded block's epilogue is kernel K2
-(``ops/stem_epilogue.py``), the opt-in fused stem (``use_fused_stem``)
+(``ops/stem_epilogue.py``), and so is each remaining block's BatchNorm,
+gate and pool where K2's group-pool form takes the layout
+(``GroupPoolCNN``), the opt-in fused stem (``use_fused_stem``)
 runs block 0 as kernel K5 (``ops/stem_kernel.py``), and every branch runs
 the BiGRU in ``bsed_tpu``'s hoisted form with both directions'
 recurrences of a layer in one call of kernel K4 (``ops/gru_kernel.py``,
@@ -27,10 +29,11 @@ import torch
 from bsed_tpu_torch.config import Config
 from bsed_tpu_torch.models.cnn import CNN
 from bsed_tpu_torch.models.crnn import compute_dtype, make_encoder
+from bsed_tpu_torch.models.layers import ConvBlock, conv2d_nhwc
 from bsed_tpu_torch.models.predictor import make_predictor_head
 from bsed_tpu_torch.models.rnn import BidirectionalGRU, HoistedBiGRU
-from bsed_tpu_torch.ops import mel_kernel, stem_kernel
-from bsed_tpu_torch.ops.folded_stem import build_folded_stem
+from bsed_tpu_torch.ops import mel_kernel, stem_epilogue, stem_kernel
+from bsed_tpu_torch.ops.folded_stem import bn_affine, build_folded_stem
 from bsed_tpu_torch.ops.mel import PRECISIONS, MelFrontEnd
 from bsed_tpu_torch.utils import weights
 from bsed_tpu_torch.utils.device import resolve_device
@@ -47,6 +50,70 @@ class _RestCNN(CNN):
                          tuple(tuple(p) for p in m.pooling), m.activation,
                          m.kernel_size, dtype=dtype,
                          n_in_channel=m.n_in_channel, start=start)
+
+
+def group_pool_serves(cfg: Config, start: int) -> bool:
+    """Whether each of blocks ``start``..N-1 can run as its conv and one
+    call of K2's group-pool form: GLU or context gating, and
+    ``stem_epilogue.group_form_ok`` for the block's G frequency rows,
+    channels and pool."""
+    m = cfg.model
+    if m.activation not in ("glu", "cg"):
+        return False
+    g = cfg.audio.n_mels
+    for _, pf in m.pooling[:start]:
+        g //= pf
+    for cout, (pt, pf) in zip(m.nb_filters[start:], m.pooling[start:]):
+        if not stem_epilogue.group_form_ok(g, pt, pf, cout):
+            return False
+        g //= pf
+    return True
+
+
+@torch.no_grad()
+def fold_conv_block(block: ConvBlock, dtype=None) -> Dict[str, torch.Tensor]:
+    """K2's constants for one eval-mode GLU / CG ``ConvBlock``, folded in
+    float32 from its running statistics: ``inv`` = γ·rsqrt(var + ε),
+    ``c`` = (conv bias − mean)·inv + β, the gate's dense as ``w`` (in,
+    out) in ``dtype`` (None: float32) and its bias ``b``; with the conv's
+    ``weight`` in ``dtype``, channels-last."""
+    dt = dtype or torch.float32
+    bn, lin = block.bn, block.act.linear
+    inv, c = bn_affine(bn, block.conv.bias.float(), bn.running_mean.float(),
+                       bn.running_var.float(), bn.eps)
+    return {"weight": block.conv.weight.to(dt).contiguous(
+                memory_format=torch.channels_last),
+            "inv": inv, "c": c, "w": lin.weight.t().to(dt).contiguous(),
+            "b": lin.bias.float()}
+
+
+class GroupPoolCNN:
+    """Blocks ``start``..N-1 of an eval-mode ``_RestCNN`` in serving form:
+    each block is its conv without bias (cuDNN, NHWC) and one call of K2's
+    group-pool form in eval form (``ops/stem_epilogue.stem_epilogue_fwd``,
+    looked up at call time; its plain version under ``use_kernels=False``),
+    which computes the BatchNorm, the gate and the block's (pt, pg) pool
+    in one pass over the conv's output; for layouts ``group_pool_serves``
+    admits. Float32 output, as ``_RestCNN``'s."""
+
+    def __init__(self, rest: _RestCNN, activation: str, dtype=None,
+                 use_kernels: bool = True):
+        self.dtype = dtype or torch.float32
+        self.act = activation
+        self.use_kernels = use_kernels
+        self.blocks = [(fold_conv_block(blk, dtype), blk.conv.padding[0],
+                        *blk.pooling) for blk in rest.blocks.values()]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for k, pad, pt, pg in self.blocks:
+            h = conv2d_nhwc(x, k["weight"], padding=pad).contiguous()
+            args = (h, k["inv"], k["c"], k["w"], k["b"], self.act, pt, None)
+            if self.use_kernels:
+                x = stem_epilogue.stem_epilogue_fwd(*args, 0, pg=pg)
+            else:
+                x = stem_epilogue.stem_epilogue_plain(*args, pg=pg)
+        return x.float()
 
 
 def _fold_divides(pooling, fold0: int = 8) -> bool:
@@ -75,7 +142,9 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
     ``make_fast_forward``'s (see there). Every branch runs the BiGRU
     hoisted (``HoistedBiGRU``: K4, or its plain version under
     ``use_kernels=False``); the feature-pyramid encoder (``use_fpn``,
-    standard branch) runs its three, at T, T/2 and T/4 frames."""
+    standard branch) runs its three, at T, T/2 and T/4 frames. The folded
+    branch serves the blocks after the stem as ``GroupPoolCNN`` where
+    ``group_pool_serves`` admits the layout, else as ``_RestCNN``."""
     if stem_impl not in ("pallas", "reference"):
         raise ValueError(f"unknown stem_impl {stem_impl}")
     m = cfg.model
@@ -137,6 +206,9 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
                            dtype=dtype)
     weights.load_gru(rnn, enc_params["rnn"])
     rest.to(dev).eval()
+    if folded and group_pool_serves(cfg, start):
+        rest = GroupPoolCNN(rest, m.activation, dtype,
+                            use_kernels and use_fused_epilogue)
     bigru = HoistedBiGRU(rnn.to(dev), use_kernel=use_kernels)
 
     def encode(mel):
@@ -183,7 +255,11 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
     Auto choices (None) follow the JAX package with "on CUDA" for "on TPU":
     the mel kernel K1 runs when ``precision`` is 'high' or 'fast' and the
     audio geometry meets its constraints; the folded stem serves eligible
-    topologies; its fused epilogue (kernel K2) is on by default on CUDA.
+    topologies; its fused epilogue (kernel K2) is on by default on CUDA,
+    for blocks 0-2 and, in K2's group-pool form, the blocks after them
+    (``GroupPoolCNN``); ``use_fused_epilogue=False`` launches no K2:
+    blocks 0-2 run the unfused chain, the blocks after them K2's plain
+    version.
 
     ``use_fused_stem`` selects the fused block-0 stem for the non-FPN GLU
     CRNN on 128 mels (other encoders fall through to the standard branch,

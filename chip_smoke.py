@@ -12,9 +12,10 @@ use, all sources in parallel) and drives every slice of the port:
     path
     (``make_fast_forward`` on preset ``baseline``, bf16, precision 'high',
     B=64 full 10 s clips, random weights from seed 0), which must launch K1
-    once, K2 three times and K4 twice (the hoisted BiGRU, one call a
-    layer) per batch, a profiled batch (device time, busy share, launches),
-    and the float32 kernel path against the plain path;
+    once, K2 three times in its lane form (blocks 0-2) and four in its
+    group-pool form (blocks 3-6) and K4 twice (the hoisted BiGRU, one call
+    a layer) per batch, a profiled batch (device time, busy share,
+    launches), and the float32 kernel path against the plain path;
   * the fused-stem serving path: K5 (block 0) against its plain version at
     B=64, beside the standard block 0 (cuDNN conv + torch) as a yardstick,
     then ``make_fast_forward(use_fused_stem=True)`` at B=64, which must
@@ -43,7 +44,7 @@ use, all sources in parallel) and drives every slice of the port:
   * the eval path: ``evaluate_checkpoint`` on a checkpoint of preset
     baseline (full width, random weights from seed 0, written with the
     port's ``export_torch_checkpoint``) over 256 synthetic clips resident
-    on the card at B=64, with the kernels (K2 eval three times and K4
+    on the card at B=64, with the kernels (K2 eval seven times and K4
     twice a batch) and on their plain versions: scores, wall seconds by
     phase, clips/s, posteriors within the float32 serving gate, every
     flipped binarized frame within that gate of the threshold, and card
@@ -54,7 +55,7 @@ use, all sources in parallel) and drives every slice of the port:
     5 s hop (B = 11) with ``--precision highest`` (TF32 must be off):
     seconds by part, recording-seconds per wall-second, events; then
     ``predict.predict_recordings`` in-process on the same inputs with the
-    kernels (K1, K2 eval and K4 exactly 1, 3 and 2 times a forward call)
+    kernels (K1, K2 eval and K4 exactly 1, 7 and 2 times a forward call)
     and on their plain versions (posteriors within 2e-3, events decoded
     on the card and on the host identical); ``preprocess`` of an
     ENA-layout root (2 domains × 3 annotated 5-minute recordings: dumps a
@@ -68,14 +69,18 @@ use, all sources in parallel) and drives every slice of the port:
     --preset baseline_mt_isp --perf -s 96`` through the CLI's ``main`` —
     2 epochs (the first profiled), a resume to a third, a fresh 3-epoch
     run and ``eval --store-dir`` — with K2's train form 48 and K3 24 times
-    an epoch and K2's eval form 6 and K4 4 times an evaluate, finite
+    an epoch and K2's eval form 14 and K4 4 times an evaluate, finite
     results, a bit-exact checkpoint round trip, the resumed epoch against
     the uninterrupted one within the card's measured noise floor, and the
     store's evaluation equal to the best epoch's val scores; seconds an
     epoch by part, ms a step, busy share, checkpoint bytes and save ms;
-  * K2's and K3's group-pool form (on no path of either package) against
-    their plain versions at the shapes of blocks 3-6 (B=72, G=16/8/4/2),
-    with the body that served each dtype (bfloat16: wgmma for both);
+  * K2's and K3's group-pool form against their plain versions at the
+    shapes of blocks 3-6 (B=72, G=16/8/4/2), with the body that served
+    each dtype (bfloat16: wgmma for both), and K2's eval form as serving
+    runs it (B=64, no bits, bf16); then serving's blocks 3-6 as
+    ``_RestCNN``'s ConvBlock chain against ``serve.GroupPoolCNN`` (conv +
+    K2-pg), bf16 at B=64 and float32 at B=32: ms, device ms and launches
+    a forward of each (``group_pool_cnn_path``);
   * every preset that trains without a discriminator (``presets_path``):
     12 SYN + 12 real full-width clips (origin: a combined real batch of
     24), random weights from seed 0, 2 warm-up and 3 timed steps of each
@@ -114,7 +119,7 @@ use, all sources in parallel) and drives every slice of the port:
     subprocesses (TF32 off, as they print) on a full-width ``--data-root``
     and ``train --preset baseline_mt_isp --perf --pseudo-labels``
     in-process, with K2's train form and K3 exactly 6 and 3 times a step
-    and K2's eval form and K4 3 and 2 times a validation batch;
+    and K2's eval form and K4 7 and 2 times a validation batch;
   * the learning gate (``learning_gate``): ``bsed_tpu``'s event-F1 gate
     (``baseline_mt_isp`` at 3.2 kHz, 4 s clips, 128 training clips,
     evaluated every 20 epochs for up to 300: decode-path oracle > 0.9,
@@ -169,6 +174,8 @@ GOLDEN_CLIPS = 4                  # clips held against the float64 golden
 N_TIMED = 5
 B_TRAIN = 12                      # SYN clips per step; the real stream too
 B_STUDENT = 6 * B_TRAIN           # the fused student forward's batch
+K2_LANE, K2_PG = 3, 4             # K2 eval launches a folded eval forward:
+K2_EVAL = K2_LANE + K2_PG         # blocks 0-2, then group-pooled 3-6
 BF16_GRAD_GATE = 5e-2             # relative Frobenius error, bf16 grads
 
 
@@ -496,8 +503,9 @@ def serve(dev, compute_dtype, use_kernels=True):
 
 def main_path(torch, dev, card, kernel_ms, profile_dir):
     """The serving path at B=64 full-width clips, bf16, precision 'high';
-    K1 must launch once, K2 three times and K4 twice (one call a BiGRU
-    layer) per batch."""
+    K1 must launch once, K2 three times in its lane form (blocks 0-2) and
+    four in its group-pool form (blocks 3-6, ``stem_epilogue_pg``), and
+    K4 twice (one call a BiGRU layer) per batch."""
     from bsed_tpu_torch.ops import gru_kernel, mel_kernel, stem_epilogue
 
     cfg, forward = serve(dev, "bfloat16")
@@ -509,7 +517,8 @@ def main_path(torch, dev, card, kernel_ms, profile_dir):
     torch.cuda.synchronize()
 
     mel_kernel.fused_block_mel.launches = 0
-    stem_epilogue.stem_epilogue_fwd.launches = 0
+    k2 = stem_epilogue.stem_epilogue_fwd
+    k2.launches = k2.launches_pg = 0
     gru_kernel.gru_bidir_recurrence.launches = 0
     t0 = time.perf_counter()
     for _ in range(N_TIMED):
@@ -517,13 +526,16 @@ def main_path(torch, dev, card, kernel_ms, profile_dir):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {"mel_kernel": mel_kernel.fused_block_mel.launches,
-                "stem_epilogue": stem_epilogue.stem_epilogue_fwd.launches,
+                "stem_epilogue": k2.launches - k2.launches_pg,
+                "stem_epilogue_pg": k2.launches_pg,
                 "gru_kernel": gru_kernel.gru_bidir_recurrence.launches}
 
     assert strong.shape == (B_SERVE, cfg.n_frames, cfg.nclass), strong.shape
     assert weak.shape == (B_SERVE, cfg.nclass), weak.shape
     assert torch.isfinite(strong).all() and torch.isfinite(weak).all()
-    assert launches == {"mel_kernel": N_TIMED, "stem_epilogue": 3 * N_TIMED,
+    assert launches == {"mel_kernel": N_TIMED,
+                        "stem_epilogue": K2_LANE * N_TIMED,
+                        "stem_epilogue_pg": K2_PG * N_TIMED,
                         "gru_kernel": 2 * N_TIMED}, launches
     emit(phase="main_path", preset="baseline", compute_dtype="bfloat16",
          precision="high", batch=B_SERVE, batches=N_TIMED,
@@ -910,7 +922,10 @@ def check_stem_epilogue_pg(torch, dev):
     student shapes (B=72, T=313, G=16/8/4/2, pt=1, pg=2, GLU), with and
     without dropout bits, and at (pt, pg) = (2, 2) and (1, 1) on block 3:
     gates as check_stem_epilogue_train. Times are bf16 with bits, summed
-    over blocks 3-6; launches are counted over those timed calls."""
+    over blocks 3-6; ``launches_timed`` counts those timed calls. Then
+    K2-pg's eval form as serving runs it (``serve.GroupPoolCNN``): B=64,
+    no bits, pt=1, pg=2, bf16, GLU and CG against the plain version at the
+    bf16 gate, timed for GLU and summed over blocks 3-6 (``eval_form``)."""
     from bsed_tpu_torch.ops import stem_epilogue as se
 
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -1046,6 +1061,44 @@ def check_stem_epilogue_pg(torch, dev):
         torch.cuda.empty_cache()
     emit(phase="stem_epilogue_pg_times", dtype="bfloat16", batch=B_STUDENT,
          pt=1, pg=2, blocks=per_block)
+    ev = {"ms": 0.0, "ms_pipelined": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+          "bound_ms": 0.0, "max_abs_err": 0.0, "blocks": []}
+    for blk, g in PG_BLOCKS:
+        h = torch.randn((B_SERVE, t_in, g, 128), generator=gen,
+                        device=dev).bfloat16()
+        w = (torch.randn((128, 128), generator=gen, device=dev)
+             / 128 ** 0.5).bfloat16()
+        inv = 1.0 + 0.2 * torch.randn(128, generator=gen, device=dev)
+        cvec = 0.3 * torch.randn(128, generator=gen, device=dev)
+        bvec = 0.1 * torch.randn(128, generator=gen, device=dev)
+        for act in ("glu", "cg"):
+            args = (h, inv, cvec, w, bvec, act, 1, None)
+            got = se.stem_epilogue_fwd(*args, 0, pg=2)
+            want = se.stem_epilogue_plain(*args, pg=2)
+            torch.cuda.synchronize()
+            dfw = (got.float() - want.float()).abs()
+            emit(phase="check_stem_epilogue_pg", form="eval", block=blk,
+                 G=g, pt=1, pg=2, bits=False, dtype="bfloat16",
+                 batch=B_SERVE, act=act, fwd_max_abs_err=float(dfw.max()))
+            assert bool((dfw <= 0.06 + 0.06 * want.float().abs()).all()), \
+                f"K2-pg eval form, block {blk} {act} B={B_SERVE}"
+            ev["max_abs_err"] = max(ev["max_abs_err"], float(dfw.max()))
+        args = (h, inv, cvec, w, bvec, "glu", 1, None)
+        run = lambda: se.stem_epilogue_fwd(*args, 0, pg=2)  # noqa: E731
+        n = h.numel()
+        # h read, the pooled map written, w and 3 vectors; 1 bf16 product
+        t = {"ms": time_ms(run, 10), "ms_pipelined": pipelined_ms(run),
+             "device_ms": kernel_device_ms(torch, run, "epilogue_pg"),
+             "plain_ms": time_ms(lambda: se.stem_epilogue_plain(
+                 *args, pg=2), 5),
+             "bound_ms": bound(n * 2 + got.numel() * 2 + w.numel() * 2
+                               + 3 * 512, {"bfloat16": n * 128 * 2})[0]}
+        for k, v in t.items():
+            ev[k] += v
+        ev["blocks"].append({"block": blk, "G": g, **t})
+        del h, w, got, want
+    emit(phase="stem_epilogue_pg_eval_times", dtype="bfloat16",
+         batch=B_SERVE, pt=1, pg=2, **ev)
 
     def entry(name, src, replaces, t, err, n, fwd):
         return {"name": name, "route": "cuda", "source": src,
@@ -1055,7 +1108,7 @@ def check_stem_epilogue_pg(torch, dev):
                 "bound_ms": t["bound_ms"],
                 "bound_by": ("bytes" if t["t_bytes"] >= t["t_ops"]
                              else "operations"),
-                "library_ms": None, "launches": n,
+                "library_ms": None, "launches_timed": n,
                 "body": body_report(se, torch, fwd, lane_form=False),
                 "blocks": own_blocks(per_block, fwd),
                 "times_are": "sum over blocks 3-6 (G=16/8/4/2) of one B=72 "
@@ -1064,20 +1117,87 @@ def check_stem_epilogue_pg(torch, dev):
                              "CUDA events (as PRs 1-5), ms_pipelined a run "
                              "of back-to-back calls, device_ms the "
                              "kernel's own device time (profiler); "
-                             "launches are the calls timed for ms (no path "
-                             "runs it)"}
+                             "launches_timed are the calls timed for ms"}
     return (entry("stem_epilogue_pg", "bsed_tpu_torch/csrc/stem_epilogue.cu",
                   "bsed_tpu/ops/stem_epilogue.py:307", tot["fwd"],
                   worst["fwd_bf16"], launches["fwd"], True)
-            | {"max_abs_err_f32": worst["fwd_f32"]},
+            | {"max_abs_err_f32": worst["fwd_f32"], "eval_form": ev
+               | {"times_are": "sum over blocks 3-6 of one B=64 bf16 "
+                               "eval-form call (no bits, pt=1, pg=2, GLU), "
+                               "as serving runs it"}},
             entry("stem_epilogue_pg_bwd",
                   "bsed_tpu_torch/csrc/stem_epilogue_bwd.cu",
                   "bsed_tpu/ops/stem_epilogue.py:325", tot["bwd"],
                   worst["bwd_f32"], launches["bwd"], False)
-            | {"bound_ms_fma_dw": tot["bwd"]["bound_ms_fma_dw"],
+            | {"launches": launches["bwd"],      # on no path: the timed calls
+               "bound_ms_fma_dw": tot["bwd"]["bound_ms_fma_dw"],
                "max_abs_err_is": "float32 dh",
                "bf16_rel_fro_err": worst["bwd_bf16_rel"],
                "bf16_gate": BF16_GRAD_GATE})
+
+
+def group_pool_cnn_path(torch, dev, card):
+    """Serving's blocks 3-6 (313 frames after the stem, G=16 at block 3,
+    preset baseline, weights from seed 0) as ``serve._RestCNN``'s eval-mode
+    ConvBlock chain (old) and as ``serve.GroupPoolCNN``, a cuDNN conv and
+    one K2-pg call a block (new): bfloat16 at serving's B=64 and float32 at
+    predict's B=32 (TF32 off). Gates as tests/test_torch_cuda.py: bf16 2e-2
+    of the output's largest magnitude, float32 1e-4. ms a forward from
+    CUDA events around back-to-back calls, old and new in turns (old, new,
+    new, old); device ms and device launches a forward from torch.profiler
+    over 10 forwards; K2-pg launches a forward from its counter."""
+    from bsed_tpu_torch import serve as srv
+    from bsed_tpu_torch.config import get_config
+    from bsed_tpu_torch.models.crnn import compute_dtype
+    from bsed_tpu_torch.ops import stem_epilogue as se
+    from bsed_tpu_torch.utils import weights
+    from bsed_tpu_torch.utils.weights import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out = {}
+    for name, batch in (("bfloat16", B_SERVE), ("float32", 32)):
+        cfg = get_config("baseline")
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    compute_dtype=name))
+        params, stats = init_params(cfg, 0)
+        dt = compute_dtype(cfg.model)
+        rest = srv._RestCNN(cfg, start=3, dtype=dt)
+        weights.load_cnn(rest, params["encoder"]["cnn"],
+                         stats["encoder"]["cnn"])
+        rest.to(dev).eval()
+        new = srv.GroupPoolCNN(rest, cfg.model.activation, dt)
+        x = (0.5 * torch.randn((batch, GRU_T, 16, 64), generator=gen,
+                               device=dev)).to(dt or torch.float32)
+        fns = {"old": lambda: rest(x), "new": lambda: new(x)}
+        with torch.inference_mode():
+            want = fns["old"]()
+            n0 = se.stem_epilogue_fwd.launches_pg
+            got = fns["new"]()
+            torch.cuda.synchronize()
+            k2pg = se.stem_epilogue_fwd.launches_pg - n0
+            diff = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            ms = {"old": [], "new": []}
+            for k in ("old", "new", "new", "old"):
+                ms[k].append(pipelined_ms(fns[k], reps=20))
+            prof = {}
+            for k, fn in fns.items():
+                _, _, rows = device_rows(torch, fn, 10)
+                prof[k] = {"device_ms": sum(t for t, _, _ in rows) / 1e4,
+                           "device_launches": sum(c for _, _, c in rows)
+                           / 10,
+                           "top": [{"name": key[:70], "ms": t / 1e4}
+                                   for t, key, _ in rows[:6]]}
+        gate = 2e-2 * scale if name == "bfloat16" else 1e-4
+        out[name] = {"batch": batch, "max_abs_diff": diff, "scale": scale,
+                     "gate": gate, "k2pg_launches": k2pg, "ms": ms, **prof}
+        emit(phase="group_pool_cnn_path", dtype=name, card=card,
+             **out[name])
+        assert k2pg == K2_PG, (name, k2pg)
+        assert diff <= gate, (name, diff, gate)
+        del rest, new, x, want, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def rel_fro(a, b) -> float:
@@ -1409,7 +1529,7 @@ def eval_path(torch, dev, card):
     width, random weights from seed 0 written with the port's
     ``export_torch_checkpoint``, an ``EvalLoader`` over
     ``SyntheticDataSource(n_items=256, seed=0)`` at B=64, resident on the
-    card; once with the kernels (K2 eval three times and K4 twice a batch
+    card; once with the kernels (K2 eval seven times and K4 twice a batch
     must launch) and once on their plain versions. Gates: posteriors
     within the float32 serving gate; every binarized frame that differs
     has a plain posterior within that gate of the threshold; decoding the
@@ -1460,7 +1580,7 @@ def eval_path(torch, dev, card):
             runs[run] = (res, wall, launches)
     (rk, wall_k, launches), (rp, wall_p, launches_p), (rw, wall_w, _) = (
         runs["kernels"], runs["plain"], runs["kernels_warm"])
-    assert launches == {"stem_epilogue": 3 * n_batches,
+    assert launches == {"stem_epilogue": K2_EVAL * n_batches,
                         "gru_kernel": 2 * n_batches}, launches
     assert launches_p == {"stem_epilogue": 0, "gru_kernel": 0}, launches_p
     pk, pp = rk["posteriors"], rp["posteriors"]
@@ -1615,7 +1735,7 @@ def raw_audio_path(torch, dev, card):
         must run with TF32 off: seconds by part, recording-seconds per
         wall-second, events written;
       * in-process on the same inputs, ``predict.predict_recordings`` with
-        the kernels (K1, K2 eval and K4 exactly 1, 3 and 2 times a forward
+        the kernels (K1, K2 eval and K4 exactly 1, 7 and 2 times a forward
         call) and on their plain versions: posteriors within the serving
         gate, and each recording's events decoded on the card and on the
         host identical;
@@ -1701,7 +1821,8 @@ def raw_audio_path(torch, dev, card):
         (res_k, launches), (res_p, launches_p) = runs[True], runs[False]
         batches = [b for r in res_k for rec in r["batches"] for b in rec]
         calls = len(batches)
-        assert launches == {"mel_kernel": calls, "stem_epilogue": 3 * calls,
+        assert launches == {"mel_kernel": calls,
+                            "stem_epilogue": K2_EVAL * calls,
                             "gru_kernel": 2 * calls}, (launches, calls)
         assert launches_p == {k: 0 for k in counters}, launches_p
         post_k = [p for r in res_k for p in r["posteriors"]]
@@ -2220,7 +2341,7 @@ def trainer_path(torch, dev, card, train_ms):
          launches_run_a=launches,
          launches_per_epoch={"stem_epilogue_train": 6 * FIT_STEPS,
                              "stem_epilogue_bwd": 3 * FIT_STEPS},
-         launches_per_evaluate={"stem_epilogue": 3 * FIT_VAL_BATCHES,
+         launches_per_evaluate={"stem_epilogue": K2_EVAL * FIT_VAL_BATCHES,
                                 "gru_kernel": 2 * FIT_VAL_BATCHES},
          noise_floor=floors[True], noise_floor_cudnn_free=floors[False],
          noise_floor_states_bit_identical=floor_states[True],
@@ -2248,7 +2369,7 @@ def trainer_path(torch, dev, card, train_ms):
 
 def check_fit_launches(rec, totals_a):
     """Every train epoch of every run launched K2's train form 6 and K3 3
-    times a step (K4 never), every evaluate K2's eval form 3 and K4 2
+    times a step (K4 never), every evaluate K2's eval form 7 and K4 2
     times a batch; run A's counters, set to 0 before it, hold exactly its
     calls' launches. Returns run A's launches by kernel entry."""
     for call in rec.calls:
@@ -2257,7 +2378,7 @@ def check_fit_launches(rec, totals_a):
                 6 * FIT_STEPS, 3 * FIT_STEPS, 0), call
         elif call["kind"] == "evaluate":
             assert (call["k2"], call["k3"], call["k4"]) == (
-                3 * FIT_VAL_BATCHES, 0, 2 * FIT_VAL_BATCHES), call
+                K2_EVAL * FIT_VAL_BATCHES, 0, 2 * FIT_VAL_BATCHES), call
     epochs_a = rec.of("A", "train_epoch")
     evals_a = rec.of("A", "evaluate")
     launches = {
@@ -2478,7 +2599,7 @@ def preset_cli_runs(torch):
     """``train --preset origin --perf -s 96 --epochs 1`` and ``train
     --preset baseline_fpn_mt_isp -s 48 --epochs 1`` through the CLI's
     ``main``, each followed by ``eval --store-dir``. origin: 8 steps of 18
-    K2-train and 12 K3 launches, one evaluate of 2 val batches (K2 eval 3
+    K2-train and 12 K3 launches, one evaluate of 2 val batches (K2 eval 7
     and K4 2 a batch), the store's evaluation the same; FPN (unfolded
     float32): 4 steps with no kernel, evaluate and the store's evaluation
     of 1 batch with K4 6 times. Results finite; the FPN store's
@@ -2492,7 +2613,7 @@ def preset_cli_runs(torch):
     out, totals = {}, {"stem_epilogue_train": 0, "stem_epilogue_bwd": 0,
                        "stem_epilogue": 0, "gru_kernel": 0}
     runs = (("origin", ["--preset", "origin", "--perf", "-s", "96"],
-             (18 * 8, 12 * 8, 0), (6, 0, 4)),
+             (18 * 8, 12 * 8, 0), (2 * K2_EVAL, 0, 4)),
             ("fpn", ["--preset", "baseline_fpn_mt_isp", "-s", "48"],
              (0, 0, 0), (0, 0, 6)))
     rec = FitRecorder(torch)
@@ -2617,7 +2738,7 @@ DA_PERF_LAUNCHES = {"a": (12, 9), "b": (12, 9), "c": (6, 3), "d": (6, 3),
 DA_SKIP_LAUNCHES = {"g": (6, 3), "h": (18, 12)}
 DA_PROFILED = ("a", True)         # (run, --perf form) profiled for one step
 N_DA_TIMED = 2                    # state steps 2 (ADDA update) and 3 (skip)
-DA_EVAL_LAUNCHES = (6, 0, 4)      # K2 (eval), K3, K4: 2 val batches of 12
+DA_EVAL_LAUNCHES = (2 * K2_EVAL, 0, 4)  # K2 (eval), K3, K4: 2 val batches
 N_DA_FIT_STEPS = N_FIT_SYN // B_TRAIN
 
 
@@ -2761,7 +2882,7 @@ def da_cli_cycle(torch):
     optimizer keep the resumed Trainer's fresh init, the rest comes from
     epoch_0), then ``eval --store-dir``, through the CLI's ``main``. Each
     epoch 8 steps of 12 K2-train and 9 K3 launches, each evaluate 2 val
-    batches (K2 eval 3 and K4 2 a batch); results finite; the store's
+    batches (K2 eval 7 and K4 2 a batch); results finite; the store's
     evaluation equal to the best row."""
     import os
     import tempfile
@@ -3152,7 +3273,7 @@ def tagger_cycle(torch):
     split, both in subprocesses (TF32 off, as they print), then ``train
     --preset baseline_mt_isp --perf --pseudo-labels --epochs 1``
     in-process with its launches by kind: K2 train and K3 in
-    ``train_epoch`` (6 and 3 a step), K2 eval and K4 in ``evaluate`` (3
+    ``train_epoch`` (6 and 3 a step), K2 eval and K4 in ``evaluate`` (7
     and 2 a val batch). Returns (summary, launches)."""
     import csv
     import os
@@ -3223,7 +3344,7 @@ def tagger_cycle(torch):
         launches["stem_epilogue_train"] += c["k2"]
         launches["stem_epilogue_bwd"] += c["k3"]
     for c in rec.of("pl_train", "evaluate"):
-        assert (c["k2"], c["k3"], c["k4"]) == (3 * val_batches, 0,
+        assert (c["k2"], c["k3"], c["k4"]) == (K2_EVAL * val_batches, 0,
                                                2 * val_batches), c
         launches["stem_epilogue"] += c["k2"]
         launches["gru_kernel"] += c["k4"]
@@ -3679,7 +3800,7 @@ def learning_gate_phase(torch, dev, card):
     folded stem runs its epilogue unfused at the recipe's dropout 0.1,
     whose keep probability 0.9 is not k/256 (``folded_stem._ep_ok``, the
     rule of ``bsed_tpu``'s ``folded_stem.py:288-293``). Every evaluation
-    runs K2's eval form 3 and K4 2 times a val batch. Returns the
+    runs K2's eval form 7 and K4 2 times a val batch. Returns the
     launches by kernel entry."""
     from bsed_tpu_torch.parallel.launch import spawn
 
@@ -3703,7 +3824,7 @@ def learning_gate_phase(torch, dev, card):
                 for k, c in (("stem_epilogue", "stem_epilogue_fwd"),
                              ("gru_kernel", "gru_kernel"))}
     # 32 val clips at batch 8
-    assert launches == {"stem_epilogue": 12 * evals,
+    assert launches == {"stem_epilogue": 4 * K2_EVAL * evals,
                         "gru_kernel": 8 * evals}, launches
     return launches
 
@@ -3878,7 +3999,7 @@ def data_parallel_path(torch, dev, card):
         row, with the K2 / K3 / K4 launches of each rank's train_epoch
         and evaluate counted apart;
       * ``make_sharded_forward`` on ["cuda:0", "cuda:0"] at B=64 (float32,
-        'high': each replica runs K1 once, K2 three times and K4 twice a
+        'high': each replica runs K1 once, K2 seven times and K4 twice a
         batch) against the single forward.
 
     Times by the host clock around synchronised work. Returns the
@@ -4002,17 +4123,18 @@ def data_parallel_path(torch, dev, card):
                 assert g[k] <= gate, (dtype, k, g)
     assert fit_gap <= DP_GATES["fit_rows_rel"], fit_gap
     # an epoch of 2 steps (K2 train 6, K3 3 a step) and 2 val batches (K2
-    # eval 3, K4 2 a batch), of which each of the 2 ranks evaluates one
+    # eval 7, K4 2 a batch), of which each of the 2 ranks evaluates one
     n_steps = DP_FIT_CLIPS // B_TRAIN
     fit_train = {"stem_epilogue_fwd": 6 * n_steps,
                  "stem_epilogue_bwd": 3 * n_steps, "gru_kernel": 0}
     assert fit_launches_1 == {"train_epoch": fit_train, "evaluate": {
-        "stem_epilogue_fwd": 6, "stem_epilogue_bwd": 0,
+        "stem_epilogue_fwd": 2 * K2_EVAL, "stem_epilogue_bwd": 0,
         "gru_kernel": 4}}, fit_launches_1
     assert all(f[1] == {"train_epoch": fit_train, "evaluate": {
-        "stem_epilogue_fwd": 3, "stem_epilogue_bwd": 0, "gru_kernel": 2}}
+        "stem_epilogue_fwd": K2_EVAL, "stem_epilogue_bwd": 0,
+        "gru_kernel": 2}}
         for f in fits), [f[1] for f in fits]
-    assert serve_launches == {"stem_epilogue_fwd": 6 * N_TIMED,
+    assert serve_launches == {"stem_epilogue_fwd": 2 * K2_EVAL * N_TIMED,
                               "stem_epilogue_bwd": 0,
                               "gru_kernel": 4 * N_TIMED,
                               "mel_kernel": 2 * N_TIMED}, serve_launches
@@ -4042,7 +4164,8 @@ def main() -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run alone after the "
                              "build (learning_gate, data_parallel_path, "
-                             "crnn_head_path); "
+                             "crnn_head_path, main_path, "
+                             "check_stem_epilogue_pg, group_pool_cnn_path); "
                              "prints their lines and the card's, not the "
                              "kernels line or the last line")
     args = parser.parse_args()
@@ -4076,7 +4199,12 @@ def main() -> int:
     if args.only:
         alone = {"learning_gate": learning_gate_phase,
                  "data_parallel_path": data_parallel_path,
-                 "crnn_head_path": crnn_head_path}
+                 "crnn_head_path": crnn_head_path,
+                 "main_path": lambda t, d, c: main_path(
+                     t, d, c, {}, args.profile_dir),
+                 "check_stem_epilogue_pg": lambda t, d, c:
+                     check_stem_epilogue_pg(t, d),
+                 "group_pool_cnn_path": group_pool_cnn_path}
         for phase in args.only.split(","):
             alone[phase](torch, dev, smi)
         print(smi, flush=True)
@@ -4114,6 +4242,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     k2pg, k3pg = check_stem_epilogue_pg(torch, dev)
     torch.cuda.empty_cache()
+    group_pool_cnn_path(torch, dev, smi)
+    torch.cuda.empty_cache()
     preset_launches = presets_path(torch, dev, smi, args.profile_dir)
     torch.cuda.empty_cache()
     da_launches = adaptation_path(torch, dev, smi, args.profile_dir)
@@ -4126,8 +4256,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_launches = data_parallel_path(torch, dev, smi)
 
-    for k in (k1, k2, k2t, k3):
+    for k in (k1, k2, k2t, k3, k2pg):  # k2 / k2pg: the main path's forms
         k["launches"] = launches[k["name"]]
+    k2["launches_of_phases_are"] = (
+        "every call of stem_epilogue_fwd in the phase, the group-pool "
+        "form's 4 a folded eval forward (blocks 3-6) included")
     for k in (k2, k4):           # the eval path's run, 4 batches of 64
         k["launches_eval_path"] = eval_launches[k["name"]]
     for k in (k1, k2, k4):       # raw_audio_path's in-process kernel run

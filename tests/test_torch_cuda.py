@@ -427,6 +427,31 @@ def test_bf16_serving_path_close_to_f32_plain_path(dev):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-2)
 
 
+def test_unfused_epilogue_launches_no_k2(dev):
+    """make_fast_forward float32, 2 s clips, B=3: by default a batch
+    launches K2 7 times, 4 of them in the group-pool form (blocks 3-6);
+    with ``use_fused_epilogue=False`` none, blocks 3-6 on K2's plain
+    version; the two within the float32 serving gate (2e-3)."""
+    cfg = get_config("baseline").replace(
+        audio=AudioConfig(max_len_seconds=2.0))
+    params, stats = init_params(cfg, 0)
+    audio = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, cfg.audio.n_samples)).astype(np.float32) * 0.1).to(dev)
+    fwd = stem_epilogue.stem_epilogue_fwd
+    out, counts = {}, {}
+    for fused in (True, False):
+        before = (fwd.launches, fwd.launches_pg)
+        out[fused] = make_fast_forward(cfg, params, stats, device=dev,
+                                       use_fused_epilogue=fused)(audio)
+        torch.cuda.synchronize()
+        counts[fused] = (fwd.launches - before[0],
+                         fwd.launches_pg - before[1])
+    assert counts == {True: (7, 4), False: (0, 0)}, counts
+    for g, w in zip(out[True], out[False]):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-3)
+
+
 @pytest.mark.parametrize("g,pt,pg", [(16, 1, 2), (2, 1, 2), (8, 2, 2),
                                      (4, 1, 1)])
 @pytest.mark.parametrize("with_bits", [False, True])
@@ -501,6 +526,88 @@ def test_group_pool_bf16_tensor_core_body(dev, g, pt, pg, act, with_bits,
                                atol=0.06)
 
 
+@pytest.mark.parametrize("g", [16, 8, 4, 2])
+@pytest.mark.parametrize("act", ["glu", "cg"])
+def test_group_pool_eval_form_at_serving_shapes(dev, g, act):
+    """K2-pg's eval form (no bits, pt 1, pg 2) at the shapes serving runs
+    blocks 3-6 at: B = 64, T = 313, G = 16, 8, 4, 2, bfloat16, against
+    the plain chain: 0.06 rtol + atol, as the bf16 body's other forms."""
+    rng = np.random.default_rng(40 + g)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(  # noqa
+        np.float32)).to(dev)
+    h = f(64, 313, g, 128).bfloat16()
+    inv, c, b = f(128) * 0.2 + 1.0, f(128) * 0.3, f(128) * 0.1
+    w = (f(128, 128) / np.sqrt(128)).bfloat16()
+    before = (stem_epilogue.stem_epilogue_fwd.launches,
+              stem_epilogue.stem_epilogue_fwd.launches_pg)
+    got = stem_epilogue.stem_epilogue_fwd(h, inv, c, w, b, act, 1, None, 0,
+                                          pg=2)
+    want = stem_epilogue.stem_epilogue_plain(h, inv, c, w, b, act, 1, None,
+                                             pg=2)
+    torch.cuda.synchronize()
+    assert (stem_epilogue.stem_epilogue_fwd.launches,
+            stem_epilogue.stem_epilogue_fwd.launches_pg) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == want.shape == (64, 313, g // 2, 128)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.06,
+                               atol=0.06)
+
+
+def test_group_form_counts_under_a_wrapped_entry(dev, monkeypatch):
+    """A profiler that puts a wrapper carrying only ``launches`` in the
+    module's place of K2's entry (as a benchmark's traced run does):
+    serving's blocks 3-6 still run, ``launches`` counts on the wrapper and
+    ``launches_pg`` on the entry itself, 4 a forward."""
+    from bsed_tpu_torch import serve
+    from tests.test_torch_serve_cnn import START, _cfg, _randomize
+
+    entry = stem_epilogue.stem_epilogue_fwd
+
+    def wrapper(*args, **kwargs):
+        return entry(*args, **kwargs)
+    wrapper.launches = entry.launches
+    monkeypatch.setattr(stem_epilogue, "stem_epilogue_fwd", wrapper)
+    rest = _randomize(serve._RestCNN(_cfg(), start=START,
+                                     dtype=torch.bfloat16), 7).to(dev)
+    x = torch.randn((2, 9, 16, 64), device=dev, dtype=torch.bfloat16)
+    before = (wrapper.launches, entry.launches_pg)
+    with torch.inference_mode():
+        serve.GroupPoolCNN(rest, "glu", torch.bfloat16)(x)
+    torch.cuda.synchronize()
+    assert (wrapper.launches - before[0],
+            entry.launches_pg - before[1]) == (4, 4)
+
+
+@pytest.mark.parametrize("dtype,batch", [(torch.float32, 32),
+                                         (torch.bfloat16, 64)])
+def test_group_pool_cnn_on_card_matches_rest_cnn(dev, dtype, batch):
+    """Serving's blocks 3-6 on the card, full width (313 frames, G = 16
+    at block 3), as conv + K2-pg (``serve.GroupPoolCNN``: 4 launches)
+    against ``_RestCNN``'s eval-mode ConvBlock chain on the same numpy-
+    seeded weights and statistics: float32 (FMA body, TF32 off) 1e-4,
+    bfloat16 2e-2 of the output's largest magnitude, as the CPU test."""
+    from bsed_tpu_torch import serve
+    from tests.test_torch_serve_cnn import START, _cfg, _randomize
+
+    cfg = _cfg()
+    dt = None if dtype is torch.float32 else dtype
+    rest = _randomize(serve._RestCNN(cfg, start=START, dtype=dt), 7).to(dev)
+    cnn = serve.GroupPoolCNN(rest, "glu", dt)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (batch, 313, 16, 64)).astype(np.float32)).to(dev, dtype)
+    with torch.inference_mode():
+        want = rest(x)
+        before = stem_epilogue.stem_epilogue_fwd.launches
+        got = cnn(x)
+    torch.cuda.synchronize()
+    assert stem_epilogue.stem_epilogue_fwd.launches == before + 4
+    assert got.shape == want.shape == (batch, 313, 1, 128)
+    scale = float(want.abs().max())
+    gate = 1e-4 if dtype is torch.float32 else 2e-2 * scale
+    torch.testing.assert_close(got, want, rtol=0, atol=gate)
+
+
 # ---------------------------------------------------------------------------
 # the eval path: median filter, loaders and make_predict_fn on the card
 
@@ -569,8 +676,9 @@ def test_eval_loader_card_batches_equal_host(dev):
 @pytest.mark.parametrize("compute_dtype,gate", [("float32", 2e-3),
                                                 ("bfloat16", 1e-2)])
 def test_predict_fn_kernels_match_plain(dev, compute_dtype, gate):
-    """make_predict_fn on the kernels (K2 eval 3 times and K4 twice a
-    batch) against the same function on their plain versions, full width
+    """make_predict_fn on the kernels (K2 eval 7 times: blocks 0-2 and,
+    in its group-pool form, blocks 3-6; K4 twice a batch) against the
+    same function on their plain versions, full width
     (1255 frames × 128 mels), B=8, heads widened: within the serving gate
     of the compute dtype."""
     from bsed_tpu_torch.train.steps import TrainModules, make_predict_fn
@@ -588,7 +696,7 @@ def test_predict_fn_kernels_match_plain(dev, compute_dtype, gate):
     k4 = gru_kernel.gru_bidir_recurrence.launches
     got = make_predict_fn(TrainModules(cfg, dev))(params, stats, mel)
     torch.cuda.synchronize()
-    assert stem_epilogue.stem_epilogue_fwd.launches == k2 + 3
+    assert stem_epilogue.stem_epilogue_fwd.launches == k2 + 7
     assert gru_kernel.gru_bidir_recurrence.launches == k4 + 2
     want = make_predict_fn(TrainModules(cfg, dev, use_kernels=False))(
         params, stats, mel)
@@ -645,7 +753,7 @@ def deterministic_cudnn():
 
 def test_trainer_fit_kernels_match_plain(dev, tmp_path, deterministic_cudnn):
     """A 1-epoch fit with the kernels (K2 train 6 and K3 3 times a step;
-    K2 eval 3 and K4 2 times a val batch) against the same fit on their
+    K2 eval 7 and K4 2 times a val batch) against the same fit on their
     plain versions, float32, dropout 0.5 with the same bits: the f32
     train-step gates (metrics 1e-4 relative, Adam moments 3e-5, BN
     statistics 1e-5 + 1e-5 relative)."""
@@ -658,7 +766,7 @@ def test_trainer_fit_kernels_match_plain(dev, tmp_path, deterministic_cudnn):
     assert (stem_epilogue.stem_epilogue_fwd.launches - launches[0],
             stem_epilogue.stem_epilogue_bwd.launches - launches[1],
             gru_kernel.gru_bidir_recurrence.launches - launches[2]) == \
-        (2 * 6 + 2 * 3, 2 * 3, 2 * 2)
+        (2 * 6 + 2 * 7, 2 * 3, 2 * 2)
     plain = _card_trainer(dev, tmp_path / "plain", use_kernels=False)
     plain.fit(n_epochs=1)
     (got,), (want,) = kern.history, plain.history
@@ -1048,7 +1156,7 @@ def raw_audio(tmp_path):
 
 def test_predict_ragged_batch_kernels_match_plain(dev, raw_audio):
     """``predict_recordings`` at full width, precision 'high' (K1, K2 and
-    K4 once, three and twice a forward call), against the same call on
+    K4 once, seven and twice a forward call), against the same call on
     the plain versions: posteriors within the serving gate (2e-3), the
     ragged B = 11 batch and the one-window recording included."""
     from bsed_tpu_torch.predict import predict_recordings
@@ -1066,7 +1174,7 @@ def test_predict_ragged_batch_kernels_match_plain(dev, raw_audio):
         if use_kernels:
             calls = sum(map(len, runs[True]["batches"]))
             assert [c.launches - b for c, b in zip(counters, before)] == \
-                [calls, 3 * calls, 2 * calls]
+                [calls, 7 * calls, 2 * calls]
     assert runs[True]["batches"] == [[11], [1]]
     for a, b in zip(runs[True]["posteriors"], runs[False]["posteriors"]):
         assert a.shape == b.shape and np.isfinite(a).all()
