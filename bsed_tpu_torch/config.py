@@ -55,6 +55,43 @@ class AudioConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class BeatsConfig:
+    """A frozen BEATs encoder fused into the CRNN (the DCASE Task 4
+    baseline's ``cat_tf``; ``models/beats.py``): the configuration of
+    the released ``BEATs_iter3+ (AS2M)`` checkpoints (Chen et al.,
+    arXiv:2212.09058, microsoft/unilm ``beats/``) under its own key names,
+    its front end (a 2:1 decimation of the clip, then Kaldi's fbank at
+    ``sample_rate``), and the fusion: the encoder's frames, averaged over
+    the frequency patches and pooled to the CNN's frames, concatenated
+    after the CNN's channels and mapped back to them by one linear
+    layer."""
+    # front end: 2:1 decimation (Hann-windowed sinc, cutoff × Nyquist of
+    # the output rate), then Kaldi fbank (torchaudio.compliance.kaldi)
+    decimation_taps: int = 49
+    decimation_cutoff: float = 0.99
+    sample_rate: int = 16000
+    frame_length: int = 400
+    frame_shift: int = 160
+    num_mel_bins: int = 128
+    low_freq: float = 20.0
+    preemphasis: float = 0.97
+    fbank_mean: float = 15.41663
+    fbank_std: float = 6.55582
+    # the encoder (BEATsConfig's names)
+    input_patch_size: int = 16
+    embed_dim: int = 512
+    encoder_layers: int = 12
+    encoder_embed_dim: int = 768
+    encoder_ffn_embed_dim: int = 3072
+    encoder_attention_heads: int = 12
+    conv_pos: int = 128
+    conv_pos_groups: int = 16
+    num_buckets: int = 320
+    max_distance: int = 800
+    layer_norm_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """CRNN topology (main_baseline.py:663-673)."""
     n_in_channel: int = 1
@@ -102,6 +139,9 @@ class ModelConfig:
     # grid); same math as the unfused folded path up to fp reassociation
     # and an independent dropout bit-stream (tests/test_stem_epilogue.py).
     fused_stem_epilogue: bool = True
+    # serving only: a BEATs encoder fused before the BiGRU (BeatsConfig);
+    # None, the CRNN alone, is left out of ``config_to_dict``
+    beats: Optional[BeatsConfig] = None
 
     @property
     def pooling_time_ratio(self) -> int:
@@ -369,7 +409,10 @@ def config_to_dict(cfg: Config) -> dict:
     rebuild the exact Config with no --preset flag, like the reference's
     TestModel.py rebuilding the model from checkpoint kwargs
     (reference src/TestModel.py:34-59)."""
-    return dataclasses.asdict(cfg)
+    d = dataclasses.asdict(cfg)
+    if d["model"]["beats"] is None:
+        del d["model"]["beats"]
+    return d
 
 
 def _tupled(v):
@@ -384,6 +427,8 @@ def config_from_dict(d: dict) -> Config:
     def build(cls, sub):
         kw = {f.name: _tupled(sub[f.name])
               for f in dataclasses.fields(cls) if f.name in sub}
+        if kw.get("beats") is not None:
+            kw["beats"] = BeatsConfig(**kw["beats"])
         return cls(**kw)
 
     nested = {"audio": AudioConfig, "model": ModelConfig,

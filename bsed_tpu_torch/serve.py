@@ -12,12 +12,20 @@ the BiGRU in ``bsed_tpu``'s hoisted form with both directions'
 recurrences of a layer in one call of kernel K4 (``ops/gru_kernel.py``,
 through ``models/rnn.HoistedBiGRU``). Everything else is ordinary
 PyTorch/cuDNN, as the JAX package leaves it to XLA.
+A configuration with a BEATs encoder (``ModelConfig.beats``) also runs
+the clip through BEATs' front end (``ops/fbank.py``) and encoder
+(``models/beats.py``, its attention through
+``ops/rel_attention.gated_rel_attention``) and fuses its frames with the
+CNN's before the BiGRU (``models/beats.BeatsFusion``, the DCASE Task 4
+baseline's ``cat_tf``); the CRNN's own parts run as without it.
 ``make_sharded_forward`` serves a batch over several devices, a replica
 each. Under a ``torch.profiler`` profile a forward marks its parts as
 spans (``utils/profiling.span``): ``bsed.serve.mel``, ``stem`` (folded
 and fused branches), ``cnn`` (the conv blocks after the stem, or the
-whole stack), ``bigru`` and ``head``; the feature-pyramid encoder's
-forward is not split.
+whole stack), ``bigru`` and ``head``, with BEATs ``fbank`` (the
+decimation and the fbank), ``beats`` (the encoder) and ``fuse`` (the
+alignment and ``cat_tf``); the feature-pyramid encoder's forward is not
+split.
 """
 from __future__ import annotations
 
@@ -27,12 +35,14 @@ import numpy as np
 import torch
 
 from bsed_tpu_torch.config import Config
+from bsed_tpu_torch.models.beats import BEATs, BeatsFusion
 from bsed_tpu_torch.models.cnn import CNN
 from bsed_tpu_torch.models.crnn import compute_dtype, make_encoder
 from bsed_tpu_torch.models.layers import ConvBlock, conv2d_nhwc
 from bsed_tpu_torch.models.predictor import make_predictor_head
 from bsed_tpu_torch.models.rnn import BidirectionalGRU, HoistedBiGRU
 from bsed_tpu_torch.ops import mel_kernel, stem_epilogue, stem_kernel
+from bsed_tpu_torch.ops.fbank import BeatsFbank
 from bsed_tpu_torch.ops.folded_stem import bn_affine, build_folded_stem
 from bsed_tpu_torch.ops.mel import PRECISIONS, MelFrontEnd
 from bsed_tpu_torch.utils import weights
@@ -134,10 +144,13 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
                   use_fused_epilogue: Optional[bool] = None,
                   use_fused_stem: bool = False,
                   stem_impl: str = "pallas",
-                  use_kernels: bool = True) -> Callable:
+                  use_kernels: bool = True,
+                  fuse: Optional[Callable] = None) -> Callable:
     """The eval-mode CRNN encoder on ``dev`` from the encoder's flax-layout
-    trees: ``encode(log_mel (B, T, F, 1)) -> (B, T', 2H)`` float32, the
-    input in NHWC layout. Shared by ``make_fast_forward`` and
+    trees: ``encode(log_mel (B, T, F, 1), emb=None) -> (B, T', 2H)``
+    float32, the input in NHWC layout; with ``fuse`` (``BeatsFusion``;
+    the folded and standard branches of the plain CRNN) the CNN's frames
+    are fused with ``emb`` before the BiGRU. Shared by ``make_fast_forward`` and
     ``train.steps.make_predict_fn``; the options are
     ``make_fast_forward``'s (see there). Every branch runs the BiGRU
     hoisted (``HoistedBiGRU``: K4, or its plain version under
@@ -157,6 +170,19 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
               and _fold_divides(m.pooling))
     fused = (use_fused_stem and not folded and not m.use_fpn
              and m.activation == "glu" and cfg.audio.n_mels == 128)
+    if fuse is not None and (fused or m.use_fpn):
+        raise ValueError("a BEATs fusion serves the folded or standard "
+                         "CRNN, not the fused stem or the FPN encoder")
+    if (fuse is None) != (m.beats is None):
+        raise ValueError("a BEATs configuration's encoder takes its fusion "
+                         "(make_fast_forward serves it from raw audio), "
+                         "and only such a configuration's")
+
+    def fused_with(h, emb):
+        if fuse is None:
+            return h
+        with span("serve.fuse"):
+            return fuse(h, emb)
     if not (folded or fused):
         encoder = make_encoder(m)
         weights.load_crnn(encoder, enc_params, enc_stats)
@@ -172,9 +198,10 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
             return encode
         bigru = HoistedBiGRU(encoder.rnn, use_kernel=use_kernels)
 
-        def encode(mel):                   # CRNN.forward, eval
+        def encode(mel, emb=None):         # CRNN.forward, eval
             with span("serve.cnn"):
                 h = encoder.cnn(mel).squeeze(2)
+            h = fused_with(h, emb)
             with span("serve.bigru"):
                 return bigru(h)
         return encode
@@ -211,14 +238,42 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
                             use_kernels and use_fused_epilogue)
     bigru = HoistedBiGRU(rnn.to(dev), use_kernel=use_kernels)
 
-    def encode(mel):
+    def encode(mel, emb=None):
         with span("serve.stem"):
             h = stem(mel)
         with span("serve.cnn"):
             h = rest(h).squeeze(2)
+        h = fused_with(h, emb)
         with span("serve.bigru"):
             return bigru(h)
     return encode
+
+
+class BeatsBranch:
+    """BEATs' part of a served forward on ``dev``: ``fbank`` (the clip to
+    its normalised fbank, float32), ``encoder`` (``models/beats.BEATs`` in
+    ``dtype`` but its float32 position convolution, ``BEATs.cast``; eval
+    mode, from ``params["beats"]``) and ``fuse`` (``BeatsFusion`` with
+    ``params["encoder"]["cat_tf"]``)."""
+
+    def __init__(self, cfg: Config, params: Dict, dev, dtype=None):
+        bc = cfg.model.beats
+        dtype = dtype or torch.float32
+        self.fbank = BeatsFbank(bc, dev)
+        self.encoder = BEATs(bc)
+        weights.load_beats(self.encoder, params["beats"])
+        self.encoder.to(dev).cast(dtype).eval()
+        cat = params["encoder"]["cat_tf"]
+        self.fuse = BeatsFusion(cat["kernel"], cat["bias"],
+                                bc.num_mel_bins // bc.input_patch_size,
+                                dtype, dev)
+
+    def __call__(self, audio: torch.Tensor) -> torch.Tensor:
+        """(B, n_samples) float32 → (B, L, d) embeddings."""
+        with span("serve.fbank"):
+            fb = self.fbank(audio)
+        with span("serve.beats"):
+            return self.encoder(fb)
 
 
 def build_predictor(cfg: Config, pred_params: Dict, dev,
@@ -252,6 +307,13 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
     (``HoistedBiGRU``: one projection a layer, both recurrences in one
     call of K4, or of K4's plain version under ``use_kernels=False``).
 
+    With ``cfg.model.beats`` the forward also runs ``BeatsBranch`` on the
+    audio, in the compute dtype, and fuses its embeddings with the CNN's
+    frames before the BiGRU (``params`` then holds ``beats`` and
+    ``encoder.cat_tf``, ``utils/weights.py``); ``forward.beats`` is that
+    ``BeatsBranch`` (None without BEATs), its ``encoder`` module open to
+    a caller's hooks.
+
     Auto choices (None) follow the JAX package with "on CUDA" for "on TPU":
     the mel kernel K1 runs when ``precision`` is 'high' or 'fast' and the
     audio geometry meets its constraints; the folded stem serves eligible
@@ -279,11 +341,14 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
             if (precision in ("high", "fast") and dev.type == "cuda"
                 and mel_kernel.supports(a.n_window, a.hop_size, a.n_mels))
             else "dense")
+    beats = (BeatsBranch(cfg, params, dev, compute_dtype(cfg.model))
+             if cfg.model.beats is not None else None)
     encode = build_encoder(cfg, params["encoder"], batch_stats["encoder"],
                            dev, use_folded_stem=use_folded_stem,
                            use_fused_epilogue=use_fused_epilogue,
                            use_fused_stem=use_fused_stem,
-                           stem_impl=stem_impl, use_kernels=use_kernels)
+                           stem_impl=stem_impl, use_kernels=use_kernels,
+                           fuse=beats and beats.fuse)
     predictor = build_predictor(cfg, params["predictor"], dev,
                                 batch_stats.get("predictor"))
     fe = MelFrontEnd(a, algorithm=mel_algorithm, device=dev,
@@ -294,10 +359,11 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
         audio = torch.as_tensor(audio, dtype=torch.float32, device=dev)
         with span("serve.mel"):
             mel = fe(audio, log=True)[..., None]
-        h = encode(mel)
+        h = encode(mel) if beats is None else encode(mel, beats(audio))
         with span("serve.head"):
             return predictor(h)
 
+    forward.beats = beats
     return forward
 
 

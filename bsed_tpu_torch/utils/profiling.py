@@ -5,7 +5,8 @@ a wall-clock line per epoch (reference src/main_baseline.py:190,596-597).
 Here: ``torch.profiler`` traces (Chrome trace JSON, viewable in Perfetto
 or TensorBoard), and ``span``, the named regions the port marks on them:
 the serving forward's parts (``bsed.serve.mel``, ``stem``, ``cnn``,
-``bigru``, ``head``), the train step's phases (``bsed.train.inputs``,
+``bigru``, ``head``; with a BEATs encoder ``fbank``, ``beats`` and
+``fuse``), the train step's phases (``bsed.train.inputs``,
 ``teacher``, ``student``, ``backward``, ``optimizer``, ``ema``) and
 ``predict``'s (``bsed.predict.build``, ``read``, ``resample``, ``forward``,
 ``filter``, ``decode``).

@@ -50,6 +50,13 @@ BatchNorm), and the aux optimizers' states ``disc_opt_state`` and
 ``enc_opt_state``, each a dict of the same slots (``mu``, ``nu``,
 ``count`` or ``trace``) over the discriminator's and the encoder's trees.
 ``load_crnnda`` carries ``models/crnn.CRNNDA``'s tree.
+
+A configuration with a BEATs encoder (``ModelConfig.beats``) adds
+``params["beats"]``, the released checkpoint's state dict under its own
+key names (``patch_embedding.weight``, ``encoder.pos_conv.0.weight_g`` /
+``weight_v``, ``encoder.layers.{i}.self_attn.q_proj.weight``, …;
+``load_beats``), and the fusion ``params["encoder"]["cat_tf"] = {kernel
+(C + d, C), bias}``.
 """
 from __future__ import annotations
 
@@ -128,6 +135,22 @@ def load_crnn(crnn, enc_params: Mapping, enc_stats: Mapping) -> None:
         load_gru(rnn, enc_params[name])
     for name, dense in denses.items():
         load_dense(dense, enc_params[name])
+
+
+def load_beats(beats, state: Mapping) -> None:
+    """A ``models/beats.BEATs`` from a state dict under the released
+    checkpoint's key names (arrays or tensors): the position
+    convolution's weight norm (``weight_g`` (1, 1, K), ``weight_v``, over
+    dim 2) folded into one weight, w = g·v/‖v‖ with the norm over the
+    other dims; every other key as it is."""
+    sd = {k: torch.as_tensor(np.asarray(v, np.float32))
+          for k, v in state.items()}
+    g = sd.pop("encoder.pos_conv.0.weight_g", None)
+    v = sd.pop("encoder.pos_conv.0.weight_v", None)
+    if g is not None:
+        sd["encoder.pos_conv.0.weight"] = g * v / v.norm(dim=(0, 1),
+                                                        keepdim=True)
+    beats.load_state_dict(sd, strict=True)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

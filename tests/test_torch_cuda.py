@@ -1388,3 +1388,82 @@ def test_data_parallel_sharded_forward_on_card(dev):
     assert mel_kernel.fused_block_mel.launches - k1 == 2
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= chip_smoke.DP_GATES["serve_abs"]
+
+
+# ---------------------------------------------------------------------------
+# BEATs fused into the CRNN (the crnn_beats configuration)
+
+
+def test_rel_attention_bf16_matches_float32_at_496_tokens(dev):
+    """The bf16 entry (SDPA with the gated bias as its mask) against its
+    float32 form written out, at BEATs' shapes (8 clips, 12 heads of 64,
+    496 tokens, unit-scale bias, gates in (1, 2)): bf16 keeps 8 bits, so
+    2e-2 of the output's largest magnitude."""
+    from bsed_tpu_torch.ops import rel_attention as RA
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(8, 12, 496, 64, generator=gen, device=dev)
+               for _ in range(3))
+    gate = 1 + torch.rand(8, 12, 496, 1, generator=gen, device=dev)
+    bias = torch.randn(12, 496, 496, generator=gen, device=dev)
+    before = RA.gated_rel_attention.launches
+    got = RA.gated_rel_attention(*(t.bfloat16() for t in (q, k, v, gate)),
+                                 bias.bfloat16())
+    want = RA.gated_rel_attention_plain(q, k, v, gate, bias)
+    torch.cuda.synchronize()
+    assert RA.gated_rel_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want, rtol=0,
+                               atol=2e-2 * float(want.abs().max()))
+
+
+def test_crnn_beats_forward_on_card_matches_reference(dev):
+    """crnn_beats at its published widths through make_fast_forward, bf16
+    'high', B = 8 ten-second clips, against the benchmark's float32
+    reference (TF32 off): the posterior and embedding gaps within the
+    limits of the cell ``serve_beats_crnn_b64``; K1 once, K4 twice and the
+    attention 12 times a forward."""
+    import json
+    import os
+    from bsed_tpu_torch.ops import rel_attention as RA
+    from portbench.harness import beats as B, synth, weights as Wt
+    from portbench.harness.port import port_config
+    from portbench.reference import beats as RB, crnn as R
+    from portbench.reference.frontend import log_mel
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    load = lambda *p: json.load(open(os.path.join(root, "portbench", *p)))  # noqa: E731
+    config = load("configs", "crnn_beats.json")
+    mix = load("traffic", "serve_beats_b64.json")
+    limits = load("limits", "serve_beats_crnn_b64.json")["limits"]
+    from bsed_tpu_torch.config import BeatsConfig
+    cfg = port_config(config, "serve", mix)
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, beats=BeatsConfig(**config["beats"])))
+    params = B.make_params(config, 21, 22, dev)
+    audio = synth.clips(23, 8, config["audio"], mix["audio"], dev)
+    with torch.no_grad():
+        stats = {"encoder": {"cnn": R.block_input_stats(
+            log_mel(audio, config["audio"]), params, config["model"])}}
+    fwd = make_fast_forward(cfg, Wt.to_numpy(params), Wt.to_numpy(stats),
+                            device=dev, precision="high")
+    seen = []
+    fwd.beats.encoder.register_forward_hook(lambda m, i, o: seen.append(o))
+    k1, k4 = (mel_kernel.fused_block_mel.launches,
+              gru_kernel.gru_bidir_recurrence.launches)
+    attn = RA.gated_rel_attention.launches
+    strong, weak = fwd(audio)
+    torch.cuda.synchronize()
+    assert mel_kernel.fused_block_mel.launches == k1 + 1
+    assert gru_kernel.gru_bidir_recurrence.launches == k4 + 2
+    assert RA.gated_rel_attention.launches == attn + 12
+    assert seen[0].shape == (8, 496, 768) and seen[0].dtype == torch.bfloat16
+    with torch.no_grad():
+        h, emb = RB.encode(audio, params, stats, config)
+        rs, rw = R.predictor(h, params["predictor"])
+    gaps = {"frame_posterior_gap": float((strong - rs).abs().max()),
+            "clip_posterior_gap": float((weak - rw).abs().max()),
+            "embedding_gap": float((seen[0].float() - emb).norm()
+                                   / emb.norm())}
+    print("crnn_beats B=8 gaps", gaps)
+    for k, v in gaps.items():
+        assert v <= limits[k], (k, v, limits[k])
