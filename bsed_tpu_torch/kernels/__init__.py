@@ -9,7 +9,8 @@ build takes seconds, not minutes):
 
 The library lands in ``bsed_tpu_torch/kernels/_build/`` (git-ignored),
 named by a hash of the source, the shared headers ``csrc/*.cuh`` and the
-flags, at first use. Only the
+flags, at first use, with ptxas' report beside it (``<name>-<hash>.ptxas``,
+``ptxas_report``). Only the
 sources in the checkout are compiled. Nothing here runs at import time:
 the CPU tests import every module of the package on a host without
 ``nvcc`` or a card.
@@ -30,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("mel_kernel", "stem_epilogue", "stem_epilogue_bwd", "stem_kernel",
-           "gru_kernel")
+           "gru_kernel", "rel_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -81,6 +82,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
             os.replace(tmp, out)
+            out.with_suffix(".ptxas").write_text(log)
             reports[name] = log
     finally:
         for job, _ in started.values():
@@ -88,6 +90,13 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
                 job[0].kill()
                 job[0].wait()
     return reports
+
+
+def ptxas_report(name: str):
+    """The ptxas report kept beside the current library of
+    ``csrc/<name>.cu`` by whichever process built it, or None."""
+    path = library_path(name).with_suffix(".ptxas")
+    return path.read_text() if path.exists() else None
 
 
 def load(name: str) -> ctypes.CDLL:

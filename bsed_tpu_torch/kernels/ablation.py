@@ -3,6 +3,7 @@ phase taken out.
 
     python -m bsed_tpu_torch.kernels.ablation [--block 0|1|2]
     python -m bsed_tpu_torch.kernels.ablation --kernel stem
+    python -m bsed_tpu_torch.kernels.ablation --kernel attention
 
 The card has no kernel profiler that attributes time inside a kernel, so
 each variant is the source with a few lines edited away (the products, the
@@ -10,7 +11,9 @@ dW chain, the gate, the dh stores, ...), built beside the real library and
 timed through the same C entry points: K2's and K3's tensor-core bodies at
 one folded block's student shape (B=72, bfloat16, GLU, dropout bits; the
 default), or K5, the fused block-0 stem, at the fused-stem path's shape
-(``--kernel stem``: B=64, T=1255, float32). A variant computes wrong numbers by
+(``--kernel stem``: B=64, T=1255, float32), or BEATs' attention body at
+the serving shape (``--kernel attention``: B=64, 12 heads of 64, 496
+tokens, bfloat16). A variant computes wrong numbers by
 design; only its time is read. What a phase costs is the base time minus
 the time without it; if the phases overlapped, the differences would sum to
 less than the base.
@@ -34,6 +37,7 @@ Edit = Tuple[str, str]
 
 FWD, BWD, COMMON = "stem_epilogue", "stem_epilogue_bwd", "stem_common"
 STEM = "stem_kernel"
+ATTN = "rel_attention"
 
 # the edits, by phase: (source, text in it, replacement)
 PHASES: Dict[str, List[Tuple[str, str, str]]] = {
@@ -84,6 +88,33 @@ PHASES: Dict[str, List[Tuple[str, str, str]]] = {
     "stem_no_stores": [(STEM, "      store_out(dst + (size_t)r * FO * C, res);",
                         "      if (res[0] == 1.2345f) "
                         "store_out(dst + (size_t)r * FO * C, res);")],
+    # BEATs' attention, bf16 body
+    "attn_no_bias": [
+        (ATTN, "sc[n][2 * r] = fmaf(g8[r], pv.x, sc[n][2 * r]);",
+         "sc[n][2 * r] += 0.f;"),
+        (ATTN, "sc[n][2 * r + 1] = fmaf(g8[r], pv.y, sc[n][2 * r + 1]);",
+         "sc[n][2 * r + 1] += 0.f;")],
+    "attn_no_exp": [
+        (ATTN, "sc[n][e] = ex2(fmaf(sc[n][e], c1, -mc[e >> 1]));",
+         "sc[n][e] = fmaf(sc[n][e], c1, -mc[e >> 1]);")],
+    "attn_no_rescale": [
+        (ATTN, "for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];",
+         "for (int e = 0; e < 4; ++e) o[n][e] += 0.f;")],
+    "attn_no_pv": [(ATTN, "wgmma_n64_reg_mn(o, a[kb],",
+                    "if (t < 0) wgmma_n64_reg_mn(o, a[kb],")],
+    "attn_no_scores": [(ATTN, "wgmma_scores(sc, desc_sw_k(",
+                        "if (t < 0) wgmma_scores(sc, desc_sw_k(")],
+    "attn_no_stores": [(ATTN, "if (row[r] >= len) continue;",
+                        "if (row[r] >= 0) continue;")],
+    "attn_no_pack": [(ATTN, "pack_bf16(sc[n][2 * r], sc[n][2 * r + 1]);",
+                      "__float_as_uint(sc[n][2 * r]);")],
+    "attn_loads_only": [
+        (ATTN, "  for (int pass = 0; wg + WGS * pass < nkt; ++pass) {",
+         "  mbar_wait(q_bar, 0);\n  mbar_wait(p_bar, 0);\n"
+         "  if (nkt > WGS) mbar_wait(q_bar + 1, 0);\n"
+         "  for (int j = 0; j < nst; ++j) mbar_wait(kv_bar + j, 0);\n"
+         "  return;\n"
+         "  for (int pass = 0; wg + WGS * pass < nkt; ++pass) {")],
 }
 
 # variant -> (the kernel it times, the phases taken out)
@@ -111,6 +142,21 @@ VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "k5_no_staging": (STEM, ("stem_no_staging",)),
     "k5_no_stores": (STEM, ("stem_no_stores",)),
     "k5_compute_only": (STEM, ("stem_no_staging", "stem_no_stores")),
+    "attn_base": (ATTN, ()),
+    "attn_no_bias": (ATTN, ("attn_no_bias",)),
+    "attn_no_exp": (ATTN, ("attn_no_exp",)),
+    "attn_no_rescale": (ATTN, ("attn_no_rescale",)),
+    "attn_no_pv": (ATTN, ("attn_no_pv",)),
+    "attn_no_scores": (ATTN, ("attn_no_scores",)),
+    "attn_no_tensor": (ATTN, ("attn_no_pv", "attn_no_scores")),
+    "attn_no_stores": (ATTN, ("attn_no_stores",)),
+    "attn_no_pack": (ATTN, ("attn_no_pack",)),
+    "attn_softmax_only": (ATTN, ("attn_no_pv", "attn_no_scores",
+                                 "attn_no_bias")),
+    "attn_memory_only": (ATTN, ("attn_no_pv", "attn_no_scores",
+                                "attn_no_bias", "attn_no_exp",
+                                "attn_no_pack")),
+    "attn_loads_only": (ATTN, ("attn_loads_only",)),
 }
 
 
@@ -119,7 +165,7 @@ def variants() -> Dict[str, Tuple[str, Dict[str, str]]]:
     every variant; raises ValueError if an edit's text is not in its
     source."""
     texts = {name: (kernels.SRC_DIR / f"{name}.cu").read_text()
-             for name in (FWD, BWD, STEM)}
+             for name in (FWD, BWD, STEM, ATTN)}
     texts[COMMON] = (kernels.SRC_DIR / f"{COMMON}.cuh").read_text()
     out = {}
     for name, (kernel, phases) in VARIANTS.items():
@@ -266,10 +312,42 @@ def stem_calls(torch, dev, libs):
                    "dtype": "float32"}
 
 
+ATTN_SHAPE = (64, 12, 496, 64)
+
+
+def attention_calls(torch, dev, libs):
+    """{variant: call} for the attention body's variants at the serving
+    shape, q, k, v as the model's views, through the wrapper's
+    ``launch_plan``."""
+    from bsed_tpu_torch.ops import rel_attention as RA
+    b, h, n, d = ATTN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn((b, n, h * d), generator=gen, device=dev)
+               .bfloat16().view(b, n, h, d).transpose(1, 2)
+               for _ in range(3))
+    gate = (1 + torch.rand((b, h, n, 1), generator=gen,
+                           device=dev)).bfloat16()
+    bias = torch.randn((h, n, n), generator=gen, device=dev).bfloat16()
+    (q, k, v, gate, bias), strides = RA.launch_plan(q, k, v, gate, bias)
+    stride_arg = (ctypes.c_longlong * len(strides))(*strides)
+    out = torch.empty((b, n, h, d), device=dev, dtype=q.dtype)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    calls = {}
+    for name, (_, lib) in libs.items():
+        fn = RA._bind(lib)
+
+        def call(fn=fn):
+            return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      gate.data_ptr(), bias.data_ptr(), out.data_ptr(), 1,
+                      b, h, n, d, stride_arg, stream)
+        calls[name] = call
+    return calls, {"shape": list(ATTN_SHAPE), "dtype": "bfloat16"}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernel", default="epilogue",
-                        choices=("epilogue", "stem"))
+                        choices=("epilogue", "stem", "attention"))
     parser.add_argument("--block", type=int, default=0, choices=(0, 1, 2))
     args = parser.parse_args()
     import torch
@@ -278,6 +356,8 @@ def main() -> int:
     dev = torch.device("cuda")
     if args.kernel == "stem":
         calls, shape = stem_calls(torch, dev, build_variants((STEM,)))
+    elif args.kernel == "attention":
+        calls, shape = attention_calls(torch, dev, build_variants((ATTN,)))
     else:
         calls, shape = epilogue_calls(torch, dev, args.block,
                                       build_variants((FWD, BWD)))

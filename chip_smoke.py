@@ -74,6 +74,18 @@ use, all sources in parallel) and drives every slice of the port:
     the uninterrupted one within the card's measured noise floor, and the
     store's evaluation equal to the best epoch's val scores; seconds an
     epoch by part, ms a step, busy share, checkpoint bytes and save ms;
+  * BEATs' gated relative-position attention (``check_rel_attention``,
+    ``csrc/rel_attention.cu``) at the serving cell's shape (B=64, 12 heads
+    of 64, 496 tokens, bf16, q, k and v as the model's views) against its
+    plain version in float32, with a zero bias and a unit gate, its
+    float32 body at B=8, no (B, H, L, L) allocation inside the call; its
+    time beside the plain version's and, as ``library_ms``, the form the
+    port ran before it (g ⊙ P materialised as the mask of
+    ``F.scaled_dot_product_attention``, which the port no longer calls);
+    then ``crnn_beats`` served through ``make_fast_forward`` at B=64,
+    bf16 'high' (``beats_path``): the attention's counter 12 a forward,
+    the profiler's launches of the kernel 12 a forward and none of a
+    library attention, clips/s, and the kernel's device ms a batch;
   * K2's and K3's group-pool form against their plain versions at the
     shapes of blocks 3-6 (B=72, G=16/8/4/2), with the body that served
     each dtype (bfloat16: wgmma for both), and K2's eval form as serving
@@ -279,11 +291,13 @@ PTXAS = {}                        # source name -> ptxas report of this run
 
 def kernel_resources(source: str, needle: str):
     """Registers a thread and spill bytes of the kernels of ``source``
-    whose mangled name contains ``needle``, from this run's ptxas report:
-    the largest over the template instances, and how many there are. None
-    when the library was not built in this run."""
+    whose mangled name contains ``needle``, from this run's ptxas report
+    or, where another process built the library, the report kept beside
+    it: the largest over the template instances, and how many there are.
+    None when neither is there."""
     import re
-    log = PTXAS.get(source)
+    from bsed_tpu_torch import kernels
+    log = PTXAS.get(source) or kernels.ptxas_report(source)
     if log is None:
         return None
     regs, spills, name = [], [], None
@@ -4157,6 +4171,187 @@ def data_parallel_path(torch, dev, card):
     return launches
 
 
+ATTN_SHAPE = (B_SERVE, 12, 496, 64)   # BEATs at B=64: (B, H, L, D)
+ATTN_GATE = 1e-2                      # of max |out|: see check_rel_attention
+
+
+def attention_inputs(torch, dev, b, h, n, dtype, seed):
+    """q, k, v as the model passes them (views (B, H, L, D) of (B, L, H·D)
+    projections), gate in (1, 2) and a unit-normal bias (H, L, L)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = ATTN_SHAPE[3]
+    q, k, v = (torch.randn((b, n, h * d), generator=gen, device=dev)
+               .to(dtype).view(b, n, h, d).transpose(1, 2)
+               for _ in range(3))
+    gate = (1 + torch.rand((b, h, n, 1), generator=gen, device=dev)).to(dtype)
+    bias = torch.randn((h, n, n), generator=gen, device=dev).to(dtype)
+    return q, k, v, gate, bias
+
+
+def check_rel_attention(torch, dev):
+    """BEATs' gated relative-position attention (``csrc/rel_attention.cu``)
+    at the cell's shape (B=64, 12 heads of 64, 496 tokens, bf16, q, k and
+    v as the model's views) against its plain version in float32 on the
+    same inputs: within 1e-2 of the output's largest magnitude (the
+    weights and the output are each rounded to bf16 once, 2^-9 a value);
+    the float32 body at B=8 within 2e-5 of it. Times: the kernel (CUDA
+    events, and its device time from the profiler), the plain version,
+    and as ``library_ms`` the form the port ran before it: g ⊙ P
+    materialised in bf16 as the mask of
+    ``F.scaled_dot_product_attention``, which the port never calls. The
+    bound counts the work as ``serve.beats_attn_roofline`` does: q, k, v
+    and the output once, the gate and the (320, 12) table, 4·B·H·L²·D
+    operations in bf16."""
+    import torch.nn.functional as F
+    from bsed_tpu_torch.config import BeatsConfig
+    from bsed_tpu_torch.ops import rel_attention as RA
+
+    b, h, n, d = ATTN_SHAPE
+    args = attention_inputs(torch, dev, b, h, n, torch.bfloat16, 31)
+    before = RA.gated_rel_attention.launches
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = RA.gated_rel_attention(*args)
+    torch.cuda.synchronize()
+    peak_extra = torch.cuda.max_memory_allocated() - base
+    want = RA.gated_rel_attention_plain(*args)
+    err = float((got.float() - want).abs().max())
+    scale = float(want.abs().max())
+    zero_bias = (args[3], torch.zeros_like(args[4]))
+    unit_gate = (torch.ones_like(args[3]), args[4])
+    fault_errs = []
+    for gate, bias in (zero_bias, unit_gate):
+        w = RA.gated_rel_attention_plain(*args[:3], gate, bias)
+        g = RA.gated_rel_attention(*args[:3], gate, bias)
+        fault_errs.append(float((g.float() - w).abs().max()))
+    del want, w
+    a32 = attention_inputs(torch, dev, 8, h, n, torch.float32, 32)
+    want32 = RA.gated_rel_attention_plain(*a32)
+    err32 = float((RA.gated_rel_attention(*a32) - want32).abs().max())
+    scale32 = float(want32.abs().max())
+    torch.cuda.synchronize()
+    launches = RA.gated_rel_attention.launches - before
+    emit(phase="check_rel_attention", shape=list(ATTN_SHAPE),
+         max_abs_err=err, max_abs_out=scale, gate=ATTN_GATE * scale,
+         fault_inputs_max_abs_err=fault_errs, max_abs_err_f32_b8=err32,
+         gate_f32=2e-5 * scale32, peak_extra_bytes=peak_extra,
+         mask_bytes=b * h * n * n * 2, launches_check=launches,
+         out_transposed_contiguous=got.transpose(1, 2).is_contiguous())
+    assert launches == 4, launches
+    assert err <= ATTN_GATE * scale, f"attention kernel differs by {err}"
+    assert all(e <= ATTN_GATE * scale for e in fault_errs), fault_errs
+    assert err32 <= 2e-5 * scale32, err32
+    assert got.transpose(1, 2).is_contiguous()
+    assert peak_extra < b * h * n * n * 2, peak_extra   # no mask written
+
+    fn = lambda: RA.gated_rel_attention(*args)       # noqa: E731
+    ms = time_ms(fn, 20)
+    ms_pipe = pipelined_ms(fn, reps=20)
+    dev_ms = kernel_device_ms(torch, fn, "rel_attention_mma")
+    plain_ms = time_ms(lambda: RA.gated_rel_attention_plain(*args), 3,
+                       warmup=1)
+    q, k, v, gate, bias = args
+
+    def library():
+        mask = gate * bias
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    lib_err = float((library().float() - got.float()).abs().max())
+    library_ms = time_ms(library, 10)
+    ms32 = time_ms(lambda: RA.gated_rel_attention(*a32), 5)
+    buckets = BeatsConfig().num_buckets
+    nbytes = (4 * b * h * n * d + b * h * n + buckets * h) * 2
+    flops = 4.0 * b * h * n * n * d
+    b_ms, b_by = bound(nbytes, {"bfloat16": flops})
+    rec = {"name": "rel_attention", "route": "cuda",
+           "source": "bsed_tpu_torch/csrc/rel_attention.cu",
+           "replaces": None, "max_abs_err": err,
+           "ms": ms, "ms_pipelined": ms_pipe, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "roofline_pct": 100.0 * b_ms / dev_ms,
+           "library_ms": library_ms, "library_max_abs_diff": lib_err,
+           "library_call": "gate * bias (bf16 mask) -> "
+                           "F.scaled_dot_product_attention",
+           "ms_f32_b8": ms32,
+           "resources": kernel_resources("rel_attention",
+                                         "rel_attention_mma"),
+           "gflop_per_call": flops / 1e9, "mb_per_call": nbytes / 1e6,
+           "launches_check": launches}
+    emit(phase="rel_attention_times", **rec)
+    return rec
+
+
+def beats_path(torch, dev, card):
+    """``crnn_beats`` served as the cell ``serve_beats_crnn_b64`` serves
+    it: the baseline CRNN fused with BEATs at its published widths
+    (``BeatsConfig()``: 12 layers of 12 heads, 496 tokens a 10 s clip)
+    through ``make_fast_forward``, B=64, bf16 'high'; CRNN weights from
+    seed 0, BEATs' from its modules' own initialisation (seed 20), the
+    fusion's small. The attention's counter must read 12 a forward over
+    ``N_TIMED`` forwards; torch.profiler over 2 forwards must see the
+    kernel launched 12 times a forward and no library attention (no
+    kernel named flash, fmha or sdpa). TF32 is off here as in the rest of
+    this script, so the float32 position convolution takes cuDNN's
+    float32 kernel and clips/s reads below the cell's. Returns the
+    counter's launches."""
+    from bsed_tpu_torch.config import BeatsConfig, get_config
+    from bsed_tpu_torch.models.beats import BEATs
+    from bsed_tpu_torch.ops import rel_attention as RA
+    from bsed_tpu_torch.serve import make_fast_forward
+    from bsed_tpu_torch.utils.weights import init_params
+
+    bc = BeatsConfig()
+    cfg = get_config("baseline")
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16", beats=bc))
+    params, stats = init_params(cfg, 0)
+    torch.manual_seed(20)
+    params["beats"] = BEATs(bc).state_dict()
+    c = cfg.model.nb_filters[-1]
+    gen = torch.Generator().manual_seed(20)
+    params["encoder"]["cat_tf"] = {
+        "kernel": torch.randn((c + bc.encoder_embed_dim, c), generator=gen)
+        / math.sqrt(c + bc.encoder_embed_dim),
+        "bias": torch.zeros(c)}
+    forward = make_fast_forward(cfg, params, stats, device=dev,
+                                precision="high")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    audio = torch.randn((B_SERVE, cfg.audio.n_samples), generator=gen,
+                        device=dev) * 0.1
+    for _ in range(2):                                 # warm-up
+        forward(audio)
+    torch.cuda.synchronize()
+
+    RA.gated_rel_attention.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(N_TIMED):
+        strong, weak = forward(audio)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = RA.gated_rel_attention.launches
+    _, _, rows = device_rows(torch, lambda: forward(audio), 2)
+    rows = [r for r in rows if not r[1].startswith("bsed.")]  # spans
+    kernel = [(t, n) for t, key, n in rows if "rel_attention_mma" in key]
+    library = [key for _, key, _ in rows
+               if any(w in key.lower() for w in ("flash", "fmha", "sdpa"))]
+    emit(phase="beats_path", preset="baseline", beats="BeatsConfig()",
+         compute_dtype="bfloat16", precision="high", batch=B_SERVE,
+         batches=N_TIMED, clips_per_s=B_SERVE * N_TIMED / elapsed,
+         ms_per_batch=elapsed / N_TIMED * 1e3, attention_launches=launches,
+         kernel_launches_per_forward=sum(n for _, n in kernel) / 2,
+         kernel_device_ms_per_forward=sum(t for t, _ in kernel) / 2e3,
+         device_ms_per_forward=sum(t for t, _, _ in rows) / 2e3,
+         library_attention_kernels=library, card=card,
+         top=[{"name": key[:70], "ms": t / 2e3, "calls": n / 2}
+              for t, key, n in rows[:8]])
+    assert strong.shape == (B_SERVE, cfg.n_frames, cfg.nclass), strong.shape
+    assert torch.isfinite(strong).all() and torch.isfinite(weak).all()
+    assert launches == 12 * N_TIMED, launches
+    assert sum(n for _, n in kernel) == 2 * 12, kernel
+    assert not library, library
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-dir", default=None,
@@ -4165,7 +4360,8 @@ def main() -> int:
                         help="comma-separated phases to run alone after the "
                              "build (learning_gate, data_parallel_path, "
                              "crnn_head_path, main_path, "
-                             "check_stem_epilogue_pg, group_pool_cnn_path); "
+                             "check_stem_epilogue_pg, group_pool_cnn_path, "
+                             "check_rel_attention, beats_path); "
                              "prints their lines and the card's, not the "
                              "kernels line or the last line")
     args = parser.parse_args()
@@ -4204,7 +4400,10 @@ def main() -> int:
                      t, d, c, {}, args.profile_dir),
                  "check_stem_epilogue_pg": lambda t, d, c:
                      check_stem_epilogue_pg(t, d),
-                 "group_pool_cnn_path": group_pool_cnn_path}
+                 "group_pool_cnn_path": group_pool_cnn_path,
+                 "check_rel_attention": lambda t, d, c:
+                     check_rel_attention(t, d),
+                 "beats_path": beats_path}
         for phase in args.only.split(","):
             alone[phase](torch, dev, smi)
         print(smi, flush=True)
@@ -4228,6 +4427,10 @@ def main() -> int:
     k4 = check_gru_kernel(torch, dev)
     k4["launches"] = launches["gru_kernel"]
     bigru_forms(torch, dev, smi)
+    torch.cuda.empty_cache()
+    attn = check_rel_attention(torch, dev)
+    torch.cuda.empty_cache()
+    attn["launches"] = beats_path(torch, dev, smi)    # N_TIMED forwards
     torch.cuda.empty_cache()
 
     k2t, k3 = check_stem_epilogue_train(torch, dev)
@@ -4279,7 +4482,7 @@ def main() -> int:
         k["launches_data_parallel_path"] = dp_launches[k["name"]]
     for k in (k1, k2t, k3, k4, k5):  # crnn_head_path's driven parts
         k["launches_crnn_head_path"] = head_launches[k["name"]]
-    kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg]
+    kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg, attn]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

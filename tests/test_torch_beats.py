@@ -7,10 +7,10 @@ heads, 1-2 s clips at 32 kHz.
 
 Tolerances: the port and the reference compute the same float32 algebra
 in other orders (a conv against a product for the patches and the
-decimation, SDPA against an explicit softmax, float64 against float32
-filter banks), so float32 stages agree to ~1e-5 of their scale; the
-bf16 forward is held at the rounding of bfloat16 (8 bits of mantissa,
-~4e-3 a product) carried through two post-norm layers and the BiGRU.
+decimation, float64 against float32 filter banks), so float32 stages
+agree to ~1e-5 of their scale; the bf16 forward is held at the rounding
+of bfloat16 (8 bits of mantissa, ~4e-3 a product) carried through two
+post-norm layers and the BiGRU.
 """
 from __future__ import annotations
 
@@ -176,19 +176,180 @@ def test_one_layer_with_gate_and_shared_table(tiny):
                      .abs().max()) > 1e-2
 
 
-def test_attention_entry_matches_its_plain_form():
-    """SDPA with the gated bias as its mask against the softmax written
-    out, float32 (1e-5), and the call counted."""
+def _counting_plain(monkeypatch):
+    """``gated_rel_attention_plain`` replaced by itself with a call count
+    (the entry looks it up at call time)."""
+    plain, calls = rel_attention.gated_rel_attention_plain, []
+
+    def counted(*args):
+        calls.append(1)
+        return plain(*args)
+    monkeypatch.setattr(rel_attention, "gated_rel_attention_plain", counted)
+    return calls
+
+
+def test_attention_entry_matches_its_plain_form(monkeypatch):
+    """The entry against the softmax written out, float32 (1e-5): on the
+    CPU it calls the plain form once and counts no kernel launch."""
     gen = torch.Generator().manual_seed(4)
     q, k, v = (torch.randn(2, 4, 24, 16, generator=gen) for _ in range(3))
     gate = 1 + torch.rand(2, 4, 24, 1, generator=gen)
     bias = torch.randn(4, 24, 24, generator=gen)
+    calls = _counting_plain(monkeypatch)
     before = rel_attention.gated_rel_attention.launches
     got = rel_attention.gated_rel_attention(q, k, v, gate, bias)
-    assert rel_attention.gated_rel_attention.launches == before + 1
+    assert len(calls) == 1
+    assert rel_attention.gated_rel_attention.launches == before
+    monkeypatch.undo()
     torch.testing.assert_close(
         got, rel_attention.gated_rel_attention_plain(q, k, v, gate, bias),
         rtol=0, atol=1e-5)
+
+
+def _views(b, n, h, d, dtype=torch.float32, seed=0):
+    """q, k, v as ``_SelfAttention`` passes them: (B, H, L, D) views of
+    (B, L, H·D) projections; gate (B, H, L, 1) in (1, 2), bias (H, L, L)."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(b, n, h * d, generator=gen).to(dtype)
+               .view(b, n, h, d).transpose(1, 2) for _ in range(3))
+    gate = (1 + torch.rand(b, h, n, 1, generator=gen)).to(dtype)
+    bias = torch.randn(h, n, n, generator=gen).to(dtype)
+    return q, k, v, gate, bias
+
+
+@pytest.mark.parametrize("n", [24, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_entry_on_model_views(n, dtype):
+    """The entry on strided (B, H, L, D) views and ragged token counts:
+    the plain form of the same inputs in q's dtype, and the same as on
+    contiguous copies (float32 1e-6)."""
+    args = _views(2, n, 4, 16, dtype, seed=n)
+    got = rel_attention.gated_rel_attention(*args)
+    assert got.dtype == dtype and got.shape == (2, 4, n, 16)
+    want = rel_attention.gated_rel_attention_plain(*args)
+    torch.testing.assert_close(got, want.to(dtype), rtol=0, atol=0)
+    dense = rel_attention.gated_rel_attention_plain(
+        *(t.contiguous() for t in args))
+    torch.testing.assert_close(want, dense, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("fault", ["rel_bias_left_out", "gate_left_out"])
+def test_attention_entry_honours_zero_bias_and_unit_gate(fault):
+    """The benchmark's faults hand the entry a zero bias or a unit gate:
+    it computes softmax(q·kᵀ/√d)·v, or the bias ungated, written out here
+    (1e-5), and not the true output."""
+    q, k, v, gate, bias = _views(2, 24, 4, 16, seed=3)
+    s = q @ k.transpose(-1, -2) / 4.0
+    if fault == "rel_bias_left_out":
+        got = rel_attention.gated_rel_attention(q, k, v, gate,
+                                                torch.zeros_like(bias))
+    else:
+        got = rel_attention.gated_rel_attention(q, k, v,
+                                                torch.ones_like(gate), bias)
+        s = s + bias
+    torch.testing.assert_close(got, torch.softmax(s, -1) @ v, rtol=0,
+                               atol=1e-5)
+    true = rel_attention.gated_rel_attention(q, k, v, gate, bias)
+    assert float((got - true).abs().max()) > 0.1
+
+
+def test_launch_plan_takes_the_model_views_without_a_copy():
+    """The kernel's arguments for BEATs' bf16 views at 496 tokens: the
+    very tensors (no copy), and the strides of (B, L, H·D) storage, the
+    gate's and the table's."""
+    args = _views(2, 496, 12, 64, torch.bfloat16)
+    plan = rel_attention.launch_plan(*args)
+    assert all(a.data_ptr() == t.data_ptr()
+               for a, t in zip(args, plan.tensors))
+    row = 12 * 64
+    assert plan.strides == [496 * row, 64, row] * 3 + [
+        12 * 496, 496, 1, 496 * 496, 496]
+
+
+@pytest.mark.parametrize("n", [37, 200])
+def test_launch_plan_puts_p_rows_on_16_bytes(n):
+    """P's rows start on 16 bytes for the kernel's tensor map: a token
+    count that is no multiple of 8 gets a copy with rows padded to one,
+    holding P's values as given; 200 tokens pass P itself."""
+    args = _views(1, n, 2, 64, torch.bfloat16)
+    pb = rel_attention.launch_plan(*args).tensors[4]
+    assert pb.shape == args[4].shape and torch.equal(pb, args[4])
+    assert pb.stride(1) % 8 == 0 and pb.data_ptr() % 16 == 0
+    assert (pb.data_ptr() == args[4].data_ptr()) == (n % 8 == 0)
+
+
+def test_launch_plan_gives_q_k_v_one_stride_order():
+    """The kernel maps q, k and v in one stride order, the model's: a
+    contiguous (B, H, L, D) q is copied into (B, L, H, D) storage, values
+    kept; the views beside it pass as they are."""
+    q, k, v, gate, bias = _views(2, 24, 4, 64, torch.bfloat16)
+    dense = q.contiguous()
+    plan = rel_attention.launch_plan(dense, k, v, gate, bias)
+    pq, pk, pv = plan.tensors[:3]
+    assert pq.data_ptr() != dense.data_ptr() and torch.equal(pq, dense)
+    assert pq.transpose(1, 2).is_contiguous()
+    assert pk.data_ptr() == k.data_ptr() and pv.data_ptr() == v.data_ptr()
+    assert plan.strides[:3] == [24 * 4 * 64, 64, 4 * 64]
+
+
+def test_launch_plan_copies_rows_it_cannot_stream():
+    """q, k, v whose rows do not start on 16 bytes are copied into the
+    model's layout (here q), values kept; a gate and bias in float32
+    beside bf16 q are rounded to q's dtype."""
+    q, k, v, gate, bias = _views(1, 24, 2, 64, torch.bfloat16)
+    wide = torch.randn(1, 2, 24, 65).to(torch.bfloat16)
+    q = wide[..., 1:]
+    plan = rel_attention.launch_plan(q, k, v, gate.float(), bias.float())
+    pq, pk, _, pg, pb = plan.tensors
+    assert pq.transpose(1, 2).is_contiguous()
+    assert pq.data_ptr() != q.data_ptr() and torch.equal(pq, q)
+    assert pk.data_ptr() == k.data_ptr()
+    assert pg.dtype == pb.dtype == torch.bfloat16
+    assert plan.strides[:3] == [24 * 2 * 64, 64, 2 * 64]
+
+
+@pytest.mark.parametrize("case,match", [
+    ("float16", "float32 or bfloat16"), ("head_32", "takes q"),
+    ("bf16_600_tokens", "at most 512 tokens"),
+    ("bias_shape", "bias \\(H, L, L\\)"), ("kv_dtype", "share a dtype")])
+def test_launch_plan_refuses_what_the_kernel_does_not_take(case, match):
+    """What the kernel does not take raises before any launch; float32 is
+    held to no token limit."""
+    dtype = torch.float16 if case == "float16" else torch.bfloat16
+    n = 600 if case == "bf16_600_tokens" else 24
+    d = 32 if case == "head_32" else 64
+    q, k, v, gate, bias = _views(1, n, 2, d, dtype)
+    if case == "bias_shape":
+        bias = bias[:, :, :-1]
+    if case == "kv_dtype":
+        k = k.float()
+    with pytest.raises(ValueError, match=match):
+        rel_attention.launch_plan(q, k, v, gate, bias)
+    if case == "bf16_600_tokens":
+        plan = rel_attention.launch_plan(
+            *(t.float() for t in (q, k, v, gate, bias)))
+        assert plan.tensors[0].dtype == torch.float32
+
+
+def test_encoder_calls_no_library_attention(tiny, monkeypatch):
+    """The encoder's attention goes through the entry alone: with
+    ``F.scaled_dot_product_attention`` made to raise, a forward runs and
+    calls the plain form twice (2 layers), counting no kernel launch."""
+    config, params, _, audio = tiny
+
+    def refused(*a, **kw):
+        raise AssertionError("scaled_dot_product_attention called")
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention",
+                        refused)
+    enc = _encoder(config, params)
+    fb = BeatsFbank(_bc(config), torch.device("cpu"))(audio)
+    calls = _counting_plain(monkeypatch)
+    before = rel_attention.gated_rel_attention.launches
+    with torch.no_grad():
+        out = enc(fb)
+    assert len(calls) == 2
+    assert rel_attention.gated_rel_attention.launches == before
+    assert torch.isfinite(out).all()
 
 
 def test_loader_takes_the_public_key_names(tiny):

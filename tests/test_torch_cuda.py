@@ -1395,10 +1395,11 @@ def test_data_parallel_sharded_forward_on_card(dev):
 
 
 def test_rel_attention_bf16_matches_float32_at_496_tokens(dev):
-    """The bf16 entry (SDPA with the gated bias as its mask) against its
-    float32 form written out, at BEATs' shapes (8 clips, 12 heads of 64,
-    496 tokens, unit-scale bias, gates in (1, 2)): bf16 keeps 8 bits, so
-    2e-2 of the output's largest magnitude."""
+    """The bf16 entry (the kernel, g ⊙ P added in its float32 scores)
+    against its float32 form written out on the float32 inputs, at BEATs'
+    shapes (8 clips, 12 heads of 64, 496 tokens, unit-scale bias, gates
+    in (1, 2)): the inputs are rounded to bf16 too, which keeps 8 bits,
+    so 2e-2 of the output's largest magnitude."""
     from bsed_tpu_torch.ops import rel_attention as RA
     gen = torch.Generator(device=dev).manual_seed(5)
     q, k, v = (torch.randn(8, 12, 496, 64, generator=gen, device=dev)
@@ -1415,6 +1416,112 @@ def test_rel_attention_bf16_matches_float32_at_496_tokens(dev):
     torch.testing.assert_close(got.float(), want, rtol=0,
                                atol=2e-2 * float(want.abs().max()))
 
+
+
+def _attention_inputs(dev, b, n, dtype, seed, h=12):
+    """q, k, v as ``models/beats._SelfAttention`` passes them: views
+    (B, H, L, 64) of (B, L, H·64) projections; gates in (1, 2), a
+    unit-normal bias (H, L, L)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, n, h * 64, generator=gen, device=dev)
+               .to(dtype).view(b, n, h, 64).transpose(1, 2)
+               for _ in range(3))
+    gate = (1 + torch.rand(b, h, n, 1, generator=gen, device=dev)).to(dtype)
+    bias = torch.randn(h, n, n, generator=gen, device=dev).to(dtype)
+    return q, k, v, gate, bias
+
+
+# The bf16 kernel against the float32 plain form on the same bf16 inputs:
+# the kernel rounds the weights to bf16 before p·v and the output once,
+# 2^-9 of a value each, and its exponential is ex2.approx; 1e-2 of the
+# output's largest magnitude holds both roundings with room. The float32
+# body sums in another order than the plain form's products (TF32 off on
+# both): 2e-5 of it.
+ATTN_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+
+
+def _check_attention(args):
+    """One call of the entry against the plain form: the tolerance above,
+    q's dtype, the output's (B, L, H, D) storage and one launch."""
+    from bsed_tpu_torch.ops import rel_attention as RA
+    before = RA.gated_rel_attention.launches
+    got = RA.gated_rel_attention(*args)
+    want = RA.gated_rel_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert RA.gated_rel_attention.launches == before + 1
+    assert got.dtype == args[0].dtype and got.shape == want.shape
+    assert got.transpose(1, 2).is_contiguous()
+    tol = ATTN_TOL[args[0].dtype] * float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= tol
+    return got
+
+
+@pytest.mark.parametrize("batch", [8, 64])
+def test_rel_attention_kernel_at_the_cells_shapes(dev, batch):
+    """BEATs at B = 8 and the cell's B = 64: 12 heads of 64, 496 tokens,
+    bf16, the model's views; and no (B, H, L, L) tensor allocated inside
+    the call (its peak over the inputs stays under one bf16 mask)."""
+    from bsed_tpu_torch.ops import rel_attention as RA
+    args = _attention_inputs(dev, batch, 496, torch.bfloat16, batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    RA.gated_rel_attention(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < batch * 12 * 496 * 496 * 2, peak
+    _check_attention(args)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [37, 200, 496])
+def test_rel_attention_kernel_ragged_lengths(dev, dtype, n):
+    """Token counts that no tile divides (37, 200; 496 = 7·64 + 48) in
+    both bodies: the ragged key tile masked, the rows past L not
+    stored."""
+    _check_attention(_attention_inputs(dev, 3, n, dtype, n))
+
+
+def test_rel_attention_kernel_float32_past_the_bf16_limit(dev):
+    """The float32 body streams its keys: 600 tokens, more than the bf16
+    body holds; the bf16 body refuses them."""
+    from bsed_tpu_torch.ops import rel_attention as RA
+    _check_attention(_attention_inputs(dev, 2, 600, torch.float32, 6))
+    with pytest.raises(ValueError, match="at most 512 tokens"):
+        RA.gated_rel_attention(*_attention_inputs(dev, 1, 600,
+                                                  torch.bfloat16, 6))
+
+
+@pytest.mark.parametrize("fault", ["rel_bias_left_out", "gate_left_out"])
+def test_rel_attention_kernel_reads_the_faults_inputs(dev, fault):
+    """The benchmark's faults call the entry with a zero bias or a unit
+    gate: the kernel gives the plain form of those inputs, and an output
+    far from the true one (it reads bias and gate as given)."""
+    q, k, v, gate, bias = _attention_inputs(dev, 4, 496, torch.bfloat16, 9)
+    if fault == "rel_bias_left_out":
+        bias_f, gate_f = torch.zeros_like(bias), gate
+    else:
+        bias_f, gate_f = bias, torch.ones_like(gate)
+    got = _check_attention((q, k, v, gate_f, bias_f))
+    true = _check_attention((q, k, v, gate, bias))
+    assert float((got - true).float().abs().max()) > 0.1
+
+
+def test_rel_attention_kernel_contiguous_and_other_dtypes(dev):
+    """Contiguous (B, H, L, D) inputs are copied into the model's layout
+    and give what the views give; a float16 input is refused, not sent
+    elsewhere."""
+    from bsed_tpu_torch.ops import rel_attention as RA
+    q, k, v, gate, bias = _attention_inputs(dev, 2, 120, torch.bfloat16, 4)
+    views = RA.gated_rel_attention(q, k, v, gate, bias)
+    _check_attention((q.contiguous(), k.contiguous(), v.contiguous(), gate,
+                      bias))
+    got = RA.gated_rel_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), gate, bias)
+    assert torch.equal(got, views)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        RA.gated_rel_attention(q.half(), k.half(), v.half(), gate.half(),
+                               bias.half())
 
 def test_crnn_beats_forward_on_card_matches_reference(dev):
     """crnn_beats at its published widths through make_fast_forward, bf16
