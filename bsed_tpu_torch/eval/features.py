@@ -36,15 +36,14 @@ def make_encode_fn(modules, params, batch_stats) -> Callable:
     array), as a float32 tensor on ``modules.device``, eval mode, under
     ``torch.inference_mode()``. The encoder is ``serve.build_encoder``'s,
     the one ``train.steps.make_predict_fn`` serves (on the card: the
-    folded stem with K2's eval form and the hoisted BiGRU on K4; their
-    plain versions under ``modules.use_kernels=False``)."""
+    folded stem with K2's eval form and the hoisted BiGRU on K4, as
+    ``kernels.launches_on`` decides)."""
     from bsed_tpu_torch.ops.mel import amplitude_to_db
     from bsed_tpu_torch.serve import build_encoder
 
     dev = modules.device
     encoder = build_encoder(modules.cfg, params["encoder"],
-                            batch_stats["encoder"], dev,
-                            use_kernels=modules.use_kernels)
+                            batch_stats["encoder"], dev)
 
     @torch.inference_mode()
     def encode(mel):

@@ -145,7 +145,7 @@ def evaluate_checkpoint(cfg: Config, loader,
                         thresholds=(0.5,),
                         learned_post: bool = False,
                         confusion_csv: Optional[str] = None,
-                        device="cuda", use_kernels: bool = True,
+                        device="cuda",
                         keep_posteriors: bool = False) -> Dict:
     """Score a checkpoint on ``loader``'s clips
     (``data.pipeline.EvalLoader``): the student of ``tag`` in the store
@@ -155,7 +155,7 @@ def evaluate_checkpoint(cfg: Config, loader,
     thresholds), as ``bsed_tpu``'s function returns them.
 
     The port adds: ``device`` (the card by default; raises if none is
-    present) and ``use_kernels`` (False runs the kernels' plain versions);
+    present; kernel or plain version as ``kernels.launches_on`` decides);
     ``"seconds"``, the wall time of each phase (load: checkpoint, model and
     the loader's arrays; predict; decode, on the posteriors' device up to
     the event tables; score, on the host), the device synchronised at each
@@ -172,7 +172,7 @@ def evaluate_checkpoint(cfg: Config, loader,
     seconds = {"load": 0.0, "predict": 0.0, "decode": 0.0, "score": 0.0}
     t0 = time.perf_counter()
     params, stats = load_params(cfg, store_dir, torch_ckpt, tag)
-    predict = make_predict_fn(TrainModules(cfg, dev, use_kernels))
+    predict = make_predict_fn(TrainModules(cfg, dev))
     predict.prepare(params, stats)
     codec = ManyHotEncoder(cfg.bird_list, n_frames=cfg.n_frames,
                            sr=cfg.audio.sr, hop_size=cfg.audio.hop_size,

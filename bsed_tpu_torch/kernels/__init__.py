@@ -14,9 +14,20 @@ flags, at first use, with ptxas' report beside it (``<name>-<hash>.ptxas``,
 sources in the checkout are compiled. Nothing here runs at import time:
 the CPU tests import every module of the package on a host without
 ``nvcc`` or a card.
+
+Each kernel entry (``ops/mel_kernel.fused_block_mel``,
+``ops/stem_epilogue.stem_epilogue_fwd`` / ``stem_epilogue_bwd``,
+``ops/gru_kernel.recurrence``, ``ops/stem_kernel.fused_stem_block``,
+``ops/rel_attention.gated_rel_attention``) asks ``launches_on`` on every
+call whether to launch its kernel or run its plain PyTorch version: CUDA
+tensors launch, CPU tensors take the plain version. ``plain_versions()``
+makes CUDA tensors take the plain versions too, for the length of a
+block, so a test can hold the kernel path against the plain path on the
+same card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,6 +45,32 @@ SOURCES = ("mel_kernel", "stem_epilogue", "stem_epilogue_bwd", "stem_kernel",
            "gru_kernel", "rel_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_plain_blocks = 0     # open plain_versions() blocks
+
+
+def launches_on(device) -> bool:
+    """Whether a kernel entry launches its kernel for tensors on the
+    ``torch.device`` ``device``: on a CUDA device outside every
+    ``plain_versions()`` block. Otherwise the entry runs its plain
+    version. Raises for a device that is neither CUDA nor the CPU."""
+    if device.type == "cuda":
+        return not _plain_blocks
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"the port's kernels and their plain versions run on "
+                     f"CUDA or the CPU, got {device}")
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Run the kernels' plain versions on CUDA tensors too inside the
+    block; restored on exit, also when the block raises."""
+    global _plain_blocks
+    _plain_blocks += 1
+    try:
+        yield
+    finally:
+        _plain_blocks -= 1
 
 
 def _nvcc() -> str:

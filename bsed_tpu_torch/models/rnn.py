@@ -15,7 +15,8 @@ the form the port serves (``serve.make_fast_forward``): one
 input-projection matmul per layer for both directions, then both
 directions' recurrences in one walk over time on kernel K4
 (``ops/gru_kernel.py``, the port of the Pallas drop-in for
-``_gru_scan_bidir``) or on K4's plain version; its weights are laid out
+``_gru_scan_bidir``) or on K4's plain version, as
+``kernels.launches_on`` decides; its weights are laid out
 once, when it is built. ``bigru_hoisted`` is the same network written as
 the JAX module writes it, laying the weights out on every call: the
 reference the built form is held to. ``gru_scan_bidir`` ports
@@ -135,18 +136,15 @@ class BidirectionalGRU(nn.Module):
         return x.float()
 
 
-def bigru_hoisted(rnn: BidirectionalGRU, x: torch.Tensor,
-                  use_kernel: bool = True) -> torch.Tensor:
+def bigru_hoisted(rnn: BidirectionalGRU, x: torch.Tensor) -> torch.Tensor:
     """Eval forward of ``rnn`` in ``bsed_tpu``'s hoisted form
     (rnn.py:84-111), written as the JAX module writes it: per layer and
     direction one (B·T, D) @ (D, 3H) projection plus b_ih in the module's
     dtype, then the recurrence of both directions on the stacked, flipped
-    projections — kernel K4 (``gru_kernel.gru_bidir_recurrence``) or, with
-    ``use_kernel=False``, its plain version. Reads the weights of
-    ``rnn.gru`` (torch names and gate order) on every call; no inter-layer
-    dropout. (B, T, n_in) → (B, T, 2H) float32."""
-    recurrence = (gru_kernel.gru_bidir_recurrence if use_kernel
-                  else gru_kernel.gru_bidir_recurrence_plain)
+    projections (``gru_kernel.gru_bidir_recurrence``: kernel K4 or its
+    plain version, as ``kernels.launches_on`` decides). Reads the weights
+    of ``rnn.gru`` (torch names and gate order) on every call; no
+    inter-layer dropout. (B, T, n_in) → (B, T, 2H) float32."""
     gru, cd = rnn.gru, rnn.dtype
     out = x.to(cd)
     for layer in range(gru.num_layers):
@@ -159,7 +157,8 @@ def bigru_hoisted(rnn: BidirectionalGRU, x: torch.Tensor,
             w_hh.append(getattr(gru, f"weight_hh_{name}"))
             b_hh.append(getattr(gru, f"bias_hh_{name}"))
         xp2 = torch.stack([xps[0], xps[1].flip(1)])
-        ys2 = recurrence(xp2, torch.stack(w_hh), torch.stack(b_hh))
+        ys2 = gru_kernel.gru_bidir_recurrence(xp2, torch.stack(w_hh),
+                                              torch.stack(b_hh))
         out = torch.cat([ys2[0], ys2[1].flip(1)], dim=-1)
     return out.float()
 
@@ -170,16 +169,15 @@ class HoistedBiGRU:
     (D, 6H) matrix and b_ih as one (6H,) vector in the module's dtype, and
     W_hh, b_hh in K4's layout (``gru_kernel.prepare_weights``). A call
     makes one projection a layer, stacks the directions (the reverse one
-    flipped in time), runs their recurrences in one call of K4
-    (``gru_kernel.recurrence``) or, with ``use_kernel=False``, of its plain
-    version, and concatenates them back. No inter-layer dropout (eval).
+    flipped in time), runs their recurrences in one call of
+    ``gru_kernel.recurrence`` (bound here; K4 or its plain version, as
+    ``kernels.launches_on`` decides), and concatenates them back. No inter-layer dropout (eval).
     (B, T, n_in) → (B, T, 2H) float32, equal to ``bigru_hoisted``."""
 
-    def __init__(self, rnn: BidirectionalGRU, use_kernel: bool = True):
+    def __init__(self, rnn: BidirectionalGRU):
         gru, cd = rnn.gru, rnn.dtype
         self.dtype = cd
-        self.recurrence = (gru_kernel.recurrence if use_kernel
-                           else gru_kernel.recurrence_plain)
+        self.recurrence = gru_kernel.recurrence
         self.layers = []
         with torch.no_grad():
             for layer in range(gru.num_layers):

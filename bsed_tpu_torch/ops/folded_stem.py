@@ -83,14 +83,12 @@ def build_folded_stem(cnn_params: Dict, cnn_stats: Dict,
                       bn_eps: float = 1e-3,
                       dtype=None,
                       fused_epilogue: bool = False,
-                      device="cuda",
-                      use_kernels: bool = True) -> Tuple[Callable, int]:
+                      device="cuda") -> Tuple[Callable, int]:
     """Derive folded parameters for the leading blocks from the flax-layout
     trees and return ``(stem(mel (B,T,F,1)) -> (B,T',F',C'), n_folded)``.
 
     BatchNorm runs in eval mode (running stats) and dropout is the eval
-    identity, so the stem is serving-only. ``use_kernels=False`` makes the
-    fused epilogue run its plain version on any device."""
+    identity, so the stem is serving-only."""
     if activation not in ("glu", "cg", "relu", "leakyrelu"):
         raise ValueError(f"unsupported activation {activation}")
     device = resolve_device(device)
@@ -130,8 +128,7 @@ def build_folded_stem(cnn_params: Dict, cnn_stats: Dict,
                 and pf > 1 and pt in (1, 2)):
             # the eval-mode BN is already folded into the conv, so the
             # kernel's per-lane affine degenerates to inv=1, c=bias
-            blk["ep"] = make_fused_epilogue(activation, pt, blk["pool_w"],
-                                            use_kernel=use_kernels)
+            blk["ep"] = make_fused_epilogue(activation, pt, blk["pool_w"])
             blk["ones"] = torch.ones_like(blk["bias"])
         blocks.append(blk)
         f //= pf
@@ -270,8 +267,7 @@ def folded_train_eligible(model_cfg, n_mels: int, fold0: int = 8) -> bool:
 
 
 def make_folded_train_stem(model_cfg, n_mels: int, fold0: int = 8,
-                           bn_eps: float = 1e-3, device="cuda",
-                           use_kernels: bool = True):
+                           bn_eps: float = 1e-3, device="cuda"):
     """(apply, n_folded) where ``apply(blocks, x, train, gen) -> h`` runs
     the leading foldable blocks on the folded layout from the standard
     ``ConvBlock`` modules ``blocks['block{i}']`` (conv, bn, act.linear).
@@ -280,8 +276,8 @@ def make_folded_train_stem(model_cfg, n_mels: int, fold0: int = 8,
     the biased mean/var per original channel over (batch, time, freq), a
     reduction grouped over the fold copies, in float32, and the blocks'
     running statistics are updated in place (``update_running``). With ``model_cfg.fused_stem_epilogue``
-    each eligible block's epilogue is K2/K3 (``use_kernels=False``: their
-    plain versions); dropout bits are drawn from ``gen`` on the folded
+    each eligible block's epilogue is ``make_fused_epilogue``'s (K2/K3 or
+    their plain versions); dropout bits are drawn from ``gen`` on the folded
     layout before the epilogue, one (B, T·G, L) uint8 tensor per block."""
     from bsed_tpu_torch.ops.stem_epilogue import make_fused_epilogue
 
@@ -308,8 +304,8 @@ def make_folded_train_stem(model_cfg, n_mels: int, fold0: int = 8,
                                   device=device) if pf > 1 else None)
         eps = None
         if _ep_ok(pt) and pool_w is not None:
-            eps = (make_fused_epilogue(act, pt, pool_w, use_kernels, rate),
-                   make_fused_epilogue(act, pt, pool_w, use_kernels, 0.0))
+            eps = (make_fused_epilogue(act, pt, pool_w, rate=rate),
+                   make_fused_epilogue(act, pt, pool_w, rate=0.0))
         plan.append((i, cout, pt, f, pool_w,
                      _fold_gather_plan(f, cin, cout, device), eps))
         f //= pf

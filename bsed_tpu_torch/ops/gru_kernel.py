@@ -35,7 +35,8 @@ count of resident clusters comes from ``cudaOccupancyMaxActiveClusters``
 (66 clusters of 2 on an NVIDIA H100 80GB HBM3, 700 W).
 
 The plain PyTorch version (``recurrence_plain``) repeats the kernel's
-arithmetic step by step; the wrapper takes it only for CPU tensors. A
+arithmetic step by step; the wrapper takes it where
+``kernels.launches_on`` says not to launch (CPU tensors). A
 caller that runs the same weights on every call lays them out once
 (``prepare_weights``: W_hhᵀ in the compute dtype, b_hh in float32) and
 calls ``recurrence`` / ``recurrence_plain`` on them; the public contract
@@ -47,6 +48,8 @@ import ctypes
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from bsed_tpu_torch import kernels
 
 H = 128
 CLUSTER = 2            # thread blocks per cluster (csrc/gru_kernel.cu)
@@ -111,7 +114,6 @@ _FN = []
 def _bound():
     """The C entry of K4, bound once."""
     if not _FN:
-        from bsed_tpu_torch import kernels
         fn = kernels.load("gru_kernel").bsed_gru_bidir
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
@@ -135,7 +137,6 @@ def cluster_shape(batch: int, sms: int,
 
 
 def _attribute(dtype: torch.dtype, rows: int, which: int) -> int:
-    from bsed_tpu_torch import kernels
     fn = kernels.load("gru_kernel").bsed_gru_attribute
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 3
@@ -176,8 +177,8 @@ def _multiprocessors(device: torch.device) -> int:
 def gru_bidir_recurrence(xp2: torch.Tensor, w_hh2: torch.Tensor,
                          b_hh2: torch.Tensor) -> torch.Tensor:
     """(2, B, T, 3H) projections → (2, B, T, H) in xp2's dtype (see the
-    module docstring). CPU tensors take the plain version; CUDA tensors
-    launch kernel K4 (float32 or bfloat16, H = 128)."""
+    module docstring): kernel K4 (float32 or bfloat16, H = 128) where
+    ``kernels.launches_on`` says so, else the plain version."""
     return recurrence(xp2, prepare_weights(w_hh2, b_hh2, xp2.dtype))
 
 
@@ -185,7 +186,7 @@ def recurrence(xp2: torch.Tensor, weights: RecurrenceWeights) -> torch.Tensor:
     """``gru_bidir_recurrence`` on weights already in K4's layout
     (``prepare_weights``): the wrapper that launches the kernel. Its
     launches count on ``gru_bidir_recurrence.launches``."""
-    if xp2.device.type == "cpu":
+    if not kernels.launches_on(xp2.device):
         return recurrence_plain(xp2, weights)
     if xp2.device.type != "cuda":
         raise ValueError(f"GRU kernel runs on CUDA, got {xp2.device}")
@@ -214,7 +215,6 @@ def recurrence(xp2: torch.Tensor, weights: RecurrenceWeights) -> torch.Tensor:
     err = _bound()(xp2.data_ptr(), w_t2.data_ptr(), b2.data_ptr(),
                    out.data_ptr(), _DTYPES[xp2.dtype], bsz, t, rows,
                    cluster, H, stream)
-    from bsed_tpu_torch import kernels
     kernels.check(err, "GRU kernel")
     gru_bidir_recurrence.launches += 1
     return out

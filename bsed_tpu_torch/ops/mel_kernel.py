@@ -32,7 +32,8 @@ The constants are built in float64 on the host and stored as float32
 (the band table as int32). The plain PyTorch version
 (``fused_block_mel_plain``) is the kernel's decomposition: frames, window,
 even/odd packing, an M-point complex FFT, the split step, |·| and the
-banded sum by gather; the wrapper takes it only for CPU tensors.
+banded sum by gather; the wrapper takes it where ``kernels.launches_on``
+says not to launch (CPU tensors).
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from bsed_tpu_torch import kernels
 from bsed_tpu_torch.ops.mel import frame_signal, num_frames
 from bsed_tpu_torch.utils.device import resolve_device
 
@@ -171,9 +173,10 @@ def _bind(lib):
 def fused_block_mel(audio: torch.Tensor, bases: MelKernelBases,
                     n_window: int, hop_size: int,
                     n_mels: int) -> torch.Tensor:
-    """(..., n_samples) → (..., T, n_mels) linear mel. CPU tensors take the
-    plain version; CUDA tensors launch kernel K1 (csrc/mel_kernel.cu)."""
-    if audio.device.type == "cpu":
+    """(..., n_samples) → (..., T, n_mels) linear mel: kernel K1
+    (csrc/mel_kernel.cu) where ``kernels.launches_on`` says so, else the
+    plain version."""
+    if not kernels.launches_on(audio.device):
         return fused_block_mel_plain(audio, bases, n_window, hop_size,
                                      n_mels)
     if audio.device.type != "cuda":
@@ -200,7 +203,6 @@ def fused_block_mel(audio: torch.Tensor, bases: MelKernelBases,
     out = torch.empty((x.shape[0], t, n_mels), device=audio.device,
                       dtype=torch.float32)
     sms = torch.cuda.get_device_properties(audio.device).multi_processor_count
-    from bsed_tpu_torch import kernels
     fn = _bind(kernels.load("mel_kernel"))
     stream = torch.cuda.current_stream(audio.device).cuda_stream
     err = fn(x.data_ptr(), bases.window.data_ptr(), bases.twiddle.data_ptr(),

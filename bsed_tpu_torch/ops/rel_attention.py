@@ -5,14 +5,15 @@ every layer, and g (B, H, L, 1) each layer's gate, computed from the
 query.
 
 ``gated_rel_attention`` is the entry every layer calls (looked up at call
-time, so a profiler's wrapper or a test can stand in its place). CUDA
-tensors launch one hand-written kernel (``csrc/rel_attention.cu``:
+time, so a profiler's wrapper or a test can stand in its place). Where
+``kernels.launches_on`` says so (CUDA tensors) it launches one
+hand-written kernel (``csrc/rel_attention.cu``:
 bfloat16 on TMA and ``wgmma`` for up to ``MAX_KEYS`` tokens, float32 on
 FMA), which adds g ⊙ P to the scores in float32 registers and writes no
 (B, H, L, L) tensor; each launch counts on
-``gated_rel_attention.launches``, one a call. CPU tensors take
+``gated_rel_attention.launches``, one a call. Otherwise it takes
 ``gated_rel_attention_plain``, the same softmax written out in float32,
-and count no launch. No TPU kernel is replaced: ``bsed_tpu`` has no
+and counts no launch. No TPU kernel is replaced: ``bsed_tpu`` has no
 BEATs.
 """
 from __future__ import annotations
@@ -22,6 +23,8 @@ import math
 from typing import List, NamedTuple
 
 import torch
+
+from bsed_tpu_torch import kernels
 
 HEAD = 64             # head width the kernel takes (csrc/rel_attention.cu)
 MAX_KEYS = 512        # tokens a head the bfloat16 body holds in shared memory
@@ -118,7 +121,6 @@ _FN = []
 def _bound():
     """The C entry of the kernel, bound once."""
     if not _FN:
-        from bsed_tpu_torch import kernels
         _FN.append(_bind(kernels.load("rel_attention")))
     return _FN[0]
 
@@ -127,27 +129,23 @@ def gated_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         gate: torch.Tensor, bias: torch.Tensor
                         ) -> torch.Tensor:
     """q, k, v (B, H, L, D), gate (B, H, L, 1), bias (H, L, L) →
-    (B, H, L, D) in q's dtype. On the card the output lies in (B, L, H,
-    D) storage, so ``out.transpose(1, 2)`` is contiguous."""
-    if q.device.type == "cpu":
+    (B, H, L, D) in q's dtype. From the kernel the output lies in (B, L,
+    H, D) storage, so ``out.transpose(1, 2)`` is contiguous."""
+    if not kernels.launches_on(q.device):
         return gated_rel_attention_plain(q, k, v, gate, bias).to(q.dtype)
-    if q.device.type == "cuda":
-        return _launch(launch_plan(q, k, v, gate, bias))
-    raise ValueError(f"gated_rel_attention runs on the CPU or CUDA, got "
-                     f"{q.device}")
+    return _launch(launch_plan(q, k, v, gate, bias))
 
 
 def _launch(plan: LaunchPlan) -> torch.Tensor:
     (q, k, v, gate, bias), strides = plan
+    fn = _bound()
     b, h, n, d = q.shape
     out = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype)
     stride_arg = (ctypes.c_longlong * len(strides))(*strides)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _bound()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   gate.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                   _DTYPES[q.dtype], b, h, n, d, stride_arg,
-                   stream)
-    from bsed_tpu_torch import kernels
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), gate.data_ptr(),
+             bias.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, h, n, d,
+             stride_arg, stream)
     kernels.check(err, "gated_rel_attention kernel")
     gated_rel_attention.launches += 1
     return out.transpose(1, 2)

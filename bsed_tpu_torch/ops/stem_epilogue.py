@@ -56,6 +56,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from bsed_tpu_torch import kernels
 from bsed_tpu_torch.ops.dropout import _u8_threshold
 from bsed_tpu_torch.ops.pooling import fast_avg_pool
 
@@ -335,10 +336,10 @@ def _bind_fwd(lib):
 def stem_epilogue_fwd(h, inv, c, w, b, act: str, pt: int,
                       pool_w: Optional[torch.Tensor], pool_c: int, bits=None,
                       keep_k: int = 0, pg: int = 1) -> torch.Tensor:
-    """K2's wrapper. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (``pool_c`` from ``pair_pool_channels(pool_w)``, or
+    """K2's wrapper: the kernel where ``kernels.launches_on`` says so, else
+    the plain version (``pool_c`` from ``pair_pool_channels(pool_w)``, or
     ``pool_w=None`` and ``pg`` for the group-pool form)."""
-    if h.device.type == "cpu":
+    if not kernels.launches_on(h.device):
         return stem_epilogue_plain(h, inv, c, w, b, act, pt, pool_w, bits,
                                    keep_k, pg)
     lane_form = pool_w is not None
@@ -346,7 +347,6 @@ def stem_epilogue_fwd(h, inv, c, w, b, act: str, pt: int,
     bsz, t_in, g = h.shape[:3]
     out = torch.empty(_out_shape(h, pt, lane_form, pg), device=h.device,
                       dtype=h.dtype)
-    from bsed_tpu_torch import kernels
     fn = _bind_fwd(kernels.load("stem_epilogue"))
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = fn(h.data_ptr(), inv.data_ptr(), c.data_ptr(), w.data_ptr(),
@@ -396,9 +396,10 @@ def _bind_bwd(lib):
 def stem_epilogue_bwd(gz, h, inv, c, w, b, act: str, pt: int,
                       pool_w: Optional[torch.Tensor], pool_c: int, bits=None,
                       keep_k: int = 0, pg: int = 1):
-    """K3's wrapper: (dh in h's dtype, dinv, dc, dW, db in float32). CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
-    if h.device.type == "cpu":
+    """K3's wrapper: (dh in h's dtype, dinv, dc, dW, db in float32), from
+    the kernel where ``kernels.launches_on`` says so, else from the plain
+    version."""
+    if not kernels.launches_on(h.device):
         return stem_epilogue_bwd_plain(gz, h, inv, c, w, b, act, pt, pool_w,
                                        bits, keep_k, pg)
     lane_form = pool_w is not None
@@ -410,7 +411,6 @@ def stem_epilogue_bwd(gz, h, inv, c, w, b, act: str, pt: int,
     if gz.shape != want or gz.dtype != h.dtype or gz.data_ptr() % 16:
         raise ValueError(f"gz must be {want} in h's dtype and 16-byte "
                          f"aligned, got {tuple(gz.shape)} {gz.dtype}")
-    from bsed_tpu_torch import kernels
     lib = kernels.load("stem_epilogue_bwd")
     fn = _bind_bwd(lib)
     ws = _workspace(lib, h.device)
@@ -465,16 +465,17 @@ class StemEpilogueFn(torch.autograd.Function):
 
 def make_fused_epilogue(act: str, pt: int,
                         pool_w: Optional[torch.Tensor] = None,
-                        use_kernel: bool = True, rate: float = 0.0,
-                        pg: int = 1) -> Callable:
+                        rate: float = 0.0, pg: int = 1) -> Callable:
     """Build ``ep(h, inv, c, w, b, bits=None) -> out`` for one conv-block
     epilogue, differentiable in (h, inv, c, w, b). The frequency pool is
     ``pool_w`` (on h's device; folded blocks, output (B, T//pt, 16, 64))
     or, with ``pool_w=None``, the mean of ``pg`` adjacent groups
     (standard-layout blocks, output (B, T//pt, G//pg, 128)); the two are
     exclusive. ``rate`` > 0 is the train form: ``bits`` (B, T·G, L) uint8
-    are then required, keep = bits < round(256·(1−rate)).
-    ``use_kernel=False`` gives the plain version on any device."""
+    are then required, keep = bits < round(256·(1−rate)). ``ep`` is
+    ``StemEpilogueFn`` (K2 and K3 as ``kernels.launches_on`` decides), but
+    on a card inside ``kernels.plain_versions()`` the plain version under
+    autograd."""
     if act not in _ACTS:
         raise ValueError(f"fused epilogue supports glu/cg, got {act}")
     if pt not in (1, 2):
@@ -494,10 +495,10 @@ def make_fused_epilogue(act: str, pt: int,
     def ep(h, inv, c, w, b, bits: Optional[torch.Tensor] = None):
         if (bits is None) != (keep_k == 0):
             raise ValueError("bits are required exactly when rate > 0")
-        if use_kernel:
-            return StemEpilogueFn.apply(h, inv, c, w, b, bits, act, pt,
-                                        pool_w, pool_c, keep_k, pg)
-        return stem_epilogue_plain(h, inv, c, w, b, act, pt, pool_w, bits,
-                                   keep_k, pg)
+        if h.device.type == "cuda" and not kernels.launches_on(h.device):
+            return stem_epilogue_plain(h, inv, c, w, b, act, pt, pool_w,
+                                       bits, keep_k, pg)
+        return StemEpilogueFn.apply(h, inv, c, w, b, bits, act, pt, pool_w,
+                                    pool_c, keep_k, pg)
 
     return ep

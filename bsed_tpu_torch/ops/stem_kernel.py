@@ -23,7 +23,8 @@ item's rows with its 4×4 input window and takes the sigmoid on the MUFU
 approximations (``ex2``, ``rcp``). See the source for the layout.
 
 The plain PyTorch version is ``reference_stem_block`` (the port of the
-JAX package's XLA reference); the wrapper takes it only for CPU tensors.
+JAX package's XLA reference); the wrapper takes it where
+``kernels.launches_on`` says not to launch (CPU tensors).
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from bsed_tpu_torch import kernels
 
 N_MELS = 128
 N_CH = 16
@@ -127,9 +130,9 @@ def _bind(lib):
 def fused_stem_block(x: torch.Tensor,
                      folded: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """(B, T, 128, 1) log-mel → (B, T//2, 64, 16) block-0 output (eval), in
-    x's dtype. CPU tensors take the plain version; CUDA tensors launch
-    kernel K5 (csrc/stem_kernel.cu), which takes float32 only."""
-    if x.device.type == "cpu":
+    x's dtype: kernel K5 (csrc/stem_kernel.cu, float32 only) where
+    ``kernels.launches_on`` says so, else the plain version."""
+    if not kernels.launches_on(x.device):
         return reference_stem_block(x, folded)
     if x.device.type != "cuda":
         raise ValueError(f"stem kernel runs on CUDA, got {x.device}")
@@ -150,7 +153,6 @@ def fused_stem_block(x: torch.Tensor,
         raise ValueError("stem kernel needs 16-byte aligned log-mel")
     out = torch.empty((bsz, t // 2, N_MELS // 2, N_CH), device=x.device,
                       dtype=torch.float32)
-    from bsed_tpu_torch import kernels
     fn = _bind(kernels.load("stem_kernel"))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), packed.data_ptr(), out.data_ptr(), bsz, t,

@@ -88,13 +88,13 @@ def predict_recordings(cfg: Config, params: Dict, batch_stats: Dict,
                        paths: Sequence[str], *, device="cuda",
                        precision: str = "high", threshold: float = 0.5,
                        learned_post: bool = False, hop_seconds: float = None,
-                       batch_size: int = 32, use_kernels: bool = True,
+                       batch_size: int = 32,
                        keep_posteriors: bool = False,
                        devices=None) -> Dict:
     """Events of every recording in ``paths`` with the flax-layout weights
-    ``params``/``batch_stats`` on ``device``. ``use_kernels=False`` serves
-    the kernels' plain PyTorch versions (``make_fast_forward``).
-    ``devices``: serve over these devices a replica each
+    ``params``/``batch_stats`` on ``device``, served by
+    ``make_fast_forward`` (kernel or plain version as
+    ``kernels.launches_on`` decides). ``devices``: serve over these devices a replica each
     (``make_sharded_forward``); None: over ``auto_data_mesh(batch_size)``
     of the visible cards when ``device`` is a card, else on ``device``.
 
@@ -123,12 +123,10 @@ def predict_recordings(cfg: Config, params: Dict, batch_stats: Dict,
         with span("predict.build"):
             if devices is None:
                 forward = make_fast_forward(cfg, params, batch_stats,
-                                            device=dev, precision=precision,
-                                            use_kernels=use_kernels)
+                                            device=dev, precision=precision)
             else:
                 sharded = make_sharded_forward(cfg, params, batch_stats,
-                                               devices, precision=precision,
-                                               use_kernels=use_kernels)
+                                               devices, precision=precision)
 
                 def forward(chunk):
                     b = len(chunk)

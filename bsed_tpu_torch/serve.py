@@ -11,8 +11,11 @@ runs block 0 as kernel K5 (``ops/stem_kernel.py``), and every branch runs
 the BiGRU in ``bsed_tpu``'s hoisted form with both directions'
 recurrences of a layer in one call of kernel K4 (``ops/gru_kernel.py``,
 through ``models/rnn.HoistedBiGRU``). Everything else is ordinary
-PyTorch/cuDNN, as the JAX package leaves it to XLA.
-A configuration with a BEATs encoder (``ModelConfig.beats``) also runs
+PyTorch/cuDNN, as the JAX package leaves it to XLA. Each kernel's entry
+launches it or runs its plain PyTorch version, as
+``kernels.launches_on`` decides (CPU tensors, or a card inside
+``kernels.plain_versions()``, take the plain versions); nothing here
+chooses. A configuration with a BEATs encoder (``ModelConfig.beats``) also runs
 the clip through BEATs' front end (``ops/fbank.py``) and encoder
 (``models/beats.py``, its attention through
 ``ops/rel_attention.gated_rel_attention``) and fuses its frames with the
@@ -99,18 +102,19 @@ def fold_conv_block(block: ConvBlock, dtype=None) -> Dict[str, torch.Tensor]:
 
 class GroupPoolCNN:
     """Blocks ``start``..N-1 of an eval-mode ``_RestCNN`` in serving form:
-    each block is its conv without bias (cuDNN, NHWC) and one call of K2's
-    group-pool form in eval form (``ops/stem_epilogue.stem_epilogue_fwd``,
-    looked up at call time; its plain version under ``use_kernels=False``),
-    which computes the BatchNorm, the gate and the block's (pt, pg) pool
-    in one pass over the conv's output; for layouts ``group_pool_serves``
-    admits. Float32 output, as ``_RestCNN``'s."""
+    each block is its conv without bias (cuDNN, NHWC) and K2's group-pool
+    form in eval form, which computes the BatchNorm, the gate and the
+    block's (pt, pg) pool in one pass over the conv's output; for layouts
+    ``group_pool_serves`` admits. With ``fused_epilogue`` that is K2's
+    entry (``ops/stem_epilogue.stem_epilogue_fwd``, looked up at call
+    time), else its plain version ``stem_epilogue_plain``. Float32
+    output, as ``_RestCNN``'s."""
 
     def __init__(self, rest: _RestCNN, activation: str, dtype=None,
-                 use_kernels: bool = True):
+                 fused_epilogue: bool = True):
         self.dtype = dtype or torch.float32
         self.act = activation
-        self.use_kernels = use_kernels
+        self.fused_epilogue = fused_epilogue
         self.blocks = [(fold_conv_block(blk, dtype), blk.conv.padding[0],
                         *blk.pooling) for blk in rest.blocks.values()]
 
@@ -119,7 +123,7 @@ class GroupPoolCNN:
         for k, pad, pt, pg in self.blocks:
             h = conv2d_nhwc(x, k["weight"], padding=pad).contiguous()
             args = (h, k["inv"], k["c"], k["w"], k["b"], self.act, pt, None)
-            if self.use_kernels:
+            if self.fused_epilogue:
                 x = stem_epilogue.stem_epilogue_fwd(*args, 0, pg=pg)
             else:
                 x = stem_epilogue.stem_epilogue_plain(*args, pg=pg)
@@ -143,8 +147,6 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
                   *, use_folded_stem: Optional[bool] = None,
                   use_fused_epilogue: Optional[bool] = None,
                   use_fused_stem: bool = False,
-                  stem_impl: str = "pallas",
-                  use_kernels: bool = True,
                   fuse: Optional[Callable] = None) -> Callable:
     """The eval-mode CRNN encoder on ``dev`` from the encoder's flax-layout
     trees: ``encode(log_mel (B, T, F, 1), emb=None) -> (B, T', 2H)``
@@ -153,13 +155,10 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
     are fused with ``emb`` before the BiGRU. Shared by ``make_fast_forward`` and
     ``train.steps.make_predict_fn``; the options are
     ``make_fast_forward``'s (see there). Every branch runs the BiGRU
-    hoisted (``HoistedBiGRU``: K4, or its plain version under
-    ``use_kernels=False``); the feature-pyramid encoder (``use_fpn``,
+    hoisted (``HoistedBiGRU``, on K4); the feature-pyramid encoder (``use_fpn``,
     standard branch) runs its three, at T, T/2 and T/4 frames. The folded
     branch serves the blocks after the stem as ``GroupPoolCNN`` where
     ``group_pool_serves`` admits the layout, else as ``_RestCNN``."""
-    if stem_impl not in ("pallas", "reference"):
-        raise ValueError(f"unknown stem_impl {stem_impl}")
     m = cfg.model
     folded = (use_folded_stem is not False and not use_fused_stem
               and not m.use_fpn
@@ -189,14 +188,13 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
         encoder.to(dev).eval()
         if m.use_fpn:
             # the three pyramid BiGRUs (T, T/2, T/4), each hoisted
-            bigrus = {n: HoistedBiGRU(getattr(encoder, n),
-                                      use_kernel=use_kernels)
+            bigrus = {n: HoistedBiGRU(getattr(encoder, n))
                       for n in ("rnn", "rnn_2", "rnn_4")}
 
             def encode(mel):               # CRNNFPN.forward, eval
                 return encoder(mel, bigrus=bigrus)[0]
             return encode
-        bigru = HoistedBiGRU(encoder.rnn, use_kernel=use_kernels)
+        bigru = HoistedBiGRU(encoder.rnn)
 
         def encode(mel, emb=None):         # CRNN.forward, eval
             with span("serve.cnn"):
@@ -213,19 +211,15 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
             enc_params["cnn"], enc_stats["cnn"], m.nb_filters,
             tuple(tuple(p) for p in m.pooling), activation=m.activation,
             n_mels=cfg.audio.n_mels, dtype=dtype,
-            fused_epilogue=use_fused_epilogue, device=dev,
-            use_kernels=use_kernels)
+            fused_epilogue=use_fused_epilogue, device=dev)
     else:
         dtype, start = None, 1        # float32, as bsed_tpu builds them
         fold = stem_kernel.fold_block0_params(
             enc_params["cnn"]["block0"], enc_stats["cnn"]["block0"],
             device=dev)
-        stem_fn = (stem_kernel.fused_stem_block
-                   if stem_impl == "pallas" and use_kernels
-                   else stem_kernel.reference_stem_block)
 
         def stem(mel):
-            return stem_fn(mel, fold)
+            return stem_kernel.fused_stem_block(mel, fold)
     rest = _RestCNN(cfg, start=start, dtype=dtype)
     weights.load_cnn(rest, enc_params["cnn"], enc_stats["cnn"])
     rnn = BidirectionalGRU(m.nb_filters[-1], m.n_rnn_cell,
@@ -234,9 +228,8 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
     weights.load_gru(rnn, enc_params["rnn"])
     rest.to(dev).eval()
     if folded and group_pool_serves(cfg, start):
-        rest = GroupPoolCNN(rest, m.activation, dtype,
-                            use_kernels and use_fused_epilogue)
-    bigru = HoistedBiGRU(rnn.to(dev), use_kernel=use_kernels)
+        rest = GroupPoolCNN(rest, m.activation, dtype, use_fused_epilogue)
+    bigru = HoistedBiGRU(rnn.to(dev))
 
     def encode(mel, emb=None):
         with span("serve.stem"):
@@ -292,20 +285,18 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
                       mel_algorithm: Optional[str] = None,
                       use_folded_stem: Optional[bool] = None,
                       use_fused_epilogue: Optional[bool] = None,
-                      use_fused_stem: bool = False,
-                      stem_impl: str = "pallas",
-                      use_kernels: bool = True) -> Callable:
+                      use_fused_stem: bool = False) -> Callable:
     """Returns ``forward(audio (B, n_samples)) -> (strong (B, T', C),
     weak (B, C))`` on raw audio, float32 tensors on ``device``.
 
     Differs from ``bsed_tpu.serve.make_fast_forward`` in its signature:
     ``params``/``batch_stats`` are the flax-layout trees as numpy arrays
-    (``utils/weights.py``) in place of ``TrainModules``, the device is
-    explicit, and ``use_kernels=False`` runs the kernels' plain PyTorch
-    versions on any device (for holding the kernel path against them).
+    (``utils/weights.py``) in place of ``TrainModules``, and the device is
+    explicit. Each kernel below runs or gives way to its plain PyTorch
+    version as ``kernels.launches_on`` decides, on every call.
     Every branch runs the BiGRU as ``bsed_tpu``'s module does, hoisted
     (``HoistedBiGRU``: one projection a layer, both recurrences in one
-    call of K4, or of K4's plain version under ``use_kernels=False``).
+    call of K4).
 
     With ``cfg.model.beats`` the forward also runs ``BeatsBranch`` on the
     audio, in the compute dtype, and fuses its embeddings with the CNN's
@@ -325,9 +316,8 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
 
     ``use_fused_stem`` selects the fused block-0 stem for the non-FPN GLU
     CRNN on 128 mels (other encoders fall through to the standard branch,
-    as in the JAX package): ``stem_impl='pallas'`` runs kernel K5 (its
-    plain version under ``use_kernels=False``), ``'reference'`` runs
-    ``reference_stem_block``. That branch runs blocks 1-6 and the BiGRU in
+    as in the JAX package): block 0 is kernel K5
+    (``stem_kernel.fused_stem_block``). That branch runs blocks 1-6 and the BiGRU in
     float32 whatever ``compute_dtype`` says, as ``bsed_tpu`` builds them
     without a dtype there.
     """
@@ -347,12 +337,10 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
                            dev, use_folded_stem=use_folded_stem,
                            use_fused_epilogue=use_fused_epilogue,
                            use_fused_stem=use_fused_stem,
-                           stem_impl=stem_impl, use_kernels=use_kernels,
                            fuse=beats and beats.fuse)
     predictor = build_predictor(cfg, params["predictor"], dev,
                                 batch_stats.get("predictor"))
-    fe = MelFrontEnd(a, algorithm=mel_algorithm, device=dev,
-                     use_kernel=use_kernels)
+    fe = MelFrontEnd(a, algorithm=mel_algorithm, device=dev)
 
     @torch.inference_mode()
     def forward(audio):

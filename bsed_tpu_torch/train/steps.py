@@ -156,13 +156,13 @@ class FoldedEncoder(nn.Module):
     ``forward(x (B, T, F, 1), gen) -> (B, T', 2H)``; BatchNorm uses batch
     statistics in training mode, running ones in eval mode."""
 
-    def __init__(self, cfg: Config, device="cuda", use_kernels: bool = True):
+    def __init__(self, cfg: Config, device="cuda"):
         super().__init__()
         m = cfg.model
         if not folded_train_eligible(m, cfg.audio.n_mels):
             raise ValueError(_NOT_FOLDABLE)
         self.stem_apply, n_folded = make_folded_train_stem(
-            m, cfg.audio.n_mels, device=device, use_kernels=use_kernels)
+            m, cfg.audio.n_mels, device=device)
         dtype = compute_dtype(m)
         cins = (m.n_in_channel,) + tuple(m.nb_filters[:-1])
         self.stem = nn.ModuleDict({
@@ -185,10 +185,10 @@ class TrainModel(nn.Module):
     generator too: its convs drop out and its BatchNorm normalises by the
     batch (the data group's, under one), as the encoder's do."""
 
-    def __init__(self, cfg: Config, device="cuda", use_kernels: bool = True):
+    def __init__(self, cfg: Config, device="cuda"):
         super().__init__()
         self.folded = cfg.model.folded_train_stem
-        self.encoder = (FoldedEncoder(cfg, device, use_kernels)
+        self.encoder = (FoldedEncoder(cfg, device)
                         if self.folded
                         else make_encoder(cfg.model, cast_weights=False))
         self.predictor = make_predictor_head(cfg)
@@ -262,15 +262,13 @@ class TrainModules:
     BatchNorm then normalises by the group's global batch), or None."""
     cfg: Config
     device: torch.device
-    use_kernels: bool = True
     norm_stats: Optional[tuple] = None
     rand_maps: Optional[tuple] = None
     group: Optional[DataGroup] = None
 
     def make_model(self) -> TrainModel:
         return set_batchnorm_group(
-            TrainModel(self.cfg, self.device,
-                       self.use_kernels).to(self.device), self.group)
+            TrainModel(self.cfg, self.device).to(self.device), self.group)
 
     def make_discriminator(self) -> Optional[nn.Module]:
         disc = _make_discriminator(self.cfg)
@@ -302,11 +300,9 @@ def _check_supported(cfg: Config) -> None:
         raise ValueError(_NOT_FOLDABLE)
 
 
-def build_modules(cfg: Config, device="cuda", use_kernels: bool = True,
-                  norm_stats=None, rand_maps=None,
-                  group=None) -> TrainModules:
+def build_modules(cfg: Config, device="cuda", norm_stats=None,
+                  rand_maps=None, group=None) -> TrainModules:
     """What the step needs to build its models on ``device``;
-    ``use_kernels=False`` runs the stem epilogue's plain versions;
     ``norm_stats`` is the train scaler's (mean, std) for
     ``TrainConfig.normalize``. Frame-level CDAN's randomized map gets
     ``rand_maps`` if given (moved to ``device``), else its own pair drawn
@@ -325,7 +321,7 @@ def build_modules(cfg: Config, device="cuda", use_kernels: bool = True,
                           .to(dev) for r in rand_maps)
     else:
         rand_maps = None
-    return TrainModules(cfg, dev, use_kernels, norm_stats, rand_maps, group)
+    return TrainModules(cfg, dev, norm_stats, rand_maps, group)
 
 
 def load_train_state(modules: TrainModules, trees: Dict) -> TrainState:
@@ -1156,8 +1152,8 @@ def make_predict_fn(modules: TrainModules, norm_stats="train"):
     Differs from ``bsed_tpu.train.steps.make_predict_fn`` in how it reaches
     the model: the encoder is ``serve.build_encoder`` (folded stem with
     kernel K2's eval form on the card for blocks 0-2 where the topology
-    folds, the BiGRU hoisted on kernel K4; their plain versions under
-    ``modules.use_kernels=False``) and the head ``serve.build_predictor``,
+    folds, the BiGRU hoisted on kernel K4; ``kernels.launches_on``
+    decides) and the head ``serve.build_predictor``,
     built from ``params``/``batch_stats`` (flax-layout trees) at the first
     call and again whenever a call passes other tree objects
     (``predict.prepare(params, batch_stats)`` builds them ahead)."""
@@ -1176,8 +1172,7 @@ def make_predict_fn(modules: TrainModules, norm_stats="train"):
         if built.get("trees") != (id(params), id(batch_stats)):
             built.clear()
             built["encode"] = build_encoder(
-                cfg, params["encoder"], batch_stats["encoder"], dev,
-                use_kernels=modules.use_kernels)
+                cfg, params["encoder"], batch_stats["encoder"], dev)
             built["predictor"] = build_predictor(
                 cfg, params["predictor"], dev, batch_stats.get("predictor"))
             # the trees are held so their ids stay theirs

@@ -61,6 +61,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from bsed_tpu_torch import kernels
 from bsed_tpu_torch.config import Config, config_to_dict
 from bsed_tpu_torch.data.codec import ManyHotEncoder
 from bsed_tpu_torch.data.prefetch import prefetch
@@ -108,16 +109,15 @@ def _host_metrics(stacked: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 class Trainer:
     """Port of ``bsed_tpu.train.trainer.Trainer``: the same arguments,
     ``mesh`` included (see the module docstring), plus ``device`` (the
-    card by default; under a group the group's device) and
-    ``use_kernels`` (False runs the kernels' plain versions)."""
+    card by default; under a group the group's device). Kernel or plain
+    version is each kernel entry's choice (``kernels.launches_on``)."""
 
     def __init__(self, cfg: Config, train_loader, val_loader=None,
                  syn_eval_loader=None, store_dir: Optional[str] = None,
                  use_tensorboard: bool = False,
                  profile_dir: Optional[str] = None,
                  mesh="auto", grad_flow: bool = False,
-                 scan_epoch: str = "auto", device="cuda",
-                 use_kernels: bool = True):
+                 scan_epoch: str = "auto", device="cuda"):
         self.cfg = cfg
         count = getattr(train_loader, "process_count", 1)
         if mesh == "auto":
@@ -138,9 +138,8 @@ class Trainer:
                     f"process_count={mesh.size}); this one has "
                     f"process_count={count}")
             device = mesh.device
-            if device.type == "cuda" and use_kernels:
+            if kernels.launches_on(device):
                 # rank 0 builds the kernels the ranks will load
-                from bsed_tpu_torch import kernels
                 self._on_rank0(kernels.build)
         # grad_flow: per-parameter mean-|grad| in the step metrics +
         # gradient_flow.png per epoch (plot_grad_flow, main_baseline.py:108)
@@ -166,8 +165,7 @@ class Trainer:
         # refuses the configurations the port cannot train yet, before
         # anything else is built
         self.modules: TrainModules = build_modules(
-            cfg, device=device, use_kernels=use_kernels,
-            norm_stats=norm_stats, group=self.group)
+            cfg, device=device, norm_stats=norm_stats, group=self.group)
         self.log = create_logger(f"bsed_tpu_torch/{cfg.model_name}")
         self.store_dir = store_dir or os.path.join("stored_data",
                                                    cfg.model_name)

@@ -195,6 +195,15 @@ def emit(**kw) -> None:
     print(json.dumps(kw), flush=True)
 
 
+def kernels_if(on: bool):
+    """A ``with`` context: the kernels as they run by default (``on``), or
+    ``kernels.plain_versions()``, every kernel entry on its plain version
+    on the card too."""
+    import contextlib
+    from bsed_tpu_torch import kernels
+    return contextlib.nullcontext() if on else kernels.plain_versions()
+
+
 def bound(bytes_moved: float, flops_by_type: dict):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     the operations over the peak rate of their type."""
@@ -502,7 +511,7 @@ def check_stem_epilogue(torch, dev):
             "times_are": "sum over the 3 launches of one B=64 bf16 forward"}
 
 
-def serve(dev, compute_dtype, use_kernels=True):
+def serve(dev, compute_dtype):
     from bsed_tpu_torch.config import get_config
     from bsed_tpu_torch.serve import make_fast_forward
     from bsed_tpu_torch.utils.weights import init_params
@@ -512,7 +521,7 @@ def serve(dev, compute_dtype, use_kernels=True):
                                                 compute_dtype=compute_dtype))
     params, stats = init_params(cfg, 0)
     return cfg, make_fast_forward(cfg, params, stats, device=dev,
-                                  precision="high", use_kernels=use_kernels)
+                                  precision="high")
 
 
 def main_path(torch, dev, card, kernel_ms, profile_dir):
@@ -591,12 +600,12 @@ def path_equality(torch, dev):
     """float32 serving path with the kernels against the same path on the
     plain versions, B=8; posteriors within 2e-3."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    cfg, fwd_k = serve(dev, "float32")
-    _, fwd_p = serve(dev, "float32", use_kernels=False)
+    cfg, fwd = serve(dev, "float32")
     audio = torch.randn((8, cfg.audio.n_samples), generator=gen,
                         device=dev) * 0.1
-    sk, wk = fwd_k(audio)
-    sp, wp = fwd_p(audio)
+    sk, wk = fwd(audio)
+    with kernels_if(False):
+        sp, wp = fwd(audio)
     torch.cuda.synchronize()
     err = max(float((sk - sp).abs().max()), float((wk - wp).abs().max()))
     emit(phase="path_equality", dtype="float32", batch=8,
@@ -671,7 +680,7 @@ def check_stem_kernel(torch, dev):
                          "(profiler)"}
 
 
-def fused_stem_forward(dev, use_kernels=True, **kw):
+def fused_stem_forward(dev, **kw):
     from bsed_tpu_torch.config import get_config
     from bsed_tpu_torch.serve import make_fast_forward
     from bsed_tpu_torch.utils.weights import init_params
@@ -684,8 +693,7 @@ def fused_stem_forward(dev, use_kernels=True, **kw):
     for head in params["predictor"].values():
         head["kernel"] *= 30.0
     return cfg, make_fast_forward(cfg, params, stats, device=dev,
-                                  precision="high", use_kernels=use_kernels,
-                                  **kw)
+                                  precision="high", **kw)
 
 
 def fused_stem_path(torch, dev, card, profile_dir):
@@ -739,7 +747,8 @@ def fused_stem_path(torch, dev, card, profile_dir):
     audio = torch.randn((8, cfg.audio.n_samples), generator=gen,
                         device=dev) * 0.1
     sk, wk = fused_stem_forward(dev, use_fused_stem=True)[1](audio)
-    sp, wp = fused_stem_forward(dev, False, use_fused_stem=True)[1](audio)
+    with kernels_if(False):
+        sp, wp = fused_stem_forward(dev, use_fused_stem=True)[1](audio)
     ss, ws = fused_stem_forward(dev, use_folded_stem=False)[1](audio)
     torch.cuda.synchronize()
     err_plain = max(float((sk - sp).abs().max()), float((wk - wp).abs().max()))
@@ -906,7 +915,8 @@ def bigru_forms(torch, dev, card):
         return (time.perf_counter() - t0) / N_GRU * 1e3
 
     with torch.inference_mode():
-        want = HoistedBiGRU(module(None), use_kernel=False)(x)
+        with kernels_if(False):
+            want = HoistedBiGRU(module(None))(x)
         res = {}
         for dt in (torch.bfloat16, torch.float32):
             rnn = module(dt)
@@ -1377,7 +1387,7 @@ def check_stem_epilogue_train(torch, dev):
                       "bf16_gate": BF16_GRAD_GATE})
 
 
-def train_setup(torch, dev, compute_dtype, use_kernels, batch_size):
+def train_setup(torch, dev, compute_dtype, batch_size):
     """(cfg, state, step, batch) of the flagship train step on ``dev``:
     ``baseline_mt_isp`` + perf_config, random weights from seed 0, a random
     full-width batch made on the card as bench.py:160-171 makes it."""
@@ -1387,7 +1397,7 @@ def train_setup(torch, dev, compute_dtype, use_kernels, batch_size):
     cfg = perf_config(get_config("baseline_mt_isp"))
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                 compute_dtype=compute_dtype))
-    modules = steps.build_modules(cfg, device=dev, use_kernels=use_kernels)
+    modules = steps.build_modules(cfg, device=dev)
     state = steps.create_train_state(cfg, modules, 0)
     gen = torch.Generator(device=dev).manual_seed(11)
     t_in, f = cfg.audio.max_frames, cfg.audio.n_mels
@@ -1410,8 +1420,7 @@ def train_path(torch, dev, card, profile_dir):
     and the EMA params must move."""
     from bsed_tpu_torch.ops import stem_epilogue as se
 
-    cfg, state, step, batch = train_setup(torch, dev, "bfloat16", True,
-                                          B_TRAIN)
+    cfg, state, step, batch = train_setup(torch, dev, "bfloat16", B_TRAIN)
     for _ in range(2):
         step(state, batch, 1, 30.0)
     torch.cuda.synchronize()
@@ -1493,13 +1502,13 @@ def train_equality(torch, dev):
     torch.backends.cudnn.deterministic = True
     try:
         out = {}
-        for use_kernels in (True, False):
-            _, state, step, batch = train_setup(torch, dev, "float32",
-                                                use_kernels, 4)
-            metrics = step(state, batch, 7, 30.0)
-            torch.cuda.synchronize()
-            out[use_kernels] = ({k: float(v) for k, v in metrics.items()},
-                                weights.export_train_state(state))
+        for kern in (True, False):
+            with kernels_if(kern):
+                _, state, step, batch = train_setup(torch, dev, "float32", 4)
+                metrics = step(state, batch, 7, 30.0)
+                torch.cuda.synchronize()
+            out[kern] = ({k: float(v) for k, v in metrics.items()},
+                         weights.export_train_state(state))
             del state, step, batch
             torch.cuda.empty_cache()
     finally:
@@ -1575,17 +1584,17 @@ def eval_path(torch, dev, card):
                                        os.path.join(tmp, "baseline.pt"))
         # kernels (the first use of every op on this path), plain, and
         # kernels again (warm): the gates read the first run
-        for run, use_kernels in (("kernels", True), ("plain", False),
-                                 ("kernels_warm", True)):
+        for run, kern in (("kernels", True), ("plain", False),
+                          ("kernels_warm", True)):
             loader = EvalLoader(source, batch_size=B_EVAL, device=dev)
             torch.cuda.synchronize()
             stem_epilogue.stem_epilogue_fwd.launches = 0
             gru_kernel.gru_bidir_recurrence.launches = 0
             t0 = time.perf_counter()
-            res = evaluate_checkpoint(cfg, loader, torch_ckpt=ckpt,
-                                      thresholds=EVAL_THRESHOLDS,
-                                      device=dev, use_kernels=use_kernels,
-                                      keep_posteriors=True)
+            with kernels_if(kern):
+                res = evaluate_checkpoint(cfg, loader, torch_ckpt=ckpt,
+                                          thresholds=EVAL_THRESHOLDS,
+                                          device=dev, keep_posteriors=True)
             wall = time.perf_counter() - t0
             launches = {
                 "stem_epilogue": stem_epilogue.stem_epilogue_fwd.launches,
@@ -1820,18 +1829,18 @@ def raw_audio_path(torch, dev, card):
         # in-process: kernels, then the plain versions, on the same inputs
         groups = (([long_wav, short_npy], None), ([ragged_wav], RAW_HOP_S))
         runs = {}
-        for use_kernels in (True, False):
+        for kern in (True, False):
             torch.cuda.synchronize()
             for c in counters.values():
                 c.launches = 0
-            res = [predict_recordings(cfg, params, stats, paths, device=dev,
-                                      precision="high", hop_seconds=hop,
-                                      use_kernels=use_kernels,
-                                      keep_posteriors=True)
-                   for paths, hop in groups]
+            with kernels_if(kern):
+                res = [predict_recordings(cfg, params, stats, paths,
+                                          device=dev, precision="high",
+                                          hop_seconds=hop,
+                                          keep_posteriors=True)
+                       for paths, hop in groups]
             torch.cuda.synchronize()
-            runs[use_kernels] = (res, {k: c.launches
-                                       for k, c in counters.items()})
+            runs[kern] = (res, {k: c.launches for k, c in counters.items()})
         (res_k, launches), (res_p, launches_p) = runs[True], runs[False]
         batches = [b for r in res_k for rec in r["batches"] for b in rec]
         calls = len(batches)
@@ -1976,8 +1985,7 @@ def loader_train_path(torch, dev, card, random_batch_ms):
     from bsed_tpu_torch.data.pipeline import ThreeStreamLoader
     from bsed_tpu_torch.ops import stem_epilogue as se
 
-    cfg, state, step, batch = train_setup(torch, dev, "bfloat16", True,
-                                          B_TRAIN)
+    cfg, state, step, batch = train_setup(torch, dev, "bfloat16", B_TRAIN)
     n_steps = 2 + 2 * N_TIMED
     t0 = time.perf_counter()
     syn = SyntheticDataSource(cfg, n_items=n_steps * B_TRAIN, seed=1)
@@ -2432,8 +2440,8 @@ B_FPN = 64
 N_FPN_BATCHES = 3
 
 
-def preset_setup(torch, dev, preset, perf, compute_dtype, use_kernels,
-                 batch_size, adaptation=False, model=None):
+def preset_setup(torch, dev, preset, perf, compute_dtype, batch_size,
+                 adaptation=False, model=None):
     """(cfg, state, step, batch) of ``preset`` on ``dev`` in its
     reference-parity form (``perf=False``: float32, unfolded, stream by
     stream) or its --perf form in ``compute_dtype``; random weights from
@@ -2476,8 +2484,7 @@ def preset_setup(torch, dev, preset, perf, compute_dtype, use_kernels,
     if cfg.train.normalize:
         log = amplitude_to_db(batch["real"]).flatten(0, 1)
         norm = (log.mean(0).cpu().numpy(), log.std(0).cpu().numpy())
-    modules = steps.build_modules(cfg, device=dev, use_kernels=use_kernels,
-                                  norm_stats=norm)
+    modules = steps.build_modules(cfg, device=dev, norm_stats=norm)
     state = steps.create_train_state(cfg, modules, 0)
     return cfg, state, steps.make_train_step(modules, steps_per_epoch=8), \
         batch
@@ -2491,7 +2498,7 @@ def preset_steps(torch, dev, preset, perf, profile_dir=None):
     from bsed_tpu_torch.ops import gru_kernel, stem_epilogue as se
 
     cfg, state, step, batch = preset_setup(torch, dev, preset, perf,
-                                           "bfloat16", True, B_TRAIN)
+                                           "bfloat16", B_TRAIN)
     for _ in range(N_PRESET_WARMUP):
         step(state, batch, 1, 30.0)
     torch.cuda.synchronize()
@@ -2539,15 +2546,14 @@ def preset_equality(torch, dev, preset, model=None):
     torch.backends.cudnn.deterministic = True
     try:
         out = {}
-        for use_kernels in (True, False):
-            _, state, step, batch = preset_setup(torch, dev, preset, True,
-                                                 "float32", use_kernels, 4,
-                                                 model=model)
-            metrics = step(state, batch, 7, 30.0)
-            torch.cuda.synchronize()
-            out[use_kernels] = ({k: float(v) for k, v in metrics.items()},
-                                state_leaves(
-                                    weights.export_train_state(state)))
+        for kern in (True, False):
+            with kernels_if(kern):
+                _, state, step, batch = preset_setup(
+                    torch, dev, preset, True, "float32", 4, model=model)
+                metrics = step(state, batch, 7, 30.0)
+                torch.cuda.synchronize()
+            out[kern] = ({k: float(v) for k, v in metrics.items()},
+                         state_leaves(weights.export_train_state(state)))
             del state, step, batch
             torch.cuda.empty_cache()
     finally:
@@ -2584,8 +2590,6 @@ def fpn_predict(torch, dev):
     mel = torch.randn((B_FPN, cfg.audio.max_frames, cfg.audio.n_mels),
                       generator=gen, device=dev).abs()
     kern = steps.make_predict_fn(steps.TrainModules(cfg, dev))
-    plain = steps.make_predict_fn(steps.TrainModules(cfg, dev,
-                                                     use_kernels=False))
     kern(params, stats, mel, inference=True)            # build, warm up
     torch.cuda.synchronize()
     gru_kernel.gru_bidir_recurrence.launches = 0
@@ -2595,7 +2599,8 @@ def fpn_predict(torch, dev):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / N_FPN_BATCHES * 1e3
     launches = gru_kernel.gru_bidir_recurrence.launches
-    sp, wp = plain(params, stats, mel, inference=True)
+    with kernels_if(False):
+        sp, wp = kern(params, stats, mel, inference=True)
     torch.cuda.synchronize()
     err = max(float((sk - sp).abs().max()), float((wk - wp).abs().max()))
     assert launches == 6 * N_FPN_BATCHES, launches
@@ -2772,7 +2777,7 @@ def da_steps(torch, dev, run, perf, profile_dir=None):
 
     torch.cuda.reset_peak_memory_stats()
     cfg, state, step, batch = preset_setup(torch, dev, DA_RUNS[run], perf,
-                                           "bfloat16", True, B_TRAIN,
+                                           "bfloat16", B_TRAIN,
                                            adaptation=True)
     for _ in range(N_PRESET_WARMUP):
         step(state, batch, 1, 30.0)
@@ -2835,14 +2840,15 @@ def da_equality(torch, dev, run):
     torch.backends.cudnn.deterministic = True
     try:
         out = {}
-        for use_kernels in (True, False):
-            cfg, state, step, batch = preset_setup(
-                torch, dev, DA_RUNS[run], True, "float32", use_kernels, 4,
-                adaptation=True)
-            metrics = step(state, batch, 7, 30.0)
-            torch.cuda.synchronize()
-            out[use_kernels] = ({k: float(v) for k, v in metrics.items()},
-                                state_leaves(state))
+        for kern in (True, False):
+            with kernels_if(kern):
+                cfg, state, step, batch = preset_setup(
+                    torch, dev, DA_RUNS[run], True, "float32", 4,
+                    adaptation=True)
+                metrics = step(state, batch, 7, 30.0)
+                torch.cuda.synchronize()
+            out[kern] = ({k: float(v) for k, v in metrics.items()},
+                         state_leaves(state))
             del state, step, batch
             torch.cuda.empty_cache()
     finally:
@@ -3472,7 +3478,7 @@ def head_steps(torch, dev, tally, name, preset, perf, model):
     recurrent dropout, the GRUs' masks of the timed steps must drop within
     4σ of the rate."""
     cfg, state, step, batch = preset_setup(torch, dev, preset, perf,
-                                           "bfloat16", True, B_TRAIN,
+                                           "bfloat16", B_TRAIN,
                                            model=model)
     for _ in range(N_PRESET_WARMUP):
         step(state, batch, 1, 30.0)
@@ -3548,8 +3554,8 @@ def head_serving(torch, dev, tally, fused_stem):
         want["stem_kernel"] = N_TIMED
     assert launched == want, (fused_stem, launched)
     assert strong.shape == (B_SERVE, cfg.n_frames, cfg.nclass), strong.shape
-    ps, pw = make_fast_forward(cfg, params, stats, use_kernels=False,
-                               **kw)(audio)
+    with kernels_if(False):
+        ps, pw = make_fast_forward(cfg, params, stats, **kw)(audio)
     torch.cuda.synchronize()
     gap = max(float((strong - ps).abs().max()), float((weak - pw).abs().max()))
     assert torch.isfinite(strong).all() and gap <= EVAL_GATE, gap
@@ -3883,7 +3889,7 @@ def _dp_step(torch, dev, group, dtype="bfloat16"):
     from bsed_tpu_torch.parallel.mesh import shard_batch
     from bsed_tpu_torch.train import steps
 
-    cfg, state, step, batch = train_setup(torch, dev, dtype, True, B_TRAIN)
+    cfg, state, step, batch = train_setup(torch, dev, dtype, B_TRAIN)
     if group is not None:
         modules = steps.build_modules(cfg, device=dev, group=group)
         state = steps.create_train_state(cfg, modules, 0)

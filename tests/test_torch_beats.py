@@ -418,7 +418,7 @@ def test_fast_forward_matches_reference(tiny, dtype, frame_tol, emb_tol):
     config, params, stats, audio = tiny
     fwd = make_fast_forward(_port_cfg(config, dtype), Wt.to_numpy(params),
                             Wt.to_numpy(stats), device="cpu",
-                            precision="high", use_kernels=False)
+                            precision="high")
     seen = []
     fwd.beats.encoder.register_forward_hook(lambda m, i, o: seen.append(o))
     strong, weak = fwd(audio)
@@ -440,7 +440,7 @@ def test_crnn_path_unchanged_without_beats(tiny):
                                                 compute_dtype="float32"))
     p = {k: v for k, v in params.items() if k != "beats"}
     fwd = make_fast_forward(cfg, Wt.to_numpy(p), Wt.to_numpy(stats),
-                            device="cpu", use_kernels=False)
+                            device="cpu")
     assert fwd.beats is None
     strong, _ = fwd(audio)
     rs, _ = R.forward(log_mel(audio, config["audio"]), params, stats,
@@ -457,8 +457,7 @@ def test_encoder_without_its_fusion_is_refused(tiny):
     with pytest.raises(ValueError, match="takes its fusion"):
         build_encoder(_port_cfg(config, "float32"),
                       Wt.to_numpy(params["encoder"]),
-                      Wt.to_numpy(stats["encoder"]), torch.device("cpu"),
-                      use_kernels=False)
+                      Wt.to_numpy(stats["encoder"]), torch.device("cpu"))
 
 
 def test_predict_recordings_serves_beats(tiny, tmp_path):
@@ -471,7 +470,7 @@ def test_predict_recordings_serves_beats(tiny, tmp_path):
     np.save(path, audio[0].numpy())
     out = predict_recordings(_port_cfg(config, "float32"),
                              Wt.to_numpy(params), Wt.to_numpy(stats),
-                             [path], device="cpu", use_kernels=False,
+                             [path], device="cpu",
                              batch_size=1, keep_posteriors=True)
     rs, _ = RB.forward(audio[:1], params, stats, config)
     np.testing.assert_allclose(out["posteriors"][0], rs[0].numpy(),

@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card.
 
+The plain side of each comparison runs inside ``kernels.plain_versions()``,
+which makes every kernel entry take its plain version on the card too.
+
 These need an NVIDIA GPU with the CUDA toolkit (the kernels are built with
 nvcc at first use) and skip elsewhere; the file imports no JAX, so it runs
 on a machine that has only the port's dependencies:
@@ -12,6 +15,7 @@ import torch
 
 import dataclasses
 
+from bsed_tpu_torch import kernels
 from bsed_tpu_torch.config import AudioConfig, get_config
 from bsed_tpu_torch.models.rnn import (BidirectionalGRU, HoistedBiGRU,
                                        bigru_hoisted, gru_scan_bidir)
@@ -419,8 +423,8 @@ def test_bf16_serving_path_close_to_f32_plain_path(dev):
     before = gru_kernel.gru_bidir_recurrence.launches
     got = make_fast_forward(c16, params, stats, device=dev)(audio)
     assert gru_kernel.gru_bidir_recurrence.launches == before + 2
-    want = make_fast_forward(cfg, params, stats, device=dev,
-                             use_kernels=False)(audio)
+    with kernels.plain_versions():
+        want = make_fast_forward(cfg, params, stats, device=dev)(audio)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and torch.isfinite(g).all()
@@ -698,14 +702,14 @@ def test_predict_fn_kernels_match_plain(dev, compute_dtype, gate):
     torch.cuda.synchronize()
     assert stem_epilogue.stem_epilogue_fwd.launches == k2 + 7
     assert gru_kernel.gru_bidir_recurrence.launches == k4 + 2
-    want = make_predict_fn(TrainModules(cfg, dev, use_kernels=False))(
-        params, stats, mel)
+    with kernels.plain_versions():
+        want = make_predict_fn(TrainModules(cfg, dev))(params, stats, mel)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and torch.isfinite(g).all()
         torch.testing.assert_close(g, w, rtol=0, atol=gate)
 
 
-def _card_trainer(dev, store, use_kernels=True, scan_epoch="auto"):
+def _card_trainer(dev, store, scan_epoch="auto"):
     """A small Trainer on the card: baseline_mt_isp, float32, the folded
     train stem with the fused epilogue, fused streams, 2 s clips at 32 kHz
     (full mel width), batch 4: 2 steps an epoch over resident loaders,
@@ -728,8 +732,7 @@ def _card_trainer(dev, store, use_kernels=True, scan_epoch="auto"):
     return Trainer(cfg, ThreeStreamLoader(syn, weak, unlab, batch_size=4,
                                           seed=cfg.train.seed, device=dev),
                    val_loader=EvalLoader(val, batch_size=4, device=dev),
-                   store_dir=str(store), device=dev,
-                   use_kernels=use_kernels, scan_epoch=scan_epoch)
+                   store_dir=str(store), device=dev, scan_epoch=scan_epoch)
 
 
 def _state_leaves(state):
@@ -767,8 +770,9 @@ def test_trainer_fit_kernels_match_plain(dev, tmp_path, deterministic_cudnn):
             stem_epilogue.stem_epilogue_bwd.launches - launches[1],
             gru_kernel.gru_bidir_recurrence.launches - launches[2]) == \
         (2 * 6 + 2 * 7, 2 * 3, 2 * 2)
-    plain = _card_trainer(dev, tmp_path / "plain", use_kernels=False)
-    plain.fit(n_epochs=1)
+    with kernels.plain_versions():
+        plain = _card_trainer(dev, tmp_path / "plain")
+        plain.fit(n_epochs=1)
     (got,), (want,) = kern.history, plain.history
     assert list(got) == list(want)
     for k, v in want.items():
@@ -833,8 +837,14 @@ def test_epoch_runner_matches_loop_on_card(dev, tmp_path,
 PRESET_LAUNCHES = {"origin": (18, 12), "scmt": (6, 3)}
 
 
-def _preset_step_on_card(dev, preset, use_kernels, stage="pretrain",
-                         model=None):
+def _preset_step_on_card(dev, preset, stage="pretrain", model=None,
+                         plain=False):
+    """One float32 --perf step of ``preset`` at full width: (metrics, the
+    exported state, (K2, K3) launches); with ``plain``, all of it inside
+    ``kernels.plain_versions()``."""
+    if plain:
+        with kernels.plain_versions():
+            return _preset_step_on_card(dev, preset, stage, model)
     from bsed_tpu_torch.config import perf_config
     from bsed_tpu_torch.train import steps
     from bsed_tpu_torch.utils.weights import export_train_state
@@ -849,8 +859,7 @@ def _preset_step_on_card(dev, preset, use_kernels, stage="pretrain",
     if cfg.train.normalize:
         ns = (np.full(cfg.audio.n_mels, -20.0, np.float32),
               np.full(cfg.audio.n_mels, 10.0, np.float32))
-    modules = steps.build_modules(cfg, device=dev, use_kernels=use_kernels,
-                                  norm_stats=ns)
+    modules = steps.build_modules(cfg, device=dev, norm_stats=ns)
     state = steps.create_train_state(cfg, modules, 0)
     n_real = 8 if preset == "origin" else 4
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -905,10 +914,10 @@ def test_8c_f32_step_kernels_match_plain(dev, case, deterministic_cudnn):
     their plain versions, full width, dropout 0.5 with the same bits
     (the GRUs' masks too): train_equality's gates; the head's statistics
     are among the BN statistics held."""
-    mk, tk, launched = _preset_step_on_card(dev, "baseline_mt_isp", True,
+    mk, tk, launched = _preset_step_on_card(dev, "baseline_mt_isp",
                                             model=SLICE_8C[case])
     mp, tp, plain_launched = _preset_step_on_card(
-        dev, "baseline_mt_isp", False, model=SLICE_8C[case])
+        dev, "baseline_mt_isp", model=SLICE_8C[case], plain=True)
     assert launched == (6, 3) and plain_launched == (0, 0)
     assert ("predictor" in tk["batch_stats"]) == (case == "crnn_head")
     _assert_f32_steps_match((mk, tk), (mp, tp))
@@ -934,9 +943,9 @@ def test_crnn_head_serving_kernels_match_plain(dev, fused_stem):
     torch.cuda.synchronize()
     launched = [c.launches - b for c, b in zip(counters, before)]
     assert launched == [1, 0, 2, int(fused_stem)], launched
-    want = make_fast_forward(cfg, params, stats, device=dev,
-                             use_fused_stem=fused_stem,
-                             use_kernels=False)(audio)
+    with kernels.plain_versions():
+        want = make_fast_forward(cfg, params, stats, device=dev,
+                                 use_fused_stem=fused_stem)(audio)
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, w, rtol=0, atol=2e-3)
@@ -951,8 +960,8 @@ def test_preset_f32_step_kernels_match_plain(dev, preset,
     the same bits: chip_smoke's train_equality gates (metrics 1e-4
     relative, Adam moments 3e-5, BN statistics 1e-5 + 1e-5 relative); K2
     and K3 launch the preset's count."""
-    mk, tk, launched = _preset_step_on_card(dev, preset, True)
-    mp, tp, plain_launched = _preset_step_on_card(dev, preset, False)
+    mk, tk, launched = _preset_step_on_card(dev, preset)
+    mp, tp, plain_launched = _preset_step_on_card(dev, preset, plain=True)
     assert launched == PRESET_LAUNCHES[preset]
     assert plain_launched == (0, 0)
     assert mk.keys() == mp.keys()
@@ -1049,9 +1058,9 @@ def test_da_f32_step_kernels_match_plain(dev, preset, deterministic_cudnn):
     batch mean takes it one to one: where that gradient is below 1e-6 the
     running mean gets 0.99 · 2.2 · lr more (origin on an H100: 4.3e-5 on
     block 3's means)."""
-    mk, tk, launched = _preset_step_on_card(dev, preset, True, "adaptation")
-    mp, tp, plain_launched = _preset_step_on_card(dev, preset, False,
-                                                  "adaptation")
+    mk, tk, launched = _preset_step_on_card(dev, preset, "adaptation")
+    mp, tp, plain_launched = _preset_step_on_card(dev, preset, "adaptation",
+                                                  plain=True)
     assert launched == DA_LAUNCHES[preset]
     assert plain_launched == (0, 0)
     assert mk.keys() == mp.keys() and "domain_loss" in mk
@@ -1166,15 +1175,16 @@ def test_predict_ragged_batch_kernels_match_plain(dev, raw_audio):
     counters = (mel_kernel.fused_block_mel, stem_epilogue.stem_epilogue_fwd,
                 gru_kernel.gru_bidir_recurrence)
     before = [c.launches for c in counters]
-    runs = {}
-    for use_kernels in (True, False):
-        runs[use_kernels] = predict_recordings(
+    def run():
+        return predict_recordings(
             cfg, params, stats, raw_audio, device=dev, precision="high",
-            hop_seconds=5.0, use_kernels=use_kernels, keep_posteriors=True)
-        if use_kernels:
-            calls = sum(map(len, runs[True]["batches"]))
-            assert [c.launches - b for c, b in zip(counters, before)] == \
-                [calls, 7 * calls, 2 * calls]
+            hop_seconds=5.0, keep_posteriors=True)
+    runs = {True: run()}
+    calls = sum(map(len, runs[True]["batches"]))
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [calls, 7 * calls, 2 * calls]
+    with kernels.plain_versions():
+        runs[False] = run()
     assert runs[True]["batches"] == [[11], [1]]
     for a, b in zip(runs[True]["posteriors"], runs[False]["posteriors"]):
         assert a.shape == b.shape and np.isfinite(a).all()
@@ -1574,3 +1584,61 @@ def test_crnn_beats_forward_on_card_matches_reference(dev):
     print("crnn_beats B=8 gaps", gaps)
     for k, v in gaps.items():
         assert v <= limits[k], (k, v, limits[k])
+
+
+def test_crnn_beats_served_plain_launches_no_attention(dev):
+    """crnn_beats at a small width (2 layers, d = 128 in 2 heads of 64;
+    the CRNN cut as tests/test_torch_beats.py cuts it), float32, 3 clips
+    of 2 s: BEATs' branch launches the attention kernel once a layer;
+    inside ``kernels.plain_versions()`` the whole forward launches it
+    never, and the branch's embeddings are the kernel's within 1e-4 of
+    their norm."""
+    import json
+    import os
+    from bsed_tpu_torch.config import BeatsConfig
+    from bsed_tpu_torch.ops import rel_attention as RA
+    from portbench.harness import beats as B, synth, weights as Wt
+    from portbench.harness.port import port_config
+    from portbench.reference import crnn as R
+    from portbench.reference.frontend import log_mel
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs",
+                           "crnn_beats.json")) as fh:
+        config = json.load(fh)
+    config["audio"].update(n_window=256, n_mels=16, max_len_seconds=2.0)
+    config["model"].update(nb_filters=[16, 32, 64, 16],
+                           pooling=[[2, 2], [2, 2], [1, 2], [1, 2]],
+                           n_rnn_cell=16)
+    config["beats"].update(embed_dim=32, encoder_layers=2,
+                           encoder_embed_dim=128, encoder_ffn_embed_dim=256,
+                           encoder_attention_heads=2, conv_pos=16,
+                           conv_pos_groups=4)
+    config["fusion"].update(in_features=144, out_features=16)
+    cfg = port_config(config, "serve", {"runner": "serve_beats"})
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, compute_dtype="float32",
+        beats=BeatsConfig(**config["beats"])))
+    params = B.make_params(config, 31, 32, dev)
+    audio = synth.clips(33, 3, config["audio"], {
+        "gain_db": [-50, -20], "events": 4, "event_s": [0.1, 0.5],
+        "freq_hz": [500, 6000], "sweep_hz_per_s": 2000,
+        "event_db": [0, 25]}, dev)
+    with torch.no_grad():
+        stats = {"encoder": {"cnn": R.block_input_stats(
+            log_mel(audio, config["audio"]), params, config["model"])}}
+    fwd = make_fast_forward(cfg, Wt.to_numpy(params), Wt.to_numpy(stats),
+                            device=dev, precision="high")
+    before = RA.gated_rel_attention.launches
+    with torch.inference_mode():
+        emb = fwd.beats(audio)
+    torch.cuda.synchronize()
+    assert RA.gated_rel_attention.launches == before + 2
+    with kernels.plain_versions():
+        strong, weak = fwd(audio)
+        with torch.inference_mode():
+            plain = fwd.beats(audio)
+    torch.cuda.synchronize()
+    assert RA.gated_rel_attention.launches == before + 2
+    assert strong.shape == (3, 251 // 4, 20) and torch.isfinite(strong).all()
+    assert float((emb - plain).norm() / plain.norm()) < 1e-4

@@ -482,7 +482,7 @@ def test_predict_fn_matches(small_model, mode):
         norm = (rng.normal(-20, 5, 8).astype(np.float32),
                 rng.uniform(5, 15, 8).astype(np.float32))
     predict = steps.make_predict_fn(
-        steps.TrainModules(cfg, torch.device("cpu"), use_kernels=False),
+        steps.TrainModules(cfg, torch.device("cpu")),
         norm_stats=norm)
     s, w = predict(params, stats, torch.from_numpy(x), **kw)
     if norm is None:
@@ -500,7 +500,7 @@ def test_predict_fn_matches(small_model, mode):
 def test_predict_fn_rebuilds_for_new_trees(small_model):
     _, cfg, params, stats, j_predict, mel = small_model
     predict = steps.make_predict_fn(
-        steps.TrainModules(cfg, torch.device("cpu"), use_kernels=False))
+        steps.TrainModules(cfg, torch.device("cpu")))
     s1, _ = predict(params, stats, mel)
     p2, s2_ = _weights(cfg, seed=1)
     s2, _ = predict(p2, s2_, mel)
@@ -537,7 +537,7 @@ def test_evaluate_checkpoint_matches(tmp_path):
         cfg, EvalLoader(SyntheticDataSource(cfg, n_items=10, seed=4,
                                             event_rate=0.3),
                         batch_size=4, device="cpu"),
-        torch_ckpt=ckpt, thresholds=thr, device="cpu", use_kernels=False,
+        torch_ckpt=ckpt, thresholds=thr, device="cpu",
         keep_posteriors=True, confusion_csv=str(tmp_path / "port.csv"))
     jsrc = JSynthetic(jcfg, n_items=10, seed=4, event_rate=0.3)
     with jax.default_matmul_precision("float32"):

@@ -6,7 +6,8 @@ The plain recurrence (which the K4 wrapper runs for CPU tensors) is held
 against the JAX Pallas kernel in interpret mode and against
 ``_gru_scan_bidir`` at 1e-5 in float32; in bfloat16 within 3e-2 of the
 float32 scan (tests/test_gru_kernel.py). A whole 2-layer BiGRU in the
-hoisted form, through either recurrence, is held against bsed_tpu's
+hoisted form, through K4's entry (its plain version on the CPU; the
+card's route is tests/test_torch_cuda.py's), is held against bsed_tpu's
 BidirectionalGRU and against the port's cuDNN-form ``nn.GRU`` at 1e-4.
 The serving form (``HoistedBiGRU``, weights laid out once) equals the
 per-call form to 1e-6 in float32, and in bfloat16 on K4's plain version
@@ -82,8 +83,7 @@ def test_plain_bf16_close_to_f32_scan():
     np.testing.assert_allclose(got, kern, atol=1e-2)
 
 
-@pytest.mark.parametrize("use_kernel", [True, False])
-def test_hoisted_bigru_matches_jax_and_nn_gru(use_kernel):
+def test_hoisted_bigru_matches_jax_and_nn_gru():
     params, _ = init_params(get_config("baseline"), 5)
     rnn_params = params["encoder"]["rnn"]
     x = np.random.default_rng(6).standard_normal((3, 40, 128)).astype(
@@ -94,7 +94,7 @@ def test_hoisted_bigru_matches_jax_and_nn_gru(use_kernel):
     rnn = BidirectionalGRU(128, 128, 2).eval()
     weights.load_gru(rnn, rnn_params)
     with torch.no_grad():
-        got = bigru_hoisted(rnn, torch.from_numpy(x), use_kernel=use_kernel)
+        got = bigru_hoisted(rnn, torch.from_numpy(x))
         cudnn_form = rnn(torch.from_numpy(x))
     assert got.shape == (3, 40, 256) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
@@ -112,8 +112,7 @@ def _rnn_and_input(seed, dtype=None, shape=(3, 40, 128)):
     return rnn_params, rnn, x
 
 
-@pytest.mark.parametrize("use_kernel", [True, False])
-def test_built_weights_match_per_call_form(use_kernel):
+def test_built_weights_match_per_call_form():
     """HoistedBiGRU lays W_ih of both directions out as one (D, 6H)
     matrix and W_hh in K4's layout once; the result is the per-call form's
     (two projections a layer, the layout made in the K4 wrapper) to 1e-6,
@@ -121,9 +120,9 @@ def test_built_weights_match_per_call_form(use_kernel):
     _, rnn, x = _rnn_and_input(7)
     before = gru_kernel.gru_bidir_recurrence.launches
     with torch.no_grad():
-        built = HoistedBiGRU(rnn, use_kernel=use_kernel)
+        built = HoistedBiGRU(rnn)
         got = built(torch.from_numpy(x))
-        want = bigru_hoisted(rnn, torch.from_numpy(x), use_kernel=use_kernel)
+        want = bigru_hoisted(rnn, torch.from_numpy(x))
     assert gru_kernel.gru_bidir_recurrence.launches == before
     assert got.shape == (3, 40, 256) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
@@ -142,7 +141,7 @@ def test_bf16_hoisted_on_plain_recurrence_close_to_jax_f32():
         want = np.asarray(JBidirectionalGRU(128, 2).apply(
             {"params": rnn_params}, jnp.asarray(x)))
     with torch.no_grad():
-        got = HoistedBiGRU(rnn, use_kernel=False)(torch.from_numpy(x))
+        got = HoistedBiGRU(rnn)(torch.from_numpy(x))
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=3e-2)
 

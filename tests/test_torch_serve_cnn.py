@@ -58,15 +58,16 @@ def _randomize(module, seed):
 
 @pytest.mark.parametrize("activation", ["glu", "cg"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("use_kernels", [True, False])
-def test_group_pool_cnn_matches_rest_cnn(activation, dtype, use_kernels):
+@pytest.mark.parametrize("fused_epilogue", [True, False])
+def test_group_pool_cnn_matches_rest_cnn(activation, dtype, fused_epilogue):
     """Blocks 3-6 served as conv + K2 group pool equal ``_RestCNN`` in eval
-    mode on the same weights and statistics."""
+    mode on the same weights and statistics, through K2's entry and
+    through ``stem_epilogue_plain``."""
     cfg = _cfg(activation)
     assert serve.group_pool_serves(cfg, START)
     dt = None if dtype is torch.float32 else dtype
     rest = _randomize(serve._RestCNN(cfg, start=START, dtype=dt), 7)
-    cnn = serve.GroupPoolCNN(rest, activation, dt, use_kernels)
+    cnn = serve.GroupPoolCNN(rest, activation, dt, fused_epilogue)
     assert [blk[2:] for blk in cnn.blocks] == [(1, 2)] * 4
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (2, 9, 16, 64)).astype(np.float32)).to(dtype)
@@ -179,8 +180,7 @@ def test_fused_epilogue_option_governs_group_pool(monkeypatch, fused, calls):
                                   use_fused_epilogue=fused)(mel)
         assert len(entered) == calls and sum(entered) == calls * 4 // 7
         want = serve.build_encoder(cfg, params["encoder"], stats["encoder"],
-                                   torch.device("cpu"),
-                                   use_kernels=False)(mel)
+                                   torch.device("cpu"))(mel)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 

@@ -96,8 +96,10 @@ def _pair(model_kw, seed=0):
 @pytest.mark.parametrize("stem_impl,compute_dtype", [
     ("pallas", "float32"), ("reference", "float32"), ("pallas", "bfloat16")])
 def test_fused_stem_forward_matches_jax(stem_impl, compute_dtype):
-    """The fused branch runs blocks 1-6 and the BiGRU in float32 whatever
-    compute_dtype says, on both sides, so bfloat16 holds the same gate."""
+    """The fused branch (K5's entry, its plain version on the CPU) against
+    bsed_tpu's with the Pallas stem and with its reference stem. It runs
+    blocks 1-6 and the BiGRU in float32 whatever compute_dtype says, on
+    both sides, so bfloat16 holds the same gate."""
     jcfg, cfg, params, stats = _pair({"compute_dtype": compute_dtype}, 3)
     audio = np.random.default_rng(4).standard_normal(
         (3, cfg.audio.n_samples)).astype(np.float32)
@@ -107,7 +109,7 @@ def test_fused_stem_forward_matches_jax(stem_impl, compute_dtype):
     with jax.default_matmul_precision("float32"):
         want = jfwd(audio)
     fwd = make_fast_forward(cfg, params, stats, device="cpu",
-                            use_fused_stem=True, stem_impl=stem_impl)
+                            use_fused_stem=True)
     before = sk.fused_stem_block.launches
     got = fwd(audio)
     assert sk.fused_stem_block.launches == before
@@ -115,13 +117,6 @@ def test_fused_stem_forward_matches_jax(stem_impl, compute_dtype):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
-
-
-def test_stem_impl_is_checked():
-    _, cfg, params, stats = _pair({})
-    with pytest.raises(ValueError, match="stem_impl"):
-        make_fast_forward(cfg, params, stats, device="cpu",
-                          use_fused_stem=True, stem_impl="xla")
 
 
 # ---- K5's persistent walk and its ring (csrc/stem_kernel.cu) ---------------

@@ -77,13 +77,11 @@ def test_span_without_a_profiler_is_the_shared_null_context(monkeypatch,
     from bsed_tpu_torch.serve import make_fast_forward
     cfg = tiny_cfg()
     params, stats = init_params(cfg, 3)
-    forward = make_fast_forward(cfg, params, stats, device="cpu",
-                                use_kernels=False)
+    forward = make_fast_forward(cfg, params, stats, device="cpu")
     forward(np.zeros((2, cfg.audio.n_samples), np.float32))
     path = str(tmp_path / "r.wav")
     wavfile.write(path, 4800, np.zeros(4800 * 3, np.int16))
-    out = predict_recordings(cfg, params, stats, [path], device="cpu",
-                             use_kernels=False)
+    out = predict_recordings(cfg, params, stats, [path], device="cpu")
     assert sorted(out["seconds"]) == ["decode", "filter", "forward", "read"]
 
 
@@ -91,8 +89,7 @@ def test_serving_forward_emits_its_five_parts_in_order(tmp_path):
     from bsed_tpu_torch.serve import make_fast_forward
     cfg = tiny_cfg()
     params, stats = init_params(cfg, 3)
-    forward = make_fast_forward(cfg, params, stats, device="cpu",
-                                use_kernels=False)
+    forward = make_fast_forward(cfg, params, stats, device="cpu")
     audio = np.random.default_rng(0).standard_normal(
         (2, cfg.audio.n_samples)).astype(np.float32) * 0.1
     (strong, weak), spans = profiled_spans(lambda: forward(audio), tmp_path)
@@ -137,7 +134,7 @@ def test_predict_spans_read_resample_and_build(tmp_path):
                                  ).astype(np.int16))
         paths.append(path)
     out, spans = profiled_spans(lambda: predict_recordings(
-        cfg, params, stats, paths, device="cpu", use_kernels=False),
+        cfg, params, stats, paths, device="cpu"),
         tmp_path)
     by = {}
     for s in spans:
