@@ -47,9 +47,7 @@
 // owns one query row (q and its output row in registers); 128 rows a
 // block; keys pass through shared memory in tiles of 32 with the same
 // online softmax.
-#include <cuda.h>
-
-#include "stem_common.cuh"
+#include "tma_common.cuh"
 
 namespace {
 
@@ -93,27 +91,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// ---- mbarriers and TMA ------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-      smem_addr(bar)));
-}
-// the one arrival of a phase, expecting `bytes` from the copies
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
-      "r"(phase)
-      : "memory");
-}
+// ---- TMA ---------------------------------------------------------------
 // a 64-row box of a 4-d map (d, head, row, batch)
 __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map,
                                          int c1, int c2, int c3,
@@ -233,8 +211,8 @@ rel_attention_mma_kernel(const __grid_constant__ CUtensorMap tq,
   };
 
   if (tid == 0) {
-    for (int i = 0; i < NBAR; ++i) mbar_init(bars + i);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < NBAR; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
   }
   __syncthreads();
   if (tid == 0) {                // k and v of the head, step by step
@@ -503,26 +481,6 @@ rel_attention_fma_kernel(const float* __restrict__ q,
     *reinterpret_cast<float4*>(orow + d) =
         make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv,
                     o[d + 3] * inv);
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // a bf16 map with 128-byte swizzle, zeros past its ends

@@ -18,7 +18,8 @@ the CPU tests import every module of the package on a host without
 Each kernel entry (``ops/mel_kernel.fused_block_mel``,
 ``ops/stem_epilogue.stem_epilogue_fwd`` / ``stem_epilogue_bwd``,
 ``ops/gru_kernel.recurrence``, ``ops/stem_kernel.fused_stem_block``,
-``ops/rel_attention.gated_rel_attention``) asks ``launches_on`` on every
+``ops/rel_attention.gated_rel_attention``,
+``ops/pos_conv.pos_conv_residual``) asks ``launches_on`` on every
 call whether to launch its kernel or run its plain PyTorch version: CUDA
 tensors launch, CPU tensors take the plain version. ``plain_versions()``
 makes CUDA tensors take the plain versions too, for the length of a
@@ -42,7 +43,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("mel_kernel", "stem_epilogue", "stem_epilogue_bwd", "stem_kernel",
-           "gru_kernel", "rel_attention")
+           "gru_kernel", "rel_attention", "pos_conv")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _plain_blocks = 0     # open plain_versions() blocks

@@ -166,11 +166,11 @@ def variants() -> Dict[str, Tuple[str, Dict[str, str]]]:
     source."""
     texts = {name: (kernels.SRC_DIR / f"{name}.cu").read_text()
              for name in (FWD, BWD, STEM, ATTN)}
-    texts[COMMON] = (kernels.SRC_DIR / f"{COMMON}.cuh").read_text()
+    headers = {h.name: h.read_text()
+               for h in sorted(kernels.SRC_DIR.glob("*.cuh"))}
     out = {}
     for name, (kernel, phases) in VARIANTS.items():
-        files = {f"{kernel}.cu": texts[kernel],
-                 f"{COMMON}.cuh": texts[COMMON]}
+        files = {f"{kernel}.cu": texts[kernel], **headers}
         for phase in phases:
             for src, old, new in PHASES[phase]:
                 fname = f"{src}.cuh" if src == COMMON else f"{src}.cu"

@@ -12,7 +12,8 @@ The encoder, eval mode, from its fbank (``ops/fbank.py``), (B, T, F):
   t·(F/p) + f, ``LayerNorm``, ``Linear(embed_dim, d)``;
 * the position convolution: ``Conv1d(d, d, conv_pos, padding
   conv_pos/2, groups)`` (its weight norm folded at load), the last output
-  dropped, GELU, added to x, then the encoder's ``LayerNorm``;
+  dropped, GELU, added to x, all through
+  ``ops/pos_conv.pos_conv_residual``, then the encoder's ``LayerNorm``;
 * each layer, with α = (2·layers)^¼ (DeepNorm) and post-norm residuals:
   x = LN₁(α·x + o(attn)), x = LN₂(α·x + fc2(GELU(fc1(x)))). The attention
   has H heads of D = d/H: softmax(q·kᵀ/√D + g ⊙ P)·v, P[h, i, j] =
@@ -36,7 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bsed_tpu_torch.config import BeatsConfig
-from bsed_tpu_torch.ops import rel_attention
+from bsed_tpu_torch.ops import pos_conv, rel_attention
 
 GATE_WIDTH = 8              # grep_linear: (a, b), each summed over four
 
@@ -128,6 +129,7 @@ class BEATs(nn.Module):
                                            bc.encoder_embed_dim)
         self.encoder = _Encoder(bc)
         self._bias: Dict[int, torch.Tensor] = {}
+        self._pos_conv = (None, None)      # (the weight's key, re-laid)
 
     def position_bias(self, n: int) -> torch.Tensor:
         """P (H, n, n): the shared table at each key's offset from the
@@ -143,13 +145,26 @@ class BEATs(nn.Module):
         return self._bias[n]
 
     def cast(self, dtype) -> "BEATs":
-        """The module in ``dtype``, but for the position convolution,
-        kept in float32: cuDNN's bfloat16 grouped convolution at its
-        shapes (48 channels a group, 128 taps, 496 tokens) took 26.3 ms
-        for 64 clips on an H100, its float32 one 3.6 ms."""
+        """The module in ``dtype``, the position convolution included, its
+        weight re-laid for its kernel (``pos_conv_weight``). At its shapes
+        (48 channels a group, 128 taps, 496 tokens, 64 clips on an H100)
+        cuDNN's bfloat16 grouped convolution took 26.3 ms, its TF32 one
+        3.8 and ``ops/pos_conv``'s bfloat16 kernel 0.50."""
         self.to(dtype)
-        self.encoder.pos_conv.float()
+        self.pos_conv_weight()
         return self
+
+    def pos_conv_weight(self) -> torch.Tensor:
+        """The position convolution's weight as its kernel reads it
+        (``pos_conv.pack_weight``): re-laid when the weight changes (a
+        load, a cast, a move), not on every call."""
+        w = self.encoder.pos_conv[0].weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if self._pos_conv[0] != key:
+            with torch.no_grad():
+                self._pos_conv = (key, pos_conv.pack_weight(
+                    w.detach(), self.bc.conv_pos_groups))
+        return self._pos_conv[1]
 
     def embed(self, fbank: torch.Tensor) -> torch.Tensor:
         """The tokens before the layers: patches, the position
@@ -164,12 +179,10 @@ class BEATs(nn.Module):
              .reshape(b, t // p, p, f // p, p).transpose(2, 3)
              .reshape(b, -1, p * p)) @ w.reshape(w.shape[0], -1).t()
         x = self.post_extract_proj(self.layer_norm(x))
-        conv = self.encoder.pos_conv
-        c = conv(x.transpose(1, 2).to(conv[0].weight.dtype))
-        if self.bc.conv_pos % 2 == 0:                    # SamePad
-            c = c[..., :-1]
-        return self.encoder.layer_norm(
-            x + F.gelu(c).transpose(1, 2).to(x.dtype))
+        conv = self.encoder.pos_conv[0]
+        x = pos_conv.pos_conv_residual(x, conv.weight, conv.bias,
+                                       conv.groups, self.pos_conv_weight())
+        return self.encoder.layer_norm(x)
 
     def forward(self, fbank: torch.Tensor) -> torch.Tensor:
         x = self.embed(fbank)

@@ -245,8 +245,7 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
 class BeatsBranch:
     """BEATs' part of a served forward on ``dev``: ``fbank`` (the clip to
     its normalised fbank, float32), ``encoder`` (``models/beats.BEATs`` in
-    ``dtype`` but its float32 position convolution, ``BEATs.cast``; eval
-    mode, from ``params["beats"]``) and ``fuse`` (``BeatsFusion`` with
+    ``dtype``, ``BEATs.cast``; eval mode, from ``params["beats"]``) and ``fuse`` (``BeatsFusion`` with
     ``params["encoder"]["cat_tf"]``)."""
 
     def __init__(self, cfg: Config, params: Dict, dev, dtype=None):

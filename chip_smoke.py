@@ -82,10 +82,15 @@ use, all sources in parallel) and drives every slice of the port:
     time beside the plain version's and, as ``library_ms``, the form the
     port ran before it (g ⊙ P materialised as the mask of
     ``F.scaled_dot_product_attention``, which the port no longer calls);
-    then ``crnn_beats`` served through ``make_fast_forward`` at B=64,
-    bf16 'high' (``beats_path``): the attention's counter 12 a forward,
-    the profiler's launches of the kernel 12 a forward and none of a
-    library attention, clips/s, and the kernel's device ms a batch;
+    BEATs' position convolution with its residual (``pos_conv_times``,
+    ``csrc/pos_conv.cu``) at the cell's shape (B=64, 496 tokens, 16
+    groups of 48, 128 taps, bf16) against its plain version: its time
+    and bound beside cuDNN's TF32 grouped convolution as the port called
+    it before, registers and spills; then ``crnn_beats`` served through
+    ``make_fast_forward`` at B=64, bf16 'high' (``beats_path``): the
+    attention's counter 12 a forward and the position convolution's 1,
+    the profiler's launches of each kernel and none of a library
+    attention or convolution, clips/s, and the kernels' device ms a batch;
   * K2's and K3's group-pool form against their plain versions at the
     shapes of blocks 3-6 (B=72, G=16/8/4/2), with the body that served
     each dtype (bfloat16: wgmma for both), and K2's eval form as serving
@@ -4287,6 +4292,104 @@ def check_rel_attention(torch, dev):
     return rec
 
 
+POS_CONV = (B_SERVE, 496, 768, 16, 128)   # BEATs at B=64: (B, L, d, g, K)
+POS_CONV_GATE = (2e-3, 1e-2)     # of the norm, of max |out|: see below
+
+
+def pos_conv_times(torch, dev):
+    """BEATs' position convolution with its residual
+    (``csrc/pos_conv.cu``) at the cell's shape (B=64, 496 tokens, d = 768
+    in 16 groups of 48, 128 taps, bf16, x in the model's (B, L, d)
+    layout, the weights re-laid once) against its plain version on the
+    same inputs: within 2e-3 of the output's norm and 1e-2 of its largest
+    magnitude (both sum in float32 and round once; another order of sums
+    moves a rounding here and there). Times: the kernel (CUDA events, and
+    its device time from the profiler), the plain version, and as
+    ``library_ms`` cuDNN's TF32 grouped convolution on the same input as
+    the port called it before (x transposed to float32 channels-first),
+    ``library_chain_ms`` with the GELU, the cast and the add it took
+    beside, ``library_device_ms`` the device time the profiler gives its
+    kernels (named ``fprop``). The bound counts the work as
+    ``portbench/harness/beats.py`` counts ``pos_conv``, 2·B·L·d·(d/g)·K
+    operations in bf16, and x, the output and the weights moved once. The
+    float32 body at B=8 beside."""
+    import torch.nn.functional as F
+    from bsed_tpu_torch import kernels
+    from bsed_tpu_torch.ops import pos_conv as PC
+
+    b, n, d, groups, taps = POS_CONV
+    cg = d // groups
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn((b, n, d), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((d, cg, taps), generator=gen, device=dev)
+         / math.sqrt(cg * taps)).bfloat16()
+    bias = (0.1 * torch.randn((d,), generator=gen, device=dev)).bfloat16()
+    packed = PC.pack_weight(w, groups)
+    before = PC.pos_conv_residual.launches
+    got = PC.pos_conv_residual(x, w, bias, groups, packed)
+    with kernels.plain_versions():
+        want = PC.pos_conv_residual(x, w, bias, groups).float()
+    torch.cuda.synchronize()
+    launches = PC.pos_conv_residual.launches - before
+    rel = float((got.float() - want).norm() / want.norm())
+    err = float((got.float() - want).abs().max())
+    scale = float(want.abs().max())
+    emit(phase="check_pos_conv", shape=list(POS_CONV), rel_err=rel,
+         max_abs_err=err, max_abs_out=scale, launches_check=launches)
+    assert launches == 1, launches
+    assert rel <= POS_CONV_GATE[0], rel
+    assert err <= POS_CONV_GATE[1] * scale, err
+    del want
+
+    fn = lambda: PC.pos_conv_residual(x, w, bias, groups, packed)  # noqa: E731
+    ms = time_ms(fn, 20)
+    ms_pipe = pipelined_ms(fn, reps=20)
+    dev_ms = kernel_device_ms(torch, fn, "pos_conv_mma")
+    with kernels.plain_versions():
+        plain_ms = time_ms(fn, 5)
+    w32, b32 = w.float(), bias.float()
+
+    def library():
+        return F.conv1d(x.transpose(1, 2).float(), w32, b32,
+                        padding=taps // 2, groups=groups)
+
+    def library_chain():
+        c = library()[..., :-1]
+        return x + F.gelu(c).transpose(1, 2).to(x.dtype)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        lib_diff = float((library_chain().float() - got.float()).abs().max())
+        library_ms = time_ms(library, 10)
+        library_chain_ms = time_ms(library_chain, 10)
+        library_device_ms = kernel_device_ms(torch, library, "fprop")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    x8, w8, b8 = x[:8].float(), w32, b32
+    ms32 = time_ms(lambda: PC.pos_conv_residual(x8, w8, b8, groups), 5)
+    flops = 2.0 * b * n * d * cg * taps
+    nbytes = 2 * b * n * d * 2 + d * cg * taps * 2 + d * 2
+    b_ms, b_by = bound(nbytes, {"bfloat16": flops})
+    rec = {"name": "pos_conv", "route": "cuda",
+           "source": "bsed_tpu_torch/csrc/pos_conv.cu",
+           "replaces": None, "rel_err": rel, "max_abs_err": err,
+           "ms": ms, "ms_pipelined": ms_pipe, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "roofline_pct": 100.0 * b_ms / dev_ms,
+           "tflop_per_s": flops / dev_ms / 1e9,
+           "library_ms": library_ms, "library_chain_ms": library_chain_ms,
+           "library_device_ms": library_device_ms,
+           "library_max_abs_diff": lib_diff,
+           "library_call": "F.conv1d(x.transpose(1, 2).float(), w, b, "
+                           "padding=64, groups=16), TF32 (cuDNN)",
+           "ms_f32_b8": ms32,
+           "resources": kernel_resources("pos_conv", "pos_conv_mma"),
+           "gflop_per_call": flops / 1e9, "mb_per_call": nbytes / 1e6,
+           "launches_check": launches}
+    emit(phase="pos_conv_times", **rec)
+    return rec
+
+
 def beats_path(torch, dev, card):
     """``crnn_beats`` served as the cell ``serve_beats_crnn_b64`` serves
     it: the baseline CRNN fused with BEATs at its published widths
@@ -4294,14 +4397,16 @@ def beats_path(torch, dev, card):
     through ``make_fast_forward``, B=64, bf16 'high'; CRNN weights from
     seed 0, BEATs' from its modules' own initialisation (seed 20), the
     fusion's small. The attention's counter must read 12 a forward over
-    ``N_TIMED`` forwards; torch.profiler over 2 forwards must see the
-    kernel launched 12 times a forward and no library attention (no
-    kernel named flash, fmha or sdpa). TF32 is off here as in the rest of
-    this script, so the float32 position convolution takes cuDNN's
-    float32 kernel and clips/s reads below the cell's. Returns the
-    counter's launches."""
+    ``N_TIMED`` forwards and the position convolution's 1; torch.profiler
+    over 2 forwards must see the attention kernel launched 12 times a
+    forward and no library attention (no kernel named flash, fmha or
+    sdpa), and over 2 calls of the encoder alone the position
+    convolution's kernel once a call and no library convolution (no
+    kernel named fprop, convolve or cudnn). Returns the attention
+    counter's launches and the position convolution's."""
     from bsed_tpu_torch.config import BeatsConfig, get_config
     from bsed_tpu_torch.models.beats import BEATs
+    from bsed_tpu_torch.ops import pos_conv as PC
     from bsed_tpu_torch.ops import rel_attention as RA
     from bsed_tpu_torch.serve import make_fast_forward
     from bsed_tpu_torch.utils.weights import init_params
@@ -4329,23 +4434,37 @@ def beats_path(torch, dev, card):
     torch.cuda.synchronize()
 
     RA.gated_rel_attention.launches = 0
+    PC.pos_conv_residual.launches = 0
     t0 = time.perf_counter()
     for _ in range(N_TIMED):
         strong, weak = forward(audio)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = RA.gated_rel_attention.launches
+    pc_launches = PC.pos_conv_residual.launches
     _, _, rows = device_rows(torch, lambda: forward(audio), 2)
     rows = [r for r in rows if not r[1].startswith("bsed.")]  # spans
     kernel = [(t, n) for t, key, n in rows if "rel_attention_mma" in key]
     library = [key for _, key, _ in rows
                if any(w in key.lower() for w in ("flash", "fmha", "sdpa"))]
+    with torch.inference_mode():
+        fb = forward.beats.fbank(audio)
+        _, _, enc_rows = device_rows(
+            torch, lambda: forward.beats.encoder(fb), 2)
+    pc_kernel = [(t, n) for t, key, n in enc_rows if "pos_conv_mma" in key]
+    library_conv = [key for _, key, _ in enc_rows if any(
+        w in key.lower() for w in ("fprop", "convolve", "cudnn"))]
     emit(phase="beats_path", preset="baseline", beats="BeatsConfig()",
          compute_dtype="bfloat16", precision="high", batch=B_SERVE,
          batches=N_TIMED, clips_per_s=B_SERVE * N_TIMED / elapsed,
          ms_per_batch=elapsed / N_TIMED * 1e3, attention_launches=launches,
          kernel_launches_per_forward=sum(n for _, n in kernel) / 2,
          kernel_device_ms_per_forward=sum(t for t, _ in kernel) / 2e3,
+         pos_conv_launches=pc_launches,
+         pos_conv_kernel_launches_per_forward=sum(
+             n for _, n in pc_kernel) / 2,
+         pos_conv_device_ms_per_forward=sum(t for t, _ in pc_kernel) / 2e3,
+         library_convolution_kernels=library_conv,
          device_ms_per_forward=sum(t for t, _, _ in rows) / 2e3,
          library_attention_kernels=library, card=card,
          top=[{"name": key[:70], "ms": t / 2e3, "calls": n / 2}
@@ -4355,7 +4474,10 @@ def beats_path(torch, dev, card):
     assert launches == 12 * N_TIMED, launches
     assert sum(n for _, n in kernel) == 2 * 12, kernel
     assert not library, library
-    return launches
+    assert pc_launches == N_TIMED, pc_launches
+    assert sum(n for _, n in pc_kernel) == 2, pc_kernel
+    assert not library_conv, library_conv
+    return launches, pc_launches
 
 
 def main() -> int:
@@ -4367,7 +4489,8 @@ def main() -> int:
                              "build (learning_gate, data_parallel_path, "
                              "crnn_head_path, main_path, "
                              "check_stem_epilogue_pg, group_pool_cnn_path, "
-                             "check_rel_attention, beats_path); "
+                             "check_rel_attention, pos_conv_times, "
+                             "beats_path); "
                              "prints their lines and the card's, not the "
                              "kernels line or the last line")
     args = parser.parse_args()
@@ -4409,6 +4532,7 @@ def main() -> int:
                  "group_pool_cnn_path": group_pool_cnn_path,
                  "check_rel_attention": lambda t, d, c:
                      check_rel_attention(t, d),
+                 "pos_conv_times": lambda t, d, c: pos_conv_times(t, d),
                  "beats_path": beats_path}
         for phase in args.only.split(","):
             alone[phase](torch, dev, smi)
@@ -4436,7 +4560,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     attn = check_rel_attention(torch, dev)
     torch.cuda.empty_cache()
-    attn["launches"] = beats_path(torch, dev, smi)    # N_TIMED forwards
+    pconv = pos_conv_times(torch, dev)
+    torch.cuda.empty_cache()
+    attn["launches"], pconv["launches"] = beats_path(torch, dev, smi)
     torch.cuda.empty_cache()
 
     k2t, k3 = check_stem_epilogue_train(torch, dev)
@@ -4488,7 +4614,7 @@ def main() -> int:
         k["launches_data_parallel_path"] = dp_launches[k["name"]]
     for k in (k1, k2t, k3, k4, k5):  # crnn_head_path's driven parts
         k["launches_crnn_head_path"] = head_launches[k["name"]]
-    kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg, attn]
+    kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg, attn, pconv]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

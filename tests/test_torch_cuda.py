@@ -19,8 +19,8 @@ from bsed_tpu_torch import kernels
 from bsed_tpu_torch.config import AudioConfig, get_config
 from bsed_tpu_torch.models.rnn import (BidirectionalGRU, HoistedBiGRU,
                                        bigru_hoisted, gru_scan_bidir)
-from bsed_tpu_torch.ops import (gru_kernel, mel, mel_kernel, stem_epilogue,
-                                stem_kernel)
+from bsed_tpu_torch.ops import (gru_kernel, mel, mel_kernel, pos_conv,
+                                stem_epilogue, stem_kernel)
 from bsed_tpu_torch.ops.filterbank import mel_filterbank
 from bsed_tpu_torch.ops.folded_stem import _freq_pool_matrix
 from bsed_tpu_torch.serve import make_fast_forward
@@ -1533,12 +1533,72 @@ def test_rel_attention_kernel_contiguous_and_other_dtypes(dev):
         RA.gated_rel_attention(q.half(), k.half(), v.half(), gate.half(),
                                bias.half())
 
+# BEATs' position convolution (ops/pos_conv.py), (B, L, d, groups, taps,
+# dtype): the published widths; a group of 64 (16-wide chunks) over two
+# token tiles (700 = 512 + 188); odd taps on a short clip (the last weight
+# stage padded); float32 at the widths of the served float32 test below,
+# and 3 groups of 24 channels (no multiple of 16).
+POS_CONV_CASES = [(4, 496, 768, 16, 128, torch.bfloat16),
+                  (2, 700, 256, 4, 128, torch.bfloat16),
+                  (3, 37, 64, 2, 31, torch.bfloat16),
+                  (3, 96, 128, 4, 16, torch.float32),
+                  (2, 75, 72, 3, 9, torch.float32)]
+# The kernel against the plain entry on the same inputs: both sum in
+# float32 and round x + GELU(conv + bias) once, so in bfloat16 they differ
+# where another order of sums moves a rounding (2^-8 of a value): 2e-3 of
+# the norm, 1e-2 of the largest magnitude; float32 (TF32 off on both)
+# 1e-5 of either.
+POS_CONV_TOL = {torch.bfloat16: (2e-3, 1e-2), torch.float32: (1e-5, 1e-5)}
+
+
+@pytest.mark.parametrize("b,n,d,groups,taps,dtype", POS_CONV_CASES)
+def test_pos_conv_kernel_matches_plain(dev, b, n, d, groups, taps, dtype):
+    """The kernel against its plain version (``kernels.plain_versions()``)
+    on the whole output and, apart, on the first and last 64 tokens, where
+    the zero padding acts; one launch a call, none on the plain side."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(b, n, d, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(d, d // groups, taps, generator=gen, device=dev)
+         / (taps * d // groups) ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+    before = pos_conv.pos_conv_residual.launches
+    got = pos_conv.pos_conv_residual(x, w, bias, groups,
+                                     pos_conv.pack_weight(w, groups))
+    with kernels.plain_versions():
+        want = pos_conv.pos_conv_residual(x, w, bias, groups)
+    torch.cuda.synchronize()
+    assert pos_conv.pos_conv_residual.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    rel, top = POS_CONV_TOL[dtype]
+    edge = min(64, n)
+    for part in (slice(None), slice(0, edge), slice(n - edge, n)):
+        g, r = got[:, part].float(), want[:, part].float()
+        assert float((g - r).norm() / r.norm()) <= rel, part
+        assert float((g - r).abs().max()) <= top * float(r.abs().max()), part
+
+
+def test_pos_conv_kernel_refuses_what_it_does_not_take(dev):
+    """bfloat16 groups of 24 channels and float16 raise before any launch;
+    the float32 body takes the groups of 24."""
+    x = torch.randn(1, 20, 72, device=dev)
+    w, bias = torch.randn(72, 24, 9, device=dev), torch.zeros(72, device=dev)
+    before = pos_conv.pos_conv_residual.launches
+    with pytest.raises(ValueError, match="multiples of 16"):
+        pos_conv.pos_conv_residual(x.bfloat16(), w.bfloat16(),
+                                   bias.bfloat16(), 3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pos_conv.pos_conv_residual(x.half(), w.half(), bias.half(), 3)
+    assert pos_conv.pos_conv_residual.launches == before
+    pos_conv.pos_conv_residual(x, w, bias, 3)
+    assert pos_conv.pos_conv_residual.launches == before + 1
+
+
 def test_crnn_beats_forward_on_card_matches_reference(dev):
     """crnn_beats at its published widths through make_fast_forward, bf16
     'high', B = 8 ten-second clips, against the benchmark's float32
     reference (TF32 off): the posterior and embedding gaps within the
     limits of the cell ``serve_beats_crnn_b64``; K1 once, K4 twice and the
-    attention 12 times a forward."""
+    attention 12 times and the position convolution once a forward."""
     import json
     import os
     from bsed_tpu_torch.ops import rel_attention as RA
@@ -1568,11 +1628,13 @@ def test_crnn_beats_forward_on_card_matches_reference(dev):
     k1, k4 = (mel_kernel.fused_block_mel.launches,
               gru_kernel.gru_bidir_recurrence.launches)
     attn = RA.gated_rel_attention.launches
+    pc = pos_conv.pos_conv_residual.launches
     strong, weak = fwd(audio)
     torch.cuda.synchronize()
     assert mel_kernel.fused_block_mel.launches == k1 + 1
     assert gru_kernel.gru_bidir_recurrence.launches == k4 + 2
     assert RA.gated_rel_attention.launches == attn + 12
+    assert pos_conv.pos_conv_residual.launches == pc + 1
     assert seen[0].shape == (8, 496, 768) and seen[0].dtype == torch.bfloat16
     with torch.no_grad():
         h, emb = RB.encode(audio, params, stats, config)
@@ -1589,9 +1651,10 @@ def test_crnn_beats_forward_on_card_matches_reference(dev):
 def test_crnn_beats_served_plain_launches_no_attention(dev):
     """crnn_beats at a small width (2 layers, d = 128 in 2 heads of 64;
     the CRNN cut as tests/test_torch_beats.py cuts it), float32, 3 clips
-    of 2 s: BEATs' branch launches the attention kernel once a layer;
-    inside ``kernels.plain_versions()`` the whole forward launches it
-    never, and the branch's embeddings are the kernel's within 1e-4 of
+    of 2 s: BEATs' branch launches the attention kernel once a layer and
+    the position convolution's float32 body once (4 groups of 32, 16
+    taps); inside ``kernels.plain_versions()`` the whole forward launches
+    neither, and the branch's embeddings are the kernels' within 1e-4 of
     their norm."""
     import json
     import os
@@ -1630,15 +1693,18 @@ def test_crnn_beats_served_plain_launches_no_attention(dev):
     fwd = make_fast_forward(cfg, Wt.to_numpy(params), Wt.to_numpy(stats),
                             device=dev, precision="high")
     before = RA.gated_rel_attention.launches
+    pc = pos_conv.pos_conv_residual.launches
     with torch.inference_mode():
         emb = fwd.beats(audio)
     torch.cuda.synchronize()
     assert RA.gated_rel_attention.launches == before + 2
+    assert pos_conv.pos_conv_residual.launches == pc + 1
     with kernels.plain_versions():
         strong, weak = fwd(audio)
         with torch.inference_mode():
             plain = fwd.beats(audio)
     torch.cuda.synchronize()
     assert RA.gated_rel_attention.launches == before + 2
+    assert pos_conv.pos_conv_residual.launches == pc + 1
     assert strong.shape == (3, 251 // 4, 20) and torch.isfinite(strong).all()
     assert float((emb - plain).norm() / plain.norm()) < 1e-4
