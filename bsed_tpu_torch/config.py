@@ -92,6 +92,28 @@ class BeatsConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HtsatConfig:
+    """HTS-AT, the Hierarchical Token-Semantic Audio Transformer (Chen et
+    al., ICASSP 2022, arXiv:2202.00874; RetroCirce/HTS-Audio-Transformer
+    ``model/htsat.py``), served in place of the CRNN (``models/htsat.py``):
+    the arguments of its ``HTSAT_Swin_Transformer`` under their own names.
+    Its front end's geometry is ``Config.audio``'s; the rest of it,
+    torchlibrosa's, is fixed (``ops/mel.MelFrontEnd(torchlibrosa=True)``).
+    The log-mel (T frames × F mels) is folded into a ``spec_size`` square
+    image of ``spec_size // F`` time chunks stacked along frequency."""
+    spec_size: int = 256
+    patch_size: int = 4
+    patch_stride: int = 4
+    embed_dim: int = 96
+    depths: Tuple[int, ...] = (2, 2, 6, 2)
+    num_heads: Tuple[int, ...] = (4, 8, 16, 32)
+    window_size: int = 8
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    layer_norm_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """CRNN topology (main_baseline.py:663-673)."""
     n_in_channel: int = 1
@@ -142,6 +164,9 @@ class ModelConfig:
     # serving only: a BEATs encoder fused before the BiGRU (BeatsConfig);
     # None, the CRNN alone, is left out of ``config_to_dict``
     beats: Optional[BeatsConfig] = None
+    # serving only: HTS-AT in place of the CRNN (HtsatConfig); None is left
+    # out of ``config_to_dict``
+    htsat: Optional[HtsatConfig] = None
 
     @property
     def pooling_time_ratio(self) -> int:
@@ -410,8 +435,9 @@ def config_to_dict(cfg: Config) -> dict:
     TestModel.py rebuilding the model from checkpoint kwargs
     (reference src/TestModel.py:34-59)."""
     d = dataclasses.asdict(cfg)
-    if d["model"]["beats"] is None:
-        del d["model"]["beats"]
+    for k in ("beats", "htsat"):
+        if d["model"][k] is None:
+            del d["model"][k]
     return d
 
 
@@ -429,6 +455,9 @@ def config_from_dict(d: dict) -> Config:
               for f in dataclasses.fields(cls) if f.name in sub}
         if kw.get("beats") is not None:
             kw["beats"] = BeatsConfig(**kw["beats"])
+        if kw.get("htsat") is not None:
+            kw["htsat"] = HtsatConfig(**{k: _tupled(v) for k, v in
+                                         kw["htsat"].items()})
         return cls(**kw)
 
     nested = {"audio": AudioConfig, "model": ModelConfig,

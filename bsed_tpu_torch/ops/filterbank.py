@@ -4,7 +4,10 @@ The port's own copy of ``bsed_tpu/ops/filterbank.py`` (numpy only).
 
 Reproduces ``librosa.filters.mel(sr, n_fft, n_mels, fmin, fmax, htk=False,
 norm=None)`` as configured by the reference front end
-(reference src/data/preprocess.py:30-38) without depending on librosa.
+(reference src/data/preprocess.py:30-38) without depending on librosa,
+and with ``norm="slaney"`` librosa's default, each filter scaled to unit
+area, 2 / (f[m + 2] − f[m]) (torchlibrosa's ``LogmelFilterBank``, HTS-AT's
+front end).
 The Slaney auditory-toolbox mel scale is linear below 1 kHz (step 200/3 Hz)
 and logarithmic above (27 steps per ln(6.4)).
 """
@@ -54,8 +57,10 @@ def mel_filterbank(
     fmin: float = 0.0,
     fmax: float = 16000.0,
     dtype=np.float32,
+    norm=None,
 ) -> np.ndarray:
-    """Triangular mel filterbank, shape (1 + n_fft//2, n_mels), norm=None.
+    """Triangular mel filterbank, shape (1 + n_fft//2, n_mels): norm None
+    (peak 1) or "slaney" (unit area).
 
     Returned transposed relative to librosa (freq-major) so the on-device mel
     projection is a plain ``|stft| @ fb`` matmul that maps onto the MXU.
@@ -70,5 +75,9 @@ def mel_filterbank(
     lower = -ramps[:-2] / fdiff[:-1, None]              # rising edge
     upper = ramps[2:] / fdiff[1:, None]                 # falling edge
     weights = np.maximum(0.0, np.minimum(lower, upper))  # (n_mels, n_freqs)
+    if norm == "slaney":
+        weights *= (2.0 / (mel_f[2:] - mel_f[:-2]))[:, None]
+    elif norm is not None:
+        raise ValueError(f"unknown filterbank norm {norm!r}")
 
     return weights.T.astype(dtype)

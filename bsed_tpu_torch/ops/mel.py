@@ -20,6 +20,11 @@ of their call). The JAX package's precision tiers ('highest', 'high',
 ``serve.make_fast_forward``, whether the kernel may run, and set TF32
 through ``float32_precision``. ``mel_spectrogram`` is the FFT reference
 (``torch.fft.rfft``) for cross-checking the DFT path.
+
+HTS-AT's front end (torchlibrosa's, ``MelFrontEnd(torchlibrosa=True)``)
+is the dense algorithm with other settings: a periodic Hann window, the
+mel of the power spectrum through a Slaney area-normalised filterbank,
+and the dB of that power with no top_db clamp.
 """
 from __future__ import annotations
 
@@ -42,6 +47,12 @@ ALGORITHMS = ("dense", "block_kernel")
 def hamming_window(n: int, dtype=np.float32) -> np.ndarray:
     """Symmetric Hamming window == np.hamming(n) (librosa passes np.hamming)."""
     return np.hamming(n).astype(dtype)
+
+
+def hann_window(n: int, dtype=np.float32) -> np.ndarray:
+    """Periodic Hann window, 0.5 − 0.5·cos(2πk/n) for k < n (scipy's
+    ``get_window('hann', n)``, as torchlibrosa builds it)."""
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(dtype)
 
 
 def num_frames(n_samples: int, hop_size: int) -> int:
@@ -82,14 +93,22 @@ def frame_signal(audio: torch.Tensor, n_window: int,
     return frames.reshape(lead + (t, n_window))
 
 
+def stft_power(audio: torch.Tensor, window: torch.Tensor,
+               cos_basis: torch.Tensor, sin_basis: torch.Tensor,
+               n_window: int, hop_size: int) -> torch.Tensor:
+    """(..., n_samples) → (..., T, n_freqs) |STFT|² via DFT matmuls."""
+    frames = frame_signal(audio.float(), n_window, hop_size) * window
+    re = frames @ cos_basis
+    im = frames @ sin_basis
+    return re * re + im * im
+
+
 def stft_magnitude(audio: torch.Tensor, window: torch.Tensor,
                    cos_basis: torch.Tensor, sin_basis: torch.Tensor,
                    n_window: int, hop_size: int) -> torch.Tensor:
     """(..., n_samples) → (..., T, n_freqs) |STFT| via DFT matmuls."""
-    frames = frame_signal(audio.float(), n_window, hop_size) * window
-    re = frames @ cos_basis
-    im = frames @ sin_basis
-    return torch.sqrt(re * re + im * im)
+    return torch.sqrt(stft_power(audio, window, cos_basis, sin_basis,
+                                 n_window, hop_size))
 
 
 def amplitude_to_db(mel_amp: torch.Tensor, top_db: Optional[float] = _TOP_DB,
@@ -97,7 +116,13 @@ def amplitude_to_db(mel_amp: torch.Tensor, top_db: Optional[float] = _TOP_DB,
     """librosa.amplitude_to_db with ref=1.0, amin=1e-5 (elementwise on
     amplitude), top_db clamp relative to each clip's maximum over
     ``per_clip_axes`` (T, mels)."""
-    power = mel_amp * mel_amp
+    return power_to_db(mel_amp * mel_amp, top_db, per_clip_axes)
+
+
+def power_to_db(power: torch.Tensor, top_db: Optional[float] = _TOP_DB,
+                per_clip_axes=(-2, -1)) -> torch.Tensor:
+    """librosa.power_to_db with ref=1.0, amin=1e-10; with ``top_db`` the
+    clamp of ``amplitude_to_db``, without it none."""
     log_spec = 10.0 * torch.log10(torch.clamp(power, min=_AMIN_POWER))
     if top_db is not None:
         peak = torch.amax(log_spec, dim=per_clip_axes, keepdim=True)
@@ -108,24 +133,34 @@ def amplitude_to_db(mel_amp: torch.Tensor, top_db: Optional[float] = _TOP_DB,
 class MelFrontEnd:
     """Batched mel extractor: (B, n_samples) → (B, T, n_mels) linear mel,
     or dB with ``log=True``. ``block_kernel`` calls
-    ``mel_kernel.fused_block_mel``, looked up at call time."""
+    ``mel_kernel.fused_block_mel``, looked up at call time. By default
+    the CRNN's front end, the one K1 computes; with ``torchlibrosa``
+    HTS-AT's (dense only): a periodic Hann window, the power spectrum
+    through a Slaney area-normalised filterbank, its dB unclamped."""
 
     def __init__(self, cfg: AudioConfig = AudioConfig(),
-                 algorithm: str = "dense", device="cuda"):
+                 algorithm: str = "dense", device="cuda", *,
+                 torchlibrosa: bool = False):
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown mel algorithm {algorithm}")
+        if algorithm == "block_kernel" and torchlibrosa:
+            raise ValueError("the mel kernel computes the CRNN's front end, "
+                             "not torchlibrosa's")
         self.cfg = cfg
         self.algorithm = algorithm
+        self.torchlibrosa = torchlibrosa
         self.device = resolve_device(device)
         dev = lambda a: torch.as_tensor(a, device=self.device)
         fb64 = mel_filterbank(cfg.sr, cfg.n_window, cfg.n_mels,
-                              cfg.mel_f_min, cfg.mel_f_max, dtype=np.float64)
+                              cfg.mel_f_min, cfg.mel_f_max, dtype=np.float64,
+                              norm="slaney" if torchlibrosa else None)
         if algorithm == "block_kernel":
             from bsed_tpu_torch.ops.mel_kernel import build_mel_kernel_bases
             self.kernel_bases = build_mel_kernel_bases(
                 cfg.n_window, cfg.hop_size, fb64, device=self.device)
             return
-        self.window = dev(hamming_window(cfg.n_window))
+        window = hann_window if torchlibrosa else hamming_window
+        self.window = dev(window(cfg.n_window))
         cos_b, sin_b = dft_basis(cfg.n_window)
         self.cos_basis, self.sin_basis = dev(cos_b), dev(sin_b)
         self.mel_fb = dev(fb64.astype(np.float32))
@@ -138,11 +173,13 @@ class MelFrontEnd:
                                              cfg.n_window, cfg.hop_size,
                                              cfg.n_mels)
         else:
-            mel = stft_magnitude(audio, self.window, self.cos_basis,
-                                 self.sin_basis, cfg.n_window,
-                                 cfg.hop_size) @ self.mel_fb
+            spec = (stft_power if self.torchlibrosa else stft_magnitude)(
+                audio, self.window, self.cos_basis, self.sin_basis,
+                cfg.n_window, cfg.hop_size)
+            mel = spec @ self.mel_fb
         if log:
-            mel = amplitude_to_db(mel)
+            mel = (power_to_db(mel, top_db=None) if self.torchlibrosa
+                   else amplitude_to_db(mel))
         return mel
 
 

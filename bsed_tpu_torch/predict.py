@@ -106,6 +106,10 @@ def predict_recordings(cfg: Config, params: Dict, batch_stats: Dict,
     included), ``tf32`` (the TF32 settings in force during the call) and,
     with ``keep_posteriors``, ``posteriors``: each recording's (T, C) frame
     posteriors."""
+    if cfg.model.htsat is not None:
+        raise ValueError("predict decodes the CRNN's frame grid; an HTS-AT "
+                         "configuration is served by "
+                         "serve.make_fast_forward alone")
     from bsed_tpu_torch.parallel.mesh import auto_data_mesh
     from bsed_tpu_torch.serve import (make_fast_forward,
                                       make_sharded_forward,

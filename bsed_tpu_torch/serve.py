@@ -21,14 +21,20 @@ the clip through BEATs' front end (``ops/fbank.py``) and encoder
 ``ops/rel_attention.gated_rel_attention``) and fuses its frames with the
 CNN's before the BiGRU (``models/beats.BeatsFusion``, the DCASE Task 4
 baseline's ``cat_tf``); the CRNN's own parts run as without it.
+A configuration served by HTS-AT (``ModelConfig.htsat``) runs no CRNN:
+its front end is the dense algorithm with torchlibrosa's settings (K1
+computes another front end), then ``models/htsat.HTSAT`` in the compute
+dtype, its window attention through
+``ops/window_attention.window_attention``, then its token-semantic head.
 ``make_sharded_forward`` serves a batch over several devices, a replica
 each. Under a ``torch.profiler`` profile a forward marks its parts as
 spans (``utils/profiling.span``): ``bsed.serve.mel``, ``stem`` (folded
 and fused branches), ``cnn`` (the conv blocks after the stem, or the
 whole stack), ``bigru`` and ``head``, with BEATs ``fbank`` (the
 decimation and the fbank), ``beats`` (the encoder) and ``fuse`` (the
-alignment and ``cat_tf``); the feature-pyramid encoder's forward is not
-split.
+alignment and ``cat_tf``), with HTS-AT ``htsat`` (bn0, the fold, the
+four stages and the final LayerNorm; its head is ``head``); the
+feature-pyramid encoder's forward is not split.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from bsed_tpu_torch.config import Config
 from bsed_tpu_torch.models.beats import BEATs, BeatsFusion
 from bsed_tpu_torch.models.cnn import CNN
 from bsed_tpu_torch.models.crnn import compute_dtype, make_encoder
+from bsed_tpu_torch.models.htsat import HTSAT
 from bsed_tpu_torch.models.layers import ConvBlock, conv2d_nhwc
 from bsed_tpu_torch.models.predictor import make_predictor_head
 from bsed_tpu_torch.models.rnn import BidirectionalGRU, HoistedBiGRU
@@ -169,6 +176,9 @@ def build_encoder(cfg: Config, enc_params: Dict, enc_stats: Dict, dev,
               and _fold_divides(m.pooling))
     fused = (use_fused_stem and not folded and not m.use_fpn
              and m.activation == "glu" and cfg.audio.n_mels == 128)
+    if m.htsat is not None:
+        raise ValueError("an HTS-AT configuration runs no CRNN encoder: "
+                         "make_fast_forward serves it")
     if fuse is not None and (fused or m.use_fpn):
         raise ValueError("a BEATs fusion serves the folded or standard "
                          "CRNN, not the fused stem or the FPN encoder")
@@ -279,6 +289,33 @@ def build_predictor(cfg: Config, pred_params: Dict, dev,
     return predictor.to(dev).eval()
 
 
+def make_htsat_forward(cfg: Config, params: Dict, batch_stats: Dict,
+                       dev) -> Callable:
+    """``make_fast_forward`` for ``cfg.model.htsat``: the front end in
+    float32 (the dense algorithm, torchlibrosa's settings), HTS-AT
+    from ``params["htsat"]`` and ``batch_stats["htsat"]``
+    (``utils/weights.load_htsat``) in the compute dtype, bn0 in float32;
+    ``forward.htsat`` is the module, open to a caller's hooks."""
+    model = HTSAT(cfg.model.htsat, cfg.audio.n_mels, cfg.nclass)
+    weights.load_htsat(model, params["htsat"], batch_stats["htsat"])
+    model.to(dev).cast(compute_dtype(cfg.model) or torch.float32).eval()
+    fe = MelFrontEnd(cfg.audio, algorithm="dense", device=dev,
+                     torchlibrosa=True)
+
+    @torch.inference_mode()
+    def forward(audio):
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=dev)
+        with span("serve.mel"):
+            mel = fe(audio, log=True)
+        with span("serve.htsat"):
+            tokens = model(mel)
+        with span("serve.head"):
+            return model.head(tokens)
+
+    forward.htsat = model
+    return forward
+
+
 def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
                       device="cuda", precision: str = "high",
                       mel_algorithm: Optional[str] = None,
@@ -304,6 +341,13 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
     ``BeatsBranch`` (None without BEATs), its ``encoder`` module open to
     a caller's hooks.
 
+    With ``cfg.model.htsat`` it serves HTS-AT instead
+    (``make_htsat_forward``): ``forward(audio) -> (framewise (B, frames,
+    C), clipwise (B, C))``, ``params["htsat"]`` and
+    ``batch_stats["htsat"]`` its state dict and bn0's statistics; the
+    options after ``precision`` are the CRNN's, and any of them set
+    raises ValueError.
+
     Auto choices (None) follow the JAX package with "on CUDA" for "on TPU":
     the mel kernel K1 runs when ``precision`` is 'high' or 'fast' and the
     audio geometry meets its constraints; the folded stem serves eligible
@@ -323,6 +367,14 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
     dev = resolve_device(device)
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision}")
+    if cfg.model.htsat is not None:
+        if (mel_algorithm, use_folded_stem, use_fused_epilogue,
+                use_fused_stem) != (None, None, None, False):
+            raise ValueError("HTS-AT runs the dense torchlibrosa front end "
+                             "and no CRNN: mel_algorithm, use_folded_stem, "
+                             "use_fused_epilogue and use_fused_stem are the "
+                             "CRNN's options")
+        return make_htsat_forward(cfg, params, batch_stats, dev)
     a = cfg.audio
     if mel_algorithm is None:
         mel_algorithm = (

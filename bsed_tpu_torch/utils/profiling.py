@@ -6,7 +6,8 @@ Here: ``torch.profiler`` traces (Chrome trace JSON, viewable in Perfetto
 or TensorBoard), and ``span``, the named regions the port marks on them:
 the serving forward's parts (``bsed.serve.mel``, ``stem``, ``cnn``,
 ``bigru``, ``head``; with a BEATs encoder ``fbank``, ``beats`` and
-``fuse``), the train step's phases (``bsed.train.inputs``,
+``fuse``; with HTS-AT ``htsat``, bn0 through its final LayerNorm), the
+train step's phases (``bsed.train.inputs``,
 ``teacher``, ``student``, ``backward``, ``optimizer``, ``ema``) and
 ``predict``'s (``bsed.predict.build``, ``read``, ``resample``, ``forward``,
 ``filter``, ``decode``).

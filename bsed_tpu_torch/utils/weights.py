@@ -57,6 +57,14 @@ key names (``patch_embedding.weight``, ``encoder.pos_conv.0.weight_g`` /
 ``weight_v``, ``encoder.layers.{i}.self_attn.q_proj.weight``, …;
 ``load_beats``), and the fusion ``params["encoder"]["cat_tf"] = {kernel
 (C + d, C), bias}``.
+
+A configuration served by HTS-AT (``ModelConfig.htsat``) has
+``params["htsat"]``, a state dict under the published module names
+(``bn0.weight``, ``patch_embed.proj.weight``,
+``layers.{i}.blocks.{j}.attn.relative_position_bias_table``,
+``layers.{i}.downsample.reduction.weight``, ``norm.weight``,
+``tscam_conv.weight``, …), and ``batch_stats["htsat"]`` with bn0's
+``bn0.running_mean`` and ``bn0.running_var`` (``load_htsat``).
 """
 from __future__ import annotations
 
@@ -151,6 +159,27 @@ def load_beats(beats, state: Mapping) -> None:
         sd["encoder.pos_conv.0.weight"] = g * v / v.norm(dim=(0, 1),
                                                         keepdim=True)
     beats.load_state_dict(sd, strict=True)
+
+
+# keys of a released HTS-AT checkpoint that the port computes itself (the
+# front end, the windows' index and shift mask) or does not use (the
+# linear head beside the token-semantic one)
+_HTSAT_DERIVED = (("spectrogram_extractor.", "logmel_extractor.", "head."),
+                  ("relative_position_index", "attn_mask",
+                   "num_batches_tracked"))
+
+
+def load_htsat(htsat, state: Mapping, stats: Mapping) -> None:
+    """A ``models/htsat.HTSAT`` from a state dict under the published
+    module names (arrays or tensors) and bn0's statistics (``stats``,
+    ``bn0.running_mean`` and ``bn0.running_var``); the keys the port
+    derives or leaves unused (``_HTSAT_DERIVED``) are skipped, every other
+    key must match."""
+    sd = {k: torch.as_tensor(np.asarray(v, np.float32))
+          for k, v in {**state, **stats}.items()
+          if not (k.startswith(_HTSAT_DERIVED[0])
+                  or k.endswith(_HTSAT_DERIVED[1]))}
+    htsat.load_state_dict(sd, strict=True)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

@@ -1708,3 +1708,54 @@ def test_crnn_beats_served_plain_launches_no_attention(dev):
     assert pos_conv.pos_conv_residual.launches == pc + 1
     assert strong.shape == (3, 251 // 4, 20) and torch.isfinite(strong).all()
     assert float((emb - plain).norm() / plain.norm()) < 1e-4
+
+
+# HTS-AT (the htsat configuration)
+
+def test_htsat_forward_on_card_matches_reference(dev):
+    """htsat at its published widths through make_fast_forward, bf16
+    'high', B = 8 ten-second clips, against the benchmark's float32
+    reference (TF32 off): the posterior gaps, the last stage's token gap
+    and the first stage's in the band its shifted windows wrap, within the
+    limits of the cell ``serve_htsat_b64``; the window attention 12 times
+    a forward."""
+    import json
+    import os
+    from bsed_tpu_torch.ops import window_attention as WA
+    from portbench.harness import htsat as H, synth, weights as Wt
+    from portbench.reference import htsat as RH
+    from portbench.runners.serve_htsat import port_config, wrap_band
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    load = lambda *p: json.load(open(os.path.join(root, "portbench", *p)))  # noqa: E731
+    config = load("configs", "htsat.json")
+    mix = load("traffic", "serve_htsat_b64.json")
+    limits = load("limits", "serve_htsat_b64.json")["limits"]
+    cfg = port_config(config, mix)
+    params = H.make_params(config, 31, dev)
+    audio = synth.clips(33, 8, config["audio"], mix["audio"], dev)
+    with torch.no_grad():
+        stats = H.bn0_stats(RH.log_mel(audio, config["audio"]))
+    fwd = make_fast_forward(cfg, Wt.to_numpy(params), Wt.to_numpy(stats),
+                            device=dev, precision="high")
+    seen, first = [], []
+    fwd.htsat.register_forward_hook(lambda m, i, o: seen.append(o))
+    fwd.htsat.layers[0].register_forward_hook(lambda m, i, o: first.append(o))
+    calls = WA.calls
+    strong, weak = fwd(audio)
+    torch.cuda.synchronize()
+    assert WA.calls == calls + 12
+    assert strong.shape == (8, 1024, 20) and weak.shape == (8, 20)
+    assert seen[0].shape == (8, 64, 768) and seen[0].dtype == torch.bfloat16
+    with torch.no_grad():
+        rs, rw, rt, r1 = RH.forward(audio, params, stats, config)
+    assert first[0].shape == r1.shape == (8, 1024, 192)
+    band = wrap_band(config).to(dev)
+    e1, r1 = first[0][:, band].float(), r1[:, band]
+    gaps = {"frame_posterior_gap": float((strong - rs).abs().max()),
+            "clip_posterior_gap": float((weak - rw).abs().max()),
+            "token_gap": float((seen[0].float() - rt).norm() / rt.norm()),
+            "stage1_band_gap": float((e1 - r1).norm() / r1.norm())}
+    print("htsat B=8 gaps", gaps)
+    for k, v in gaps.items():
+        assert v <= limits[k], (k, v, limits[k])
