@@ -3,7 +3,7 @@
 Port of ``bsed_tpu/ops/mel.py`` (librosa semantics: symmetric Hamming
 window, reflect pad of N/2, frame t starts at t·H, Slaney filterbank with
 norm=None, ``amplitude_to_db`` with a per-clip top_db clamp). Two
-algorithms compute the same linear mel:
+algorithms compute the same mel:
 
   * ``dense``        — frames @ (cos, −sin) DFT bases, |·|, @ filterbank;
   * ``block_kernel`` — one hand-written CUDA kernel from audio to mel
@@ -22,9 +22,11 @@ through ``float32_precision``. ``mel_spectrogram`` is the FFT reference
 (``torch.fft.rfft``) for cross-checking the DFT path.
 
 HTS-AT's front end (torchlibrosa's, ``MelFrontEnd(torchlibrosa=True)``)
-is the dense algorithm with other settings: a periodic Hann window, the
-mel of the power spectrum through a Slaney area-normalised filterbank,
-and the dB of that power with no top_db clamp.
+takes other settings: a periodic Hann window, the mel of the power
+spectrum through a Slaney area-normalised filterbank, and the dB of that
+power with no top_db clamp. Either algorithm computes it; with
+``block_kernel`` it is K1's power-dB form, which writes the dB itself
+(``serve.make_htsat_forward`` serves it; ``dense`` is its reference).
 """
 from __future__ import annotations
 
@@ -134,18 +136,16 @@ class MelFrontEnd:
     """Batched mel extractor: (B, n_samples) → (B, T, n_mels) linear mel,
     or dB with ``log=True``. ``block_kernel`` calls
     ``mel_kernel.fused_block_mel``, looked up at call time. By default
-    the CRNN's front end, the one K1 computes; with ``torchlibrosa``
-    HTS-AT's (dense only): a periodic Hann window, the power spectrum
-    through a Slaney area-normalised filterbank, its dB unclamped."""
+    the CRNN's front end, K1's magnitude form; with ``torchlibrosa``
+    HTS-AT's: a periodic Hann window, the power spectrum through a Slaney
+    area-normalised filterbank, its dB unclamped (K1's power-dB form,
+    which gives the dB alone: call it with ``log=True``)."""
 
     def __init__(self, cfg: AudioConfig = AudioConfig(),
                  algorithm: str = "dense", device="cuda", *,
                  torchlibrosa: bool = False):
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown mel algorithm {algorithm}")
-        if algorithm == "block_kernel" and torchlibrosa:
-            raise ValueError("the mel kernel computes the CRNN's front end, "
-                             "not torchlibrosa's")
         self.cfg = cfg
         self.algorithm = algorithm
         self.torchlibrosa = torchlibrosa
@@ -154,12 +154,13 @@ class MelFrontEnd:
         fb64 = mel_filterbank(cfg.sr, cfg.n_window, cfg.n_mels,
                               cfg.mel_f_min, cfg.mel_f_max, dtype=np.float64,
                               norm="slaney" if torchlibrosa else None)
+        window = hann_window if torchlibrosa else hamming_window
         if algorithm == "block_kernel":
             from bsed_tpu_torch.ops.mel_kernel import build_mel_kernel_bases
             self.kernel_bases = build_mel_kernel_bases(
-                cfg.n_window, cfg.hop_size, fb64, device=self.device)
+                cfg.n_window, cfg.hop_size, fb64, device=self.device,
+                window=window(cfg.n_window), power_db=torchlibrosa)
             return
-        window = hann_window if torchlibrosa else hamming_window
         self.window = dev(window(cfg.n_window))
         cos_b, sin_b = dft_basis(cfg.n_window)
         self.cos_basis, self.sin_basis = dev(cos_b), dev(sin_b)
@@ -168,10 +169,15 @@ class MelFrontEnd:
     def __call__(self, audio: torch.Tensor, log: bool = False) -> torch.Tensor:
         cfg = self.cfg
         if self.algorithm == "block_kernel":
+            if self.torchlibrosa and not log:
+                raise ValueError("K1's power-dB form gives the dB alone: "
+                                 "call the front end with log=True")
             from bsed_tpu_torch.ops import mel_kernel
             mel = mel_kernel.fused_block_mel(audio, self.kernel_bases,
                                              cfg.n_window, cfg.hop_size,
                                              cfg.n_mels)
+            if self.torchlibrosa:
+                return mel                   # the kernel wrote the dB
         else:
             spec = (stft_power if self.torchlibrosa else stft_magnitude)(
                 audio, self.window, self.cos_basis, self.sin_basis,

@@ -22,9 +22,8 @@ the clip through BEATs' front end (``ops/fbank.py``) and encoder
 CNN's before the BiGRU (``models/beats.BeatsFusion``, the DCASE Task 4
 baseline's ``cat_tf``); the CRNN's own parts run as without it.
 A configuration served by HTS-AT (``ModelConfig.htsat``) runs no CRNN:
-its front end is the dense algorithm with torchlibrosa's settings (K1
-computes another front end), then ``models/htsat.HTSAT`` in the compute
-dtype, its window attention through
+its front end is torchlibrosa's, on K1's power-dB form, then
+``models/htsat.HTSAT`` in the compute dtype, its window attention through
 ``ops/window_attention.window_attention``, then its token-semantic head.
 ``make_sharded_forward`` serves a batch over several devices, a replica
 each. Under a ``torch.profiler`` profile a forward marks its parts as
@@ -292,14 +291,16 @@ def build_predictor(cfg: Config, pred_params: Dict, dev,
 def make_htsat_forward(cfg: Config, params: Dict, batch_stats: Dict,
                        dev) -> Callable:
     """``make_fast_forward`` for ``cfg.model.htsat``: the front end in
-    float32 (the dense algorithm, torchlibrosa's settings), HTS-AT
-    from ``params["htsat"]`` and ``batch_stats["htsat"]``
-    (``utils/weights.load_htsat``) in the compute dtype, bn0 in float32;
-    ``forward.htsat`` is the module, open to a caller's hooks."""
+    float32 at torchlibrosa's settings (K1's power-dB form, which writes
+    the log-mel in one launch; a geometry outside its envelope raises
+    ValueError), HTS-AT from ``params["htsat"]``
+    and ``batch_stats["htsat"]`` (``utils/weights.load_htsat``) in the
+    compute dtype, bn0 in float32; ``forward.htsat`` is the module, open
+    to a caller's hooks."""
     model = HTSAT(cfg.model.htsat, cfg.audio.n_mels, cfg.nclass)
     weights.load_htsat(model, params["htsat"], batch_stats["htsat"])
     model.to(dev).cast(compute_dtype(cfg.model) or torch.float32).eval()
-    fe = MelFrontEnd(cfg.audio, algorithm="dense", device=dev,
+    fe = MelFrontEnd(cfg.audio, algorithm="block_kernel", device=dev,
                      torchlibrosa=True)
 
     @torch.inference_mode()
@@ -370,7 +371,7 @@ def make_fast_forward(cfg: Config, params: Dict, batch_stats: Dict, *,
     if cfg.model.htsat is not None:
         if (mel_algorithm, use_folded_stem, use_fused_epilogue,
                 use_fused_stem) != (None, None, None, False):
-            raise ValueError("HTS-AT runs the dense torchlibrosa front end "
+            raise ValueError("HTS-AT runs its own torchlibrosa front end "
                              "and no CRNN: mel_algorithm, use_folded_stem, "
                              "use_fused_epilogue and use_fused_stem are the "
                              "CRNN's options")

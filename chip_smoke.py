@@ -16,6 +16,15 @@ use, all sources in parallel) and drives every slice of the port:
     group-pool form (blocks 3-6) and K4 twice (the hoisted BiGRU, one call
     a layer) per batch, a profiled batch (device time, busy share,
     launches), and the float32 kernel path against the plain path;
+  * HTS-AT's front end (``mel_kernel_htsat``): K1's power-dB form
+    (periodic Hann, |X|², Slaney area-normalised bands, unclamped dB) at
+    N = 1024, H = 320, 64 mels, B=64 ten-second clips against its plain
+    version and a float64 golden, timed beside its bound, its plain
+    version and the dense torchlibrosa front end it replaced, with the
+    magnitude form re-timed at the CRNN's shape; then ``htsat`` served at
+    B=64, whose ``bsed.serve.mel`` span must launch K1 alone, once a
+    forward (counters and the profiler's trace), and the forward no
+    float32 GEMM;
   * the fused-stem serving path: K5 (block 0) against its plain version at
     B=64, beside the standard block 0 (cuDNN conv + torch) as a yardstick,
     then ``make_fast_forward(use_fused_stem=True)`` at B=64, which must
@@ -447,6 +456,199 @@ def check_mel_kernel(torch, dev):
             "gflop_per_call": flops / 1e9, "mb_per_call": nbytes / 1e6,
             "block_dft_gflop": block_flops / 1e9,
             "filterbank_nnz": nnz, "live_bins": live}
+
+
+def span_device_ops(trace_path: str, span: str):
+    """Names of the device operations launched while a ``span``
+    (``record_function``) was open on the launching thread, read from a
+    torch.profiler chrome trace by each launch's correlation id."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    opened = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["tid"])
+              for e in events if e.get("ph") == "X"
+              and e.get("cat") == "user_annotation" and e.get("name") == span]
+    inside = {e["args"]["correlation"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})
+              and any(a <= float(e["ts"]) < b and e["tid"] == t
+                      for a, b, t in opened)}
+    return [e["name"] for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and e.get("args", {}).get("correlation") in inside]
+
+
+def mel_kernel_htsat(torch, dev, card):
+    """K1's power-dB form at HTS-AT's geometry (N = 1024, H = 320, 64
+    Slaney mels, periodic Hann; B=64 ten-second clips, T = 1001) against
+    its plain version and a float64 ``torch.stft`` golden (power, Slaney,
+    unclamped dB) on a few clips, 1e-3 dB; its time (one call between
+    events, pipelined, and device time by the profiler) beside its bound,
+    the plain version's and the dense torchlibrosa front end's (the form
+    HTS-AT ran before, like for like: both give the log-mel), and the
+    launches of one front-end call; the magnitude form re-timed at the
+    CRNN's serving shape (``check_mel_kernel``'s); then ``htsat`` served
+    at its published widths through ``make_fast_forward`` at B=64, bf16
+    'high', weights and audio from the benchmark's harness: K1 once a
+    forward in its power-dB form by its counters over ``N_TIMED``
+    forwards, and in the profiler's trace of 2 forwards the span
+    ``bsed.serve.mel`` launches K1 alone, once a forward, and the forward
+    no float32 GEMM."""
+    import os
+    import tempfile
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile as prof
+    from bsed_tpu_torch.config import AudioConfig
+    from bsed_tpu_torch.ops import mel, mel_kernel
+    from bsed_tpu_torch.ops.filterbank import mel_filterbank
+    from bsed_tpu_torch.serve import make_fast_forward
+    from portbench.harness import htsat as H, synth, weights as Wt
+    from portbench.reference import htsat as RH
+    from portbench.runners.serve_htsat import port_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    load = lambda *p: json.load(open(os.path.join(root, "portbench", *p)))  # noqa: E731
+    config = load("configs", "htsat.json")
+    mix = load("traffic", "serve_htsat_b64.json")
+    a = AudioConfig(**{k: v for k, v in config["audio"].items()})
+    fb64 = mel_filterbank(a.sr, a.n_window, a.n_mels, a.mel_f_min,
+                          a.mel_f_max, dtype=np.float64, norm="slaney")
+    kb = mel_kernel.build_mel_kernel_bases(
+        a.n_window, a.hop_size, fb64, device=dev,
+        window=mel.hann_window(a.n_window), power_db=True)
+    audio = synth.clips(25, B_SERVE, config["audio"], mix["audio"], dev)
+    args = (kb, a.n_window, a.hop_size, a.n_mels)
+    k1 = mel_kernel.fused_block_mel
+    before = (k1.launches, k1.launches_db)
+    got = mel_kernel.fused_block_mel(audio, *args)
+    want = mel_kernel.fused_block_mel_plain(audio, *args)
+    win = torch.hann_window(a.n_window, periodic=True, device=dev,
+                            dtype=torch.float64)
+    spec = torch.stft(audio[:GOLDEN_CLIPS].double(), a.n_window, a.hop_size,
+                      window=win, center=True, pad_mode="reflect",
+                      return_complex=True)
+    power = (spec.real ** 2 + spec.imag ** 2).transpose(1, 2)
+    gold = mel.power_to_db(power @ torch.as_tensor(fb64, device=dev),
+                           top_db=None)
+    dense_fe = mel.MelFrontEnd(a, "dense", dev, torchlibrosa=True)
+    dense = dense_fe(audio, log=True)
+    torch.cuda.synchronize()
+    t = mel.num_frames(a.n_samples, a.hop_size)
+    assert got.shape == want.shape == (B_SERVE, t, a.n_mels), got.shape
+    assert (k1.launches, k1.launches_db) == (before[0] + 1, before[1] + 1)
+    err_db = float((got - want).abs().max())
+    err_gold_db = float((got[:GOLDEN_CLIPS].double() - gold).abs().max())
+    plain_gold_db = float((want[:GOLDEN_CLIPS].double() - gold).abs().max())
+    dense_gold_db = float((dense[:GOLDEN_CLIPS].double() - gold).abs()
+                          .max())
+    del spec, power, gold, want, dense
+    emit(phase="mel_kernel_htsat_check", shape=list(got.shape),
+         max_abs_err_db=err_db, golden_clips=GOLDEN_CLIPS,
+         max_abs_err_db_vs_f64=err_gold_db,
+         plain_max_abs_err_db_vs_f64=plain_gold_db,
+         dense_max_abs_err_db_vs_f64=dense_gold_db, gate_db=1e-3)
+    assert err_db <= 1e-3, f"K1 power-dB differs by {err_db} dB"
+    assert err_gold_db <= 1e-3, f"K1 vs float64 golden: {err_gold_db} dB"
+
+    run = lambda: mel_kernel.fused_block_mel(audio, *args)  # noqa: E731
+    ms = time_ms(run, 10)
+    ms_pipe = pipelined_ms(run)
+    device_ms = kernel_device_ms(torch, run, "mel_fft_kernel")
+    plain_ms = time_ms(lambda: mel_kernel.fused_block_mel_plain(
+        audio, *args), 3, warmup=1)
+    k1_fe = mel.MelFrontEnd(a, "block_kernel", dev, torchlibrosa=True)
+    dense_ms = time_ms(lambda: dense_fe(audio, log=True), 10)
+    _, _, fe_rows = device_rows(torch, lambda: k1_fe(audio, log=True), 2)
+    _, _, dense_rows = device_rows(torch, lambda: dense_fe(audio, log=True),
+                                   2)
+    fe_rows = [r for r in fe_rows if not r[1].startswith("bsed.")]
+    dense_rows = [r for r in dense_rows if not r[1].startswith("bsed.")]
+    live = int((kb.bands[:, 0] + kb.bands[:, 1]).max())
+    nnz = kb.weights.numel()
+    flops = B_SERVE * t * (2.5 * a.n_window * math.log2(a.n_window)
+                           + 3 * live + 2 * nnz)
+    nbytes = audio.numel() * 4 + got.numel() * 4
+    b_ms, b_by = bound(nbytes, {"float32": flops})
+
+    # the magnitude form at the CRNN's serving shape, re-timed
+    c = AudioConfig()
+    fb_c = mel_filterbank(c.sr, c.n_window, c.n_mels, c.mel_f_min,
+                          c.mel_f_max, dtype=np.float64)
+    kb_c = mel_kernel.build_mel_kernel_bases(c.n_window, c.hop_size, fb_c,
+                                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    audio_c = torch.randn((B_SERVE, c.n_samples), generator=gen, device=dev)
+    run_c = lambda: mel_kernel.fused_block_mel(  # noqa: E731
+        audio_c, kb_c, c.n_window, c.hop_size, c.n_mels)
+    magnitude = {"ms": time_ms(run_c, 10), "ms_pipelined": pipelined_ms(run_c),
+                 "device_ms": kernel_device_ms(torch, run_c,
+                                               "mel_fft_kernel")}
+    del audio_c
+
+    # htsat served: K1 once a forward, the mel span K1 alone
+    cfg = port_config(config, mix)
+    params = H.make_params(config, 31, dev)
+    with torch.no_grad():
+        stats = H.bn0_stats(RH.log_mel(audio[:8], config["audio"]))
+    forward = make_fast_forward(cfg, Wt.to_numpy(params), Wt.to_numpy(stats),
+                                device=dev, precision="high")
+    for _ in range(2):                                 # warm-up
+        forward(audio)
+    torch.cuda.synchronize()
+    before = (k1.launches, k1.launches_db)
+    t0 = time.perf_counter()
+    for _ in range(N_TIMED):
+        strong, weak = forward(audio)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = (k1.launches - before[0], k1.launches_db - before[1])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            for _ in range(2):
+                forward(audio)
+            torch.cuda.synchronize()
+        p.export_chrome_trace(path)
+        mel_ops = span_device_ops(path, "bsed.serve.mel")
+        rows = [r for r in device_rows(torch, lambda: forward(audio), 2)[2]
+                if not r[1].startswith("bsed.")]
+    f32_gemm = [k for _, k, _ in rows if any(
+        w in k.lower() for w in ("gemm", "nvjet")) and any(
+        w in k.lower() for w in ("f32f32", "sgemm", "tf32", "_sss_"))]
+    rec = {"name": "mel_kernel_power_db", "route": "cuda",
+           "source": "bsed_tpu_torch/csrc/mel_kernel.cu",
+           "replaces": "none: HTS-AT's torchlibrosa front end (the dense "
+                       "float32 DFT the port ran)",
+           "shape": list(got.shape), "max_abs_err_db": err_db,
+           "max_abs_err_db_vs_f64": err_gold_db, "ms": ms,
+           "ms_pipelined": ms_pipe, "device_ms": device_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": dense_ms,
+           "library_call": "MelFrontEnd(dense, torchlibrosa=True): "
+                           "frames @ DFT bases, power, mel matmul, dB",
+           "front_end_launches": sum(n for _, _, n in fe_rows) / 2,
+           "front_end_kernels": [k[:60] for _, k, _ in fe_rows],
+           "dense_launches": sum(n for _, _, n in dense_rows) / 2,
+           "dense_device_ms": sum(tt for tt, _, _ in dense_rows) / 2e3,
+           "gflop_per_call": flops / 1e9, "mb_per_call": nbytes / 1e6,
+           "filterbank_nnz": nnz, "live_bins": live,
+           "resources": kernel_resources("mel_kernel", "mel_fft_kernel"),
+           "magnitude_form": magnitude,
+           "htsat_clips_per_s": B_SERVE * N_TIMED / elapsed,
+           "htsat_ms_per_batch": elapsed / N_TIMED * 1e3,
+           "htsat_launches": launches, "mel_span_ops": mel_ops,
+           "float32_gemms": f32_gemm, "card": card,
+           "htsat_top": [{"name": k[:70], "ms": tt / 2e3, "calls": n / 2}
+                         for tt, k, n in rows[:10]]}
+    emit(phase="mel_kernel_htsat", **rec)
+    assert strong.shape == (B_SERVE, 1024, cfg.nclass), strong.shape
+    assert torch.isfinite(strong).all() and torch.isfinite(weak).all()
+    assert launches == (N_TIMED, N_TIMED), launches
+    assert len(mel_ops) == 2 and all("mel_fft_kernel" in k
+                                     for k in mel_ops), mel_ops
+    assert not f32_gemm, f32_gemm
+    assert rec["front_end_launches"] == 1, fe_rows
+    return rec
 
 
 STEM_BLOCKS = ((0, 1255, 2, 16), (1, 627, 2, 32), (2, 313, 1, 64))
@@ -4490,7 +4692,7 @@ def main() -> int:
                              "crnn_head_path, main_path, "
                              "check_stem_epilogue_pg, group_pool_cnn_path, "
                              "check_rel_attention, pos_conv_times, "
-                             "beats_path); "
+                             "beats_path, mel_kernel_htsat); "
                              "prints their lines and the card's, not the "
                              "kernels line or the last line")
     args = parser.parse_args()
@@ -4533,13 +4735,16 @@ def main() -> int:
                  "check_rel_attention": lambda t, d, c:
                      check_rel_attention(t, d),
                  "pos_conv_times": lambda t, d, c: pos_conv_times(t, d),
-                 "beats_path": beats_path}
+                 "beats_path": beats_path,
+                 "mel_kernel_htsat": mel_kernel_htsat}
         for phase in args.only.split(","):
             alone[phase](torch, dev, smi)
         print(smi, flush=True)
         return 0
 
     k1 = check_mel_kernel(torch, dev)
+    k1_db = mel_kernel_htsat(torch, dev, smi)
+    torch.cuda.empty_cache()
     k2 = check_stem_epilogue(torch, dev)
     launches = main_path(torch, dev, smi,
                          {k["name"]: k["ms"] for k in (k1, k2)},
@@ -4614,7 +4819,8 @@ def main() -> int:
         k["launches_data_parallel_path"] = dp_launches[k["name"]]
     for k in (k1, k2t, k3, k4, k5):  # crnn_head_path's driven parts
         k["launches_crnn_head_path"] = head_launches[k["name"]]
-    kernels_line = [k1, k2, k2t, k3, k5, k4, k2pg, k3pg, attn, pconv]
+    kernels_line = [k1, k1_db, k2, k2t, k3, k5, k4, k2pg, k3pg, attn,
+                    pconv]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,43 @@ def test_mel_kernel_matches_plain(dev, batch):
     assert float((db(got.double()) - db(gold)).abs().max()) < 1e-3  # dB
 
 
+@pytest.mark.parametrize("batch", [3, 64])
+def test_mel_kernel_power_db_matches_plain(dev, batch):
+    """K1's power-dB form at HTS-AT's geometry (N = 1024, H = 320, 64
+    Slaney mels, periodic Hann, 10 s at 32 kHz: T = 1001 frames, not a
+    multiple of the 8-frame tile) against its plain version and a float64
+    torch.stft golden of the power mel's unclamped dB, 1e-3 dB; one launch,
+    counted as the power-dB form's."""
+    cfg = AudioConfig(n_window=1024, hop_size=320, n_mels=64,
+                      mel_f_min=50.0, mel_f_max=14000.0)
+    fb = mel_filterbank(cfg.sr, cfg.n_window, cfg.n_mels, cfg.mel_f_min,
+                        cfg.mel_f_max, dtype=np.float64, norm="slaney")
+    kb = mel_kernel.build_mel_kernel_bases(
+        cfg.n_window, cfg.hop_size, fb, device=dev,
+        window=mel.hann_window(cfg.n_window), power_db=True)
+    audio = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (batch, cfg.n_samples)).astype(np.float32)).to(dev)
+    k1 = mel_kernel.fused_block_mel
+    before = (k1.launches, k1.launches_db)
+    got = mel_kernel.fused_block_mel(audio, kb, cfg.n_window, cfg.hop_size,
+                                     cfg.n_mels)
+    want = mel_kernel.fused_block_mel_plain(audio, kb, cfg.n_window,
+                                            cfg.hop_size, cfg.n_mels)
+    spec = torch.stft(audio[:3].double(), cfg.n_window, cfg.hop_size,
+                      window=torch.hann_window(cfg.n_window, periodic=True,
+                                               dtype=torch.float64,
+                                               device=dev),
+                      center=True, pad_mode="reflect", return_complex=True)
+    power = (spec.real ** 2 + spec.imag ** 2).transpose(1, 2)
+    gold = mel.power_to_db(power @ torch.from_numpy(fb).to(dev),
+                           top_db=None)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_db) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (batch, 1001, cfg.n_mels)
+    assert float((got - want).abs().max()) < 1e-3                   # dB
+    assert float((got[:3].double() - gold).abs().max()) < 1e-3       # dB
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 0.06)])
 @pytest.mark.parametrize("act,pt,pc", [("glu", 2, 16), ("cg", 1, 64)])
@@ -1718,7 +1755,7 @@ def test_htsat_forward_on_card_matches_reference(dev):
     reference (TF32 off): the posterior gaps, the last stage's token gap
     and the first stage's in the band its shifted windows wrap, within the
     limits of the cell ``serve_htsat_b64``; the window attention 12 times
-    a forward."""
+    a forward, and K1 once, in its power-dB form."""
     import json
     import os
     from bsed_tpu_torch.ops import window_attention as WA
@@ -1742,9 +1779,13 @@ def test_htsat_forward_on_card_matches_reference(dev):
     fwd.htsat.register_forward_hook(lambda m, i, o: seen.append(o))
     fwd.htsat.layers[0].register_forward_hook(lambda m, i, o: first.append(o))
     calls = WA.calls
+    k1 = mel_kernel.fused_block_mel
+    k1_before = (k1.launches, k1.launches_db)
     strong, weak = fwd(audio)
     torch.cuda.synchronize()
     assert WA.calls == calls + 12
+    assert (k1.launches, k1.launches_db) == (k1_before[0] + 1,
+                                             k1_before[1] + 1)
     assert strong.shape == (8, 1024, 20) and weak.shape == (8, 20)
     assert seen[0].shape == (8, 64, 768) and seen[0].dtype == torch.bfloat16
     with torch.no_grad():

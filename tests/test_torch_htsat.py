@@ -1,5 +1,6 @@
 """HTS-AT served through ``serve.make_fast_forward`` (``models/htsat.py``,
-``ops/window_attention.py``, ``MelFrontEnd``'s torchlibrosa settings,
+``ops/window_attention.py``, ``MelFrontEnd``'s torchlibrosa settings on
+K1's power-dB form and the dense algorithm,
 ``mel_filterbank(norm="slaney")``) against the benchmark's plain float32
 reference (``portbench/reference/htsat.py``), written from HTS-AT's
 definitions, on seeded random weights at a tiny size on the CPU.
@@ -13,7 +14,7 @@ has a window equal to its map (full attention, no shift); two patch
 merges; the head undoes the fold into 8 steps of 16 frames.
 
 Tolerances: the port and the reference compute the same float32 algebra
-in other orders (a DFT product against an FFT, bicubic by
+in other orders (K1's packed FFT against an rfft, bicubic by
 ``F.interpolate`` against a matrix, rolls and views against explicit
 indices, SDPA against a softmax written out), so float32 results agree
 to ~1e-5 of their scale; the bf16 forward is held at the rounding of
@@ -156,6 +157,47 @@ def test_front_end_matches_reference(tiny):
     assert float(got.max()) > -10.0                  # no top_db clamp
 
 
+def test_htsat_front_end_is_k1_power_db(tiny, monkeypatch):
+    """``make_htsat_forward``'s front end is K1's power-dB form: one call
+    of the kernel entry a forward, with the power-dB constants (periodic
+    Hann, the Slaney area-normalised bands), returning the dB that HTS-AT
+    reads. On the CPU the entry runs its plain version, which equals the
+    dense front end within 1e-3 dB and the reference's ``log_mel`` within
+    ``test_front_end_matches_reference``'s tolerance, silent frames at
+    −100 dB included; the power-dB form refuses to return a linear mel."""
+    from bsed_tpu_torch.ops import mel_kernel
+    config, params, stats, audio = tiny
+    entry, seen = mel_kernel.fused_block_mel, []
+
+    def spy(*args, **kwargs):
+        out = entry(*args, **kwargs)
+        seen.append((args[1], out))
+        return out
+
+    monkeypatch.setattr(mel_kernel, "fused_block_mel", spy)
+    fwd = _forward(config, params, stats)
+    inputs = []
+    fwd.htsat.register_forward_hook(lambda m, i, o: inputs.append(i[0]))
+    quiet = audio.clone()
+    quiet[:, 4000:] = 0.0
+    fwd(quiet)
+    assert len(seen) == 1
+    bases, db = seen[0]
+    assert bases.power_db and float(bases.window[0]) == 0.0
+    assert db.shape == (3, 101, 32)
+    assert torch.equal(inputs[0], db)              # HTS-AT reads the dB
+    dense = MelFrontEnd(port_config(config, {}).audio, "dense", "cpu",
+                        torchlibrosa=True)(quiet, log=True)
+    torch.testing.assert_close(db, dense, rtol=0, atol=1e-3)
+    torch.testing.assert_close(db, RH.log_mel(quiet, config["audio"]),
+                               rtol=0, atol=1e-3)
+    assert float(db.min()) == pytest.approx(-100.0)
+    k1 = MelFrontEnd(port_config(config, {}).audio, "block_kernel", "cpu",
+                     torchlibrosa=True)
+    with pytest.raises(ValueError, match="log=True"):
+        k1(quiet)
+
+
 def test_slaney_norm_is_unit_area():
     """norm="slaney" scales filter m by 2 / (f[m + 2] − f[m]) of the mel
     points in Hz, and matches the reference's own filterbank."""
@@ -267,16 +309,18 @@ def test_crnn_paths_refuse_an_htsat_configuration(tiny):
     {"mel_algorithm": "block_kernel"}, {"use_folded_stem": True},
     {"use_fused_epilogue": False}, {"use_fused_stem": True}])
 def test_fast_forward_refuses_crnn_options_for_htsat(tiny, option):
-    """HTS-AT runs the dense torchlibrosa front end and no CRNN: an option
-    of the CRNN's is refused, not ignored; K1 refuses torchlibrosa's
-    front end."""
-    config, params, stats, _ = tiny
+    """HTS-AT runs its own torchlibrosa front end and no CRNN: an option
+    of the CRNN's is refused, not ignored; K1 and torchlibrosa's front end
+    build together (K1's power-dB form) and match the dense algorithm."""
+    config, params, stats, audio = tiny
     cfg = port_config(config, {})
     with pytest.raises(ValueError, match="CRNN's options"):
         make_fast_forward(cfg, Wt.to_numpy(params), Wt.to_numpy(stats),
                           device="cpu", **option)
-    with pytest.raises(ValueError, match="torchlibrosa"):
-        MelFrontEnd(cfg.audio, "block_kernel", "cpu", torchlibrosa=True)
+    k1 = MelFrontEnd(cfg.audio, "block_kernel", "cpu", torchlibrosa=True)
+    dense = MelFrontEnd(cfg.audio, "dense", "cpu", torchlibrosa=True)
+    torch.testing.assert_close(k1(audio, log=True), dense(audio, log=True),
+                               rtol=0, atol=1e-3)
 
 
 def test_config_round_trip_keeps_htsat():

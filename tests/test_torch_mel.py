@@ -260,3 +260,127 @@ def test_kernel_plain_matches_float64_stft(n_window, hop, n_mels):
                     f"K1 plain vs float64 stft, N={n_window}")
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=1e-6 * float(want.max()))
+
+
+# K1's power-dB form (torchlibrosa's front end, HTS-AT's): periodic Hann,
+# |X|², the Slaney area-normalised bands, 10·log10(max(mel, 1e-10))
+# unclamped. (N, H, n_mels, sr, f_max, frames): HTS-AT's published
+# geometry (N // H = 3), the tiny HTS-AT tests' and librosa's default
+# (N // H = 4, an exact multiple) with 14 frames, not a multiple of the
+# kernel's 8-frame tile.
+DB_GEOMETRIES = [(1024, 320, 64, 32000, 14000.0, 16),
+                 (256, 80, 32, 8000, 3500.0, 16),
+                 (2048, 512, 128, 32000, 16000.0, 14)]
+
+
+def _slaney(n_window, n_mels, sr, f_max):
+    return mel_filterbank(sr, n_window, n_mels, 50.0, f_max,
+                          dtype=np.float64, norm="slaney")
+
+
+def _db_bases(n_window, hop, fb):
+    return mel_kernel.build_mel_kernel_bases(
+        n_window, hop, fb, device="cpu", window=mel.hann_window(n_window),
+        power_db=True)
+
+
+@pytest.mark.parametrize("n_window,hop,n_mels,sr,f_max,frames",
+                         DB_GEOMETRIES)
+def test_power_db_plain_matches_float64_stft(n_window, hop, n_mels, sr,
+                                             f_max, frames):
+    """K1's plain version in the power-dB form against torch.stft in
+    float64 (periodic Hann, centre reflect pad), the float64 Slaney
+    filterbank on the power spectrum and the unclamped dB, 1e-3 dB."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, (frames - 1) * hop + 7)).astype(np.float32)
+    fb = _slaney(n_window, n_mels, sr, f_max)
+    kb = _db_bases(n_window, hop, fb)
+    before = (mel_kernel.fused_block_mel.launches,
+              mel_kernel.fused_block_mel.launches_db)
+    got = mel_kernel.fused_block_mel(torch.from_numpy(x), kb, n_window, hop,
+                                     n_mels)
+    assert (mel_kernel.fused_block_mel.launches,
+            mel_kernel.fused_block_mel.launches_db) == before  # CPU: plain
+    spec = torch.stft(torch.from_numpy(x).double(), n_window, hop,
+                      window=torch.hann_window(n_window, periodic=True,
+                                               dtype=torch.float64),
+                      center=True, pad_mode="reflect", return_complex=True)
+    power = spec.real ** 2 + spec.imag ** 2
+    want = 10.0 * torch.log10(torch.clamp(
+        power.transpose(1, 2) @ torch.from_numpy(fb), min=1e-10))
+    assert got.shape == want.shape == (2, frames, n_mels)
+    assert got.dtype == torch.float32
+    assert_db_close(got.numpy(), want.numpy(),
+                    f"K1 power-dB plain vs float64 stft, N={n_window}")
+
+
+@pytest.mark.parametrize("n_window,hop,n_mels,sr,f_max,frames",
+                         DB_GEOMETRIES)
+def test_power_db_band_table_rebuilds_slaney_filterbank(
+        n_window, hop, n_mels, sr, f_max, frames):
+    """The Slaney area-normalised filterbank's band table scatters back to
+    the float32 dense filterbank bit for bit."""
+    fb = _slaney(n_window, n_mels, sr, f_max)
+    kb = _db_bases(n_window, hop, fb)
+    assert kb.power_db is True
+    assert kb.bands.dtype == torch.int32 and kb.bands.shape == (n_mels, 3)
+    dense = np.zeros(fb.shape, np.float32)
+    w = kb.weights.numpy()
+    for m, (start, length, off) in enumerate(kb.bands.numpy()):
+        dense[start:start + length, m] = w[off:off + length]
+    np.testing.assert_array_equal(dense, fb.astype(np.float32))
+    assert int(kb.bands[-1, 2] + kb.bands[-1, 1]) == w.size
+
+
+@pytest.mark.parametrize("n_window,hop,n_mels,sr,f_max,frames",
+                         DB_GEOMETRIES)
+def test_power_db_window_table_is_periodic_hann(n_window, hop, n_mels, sr,
+                                                f_max, frames):
+    """The power-dB form's window is the periodic Hann, 0.5 − 0.5·cos(2πk
+    / N) in float64 rounded once to float32 (torch's periodic window,
+    computed in float32, to a few ulp); its twiddles are the magnitude
+    form's."""
+    fb = _slaney(n_window, n_mels, sr, f_max)
+    kb = _db_bases(n_window, hop, fb)
+    k = np.arange(n_window)
+    want = (0.5 - 0.5 * np.cos(2 * np.pi * k / n_window)).astype(np.float32)
+    np.testing.assert_array_equal(kb.window.numpy(), want)
+    assert kb.window[0] == 0.0 and kb.window.dtype == torch.float32
+    torch.testing.assert_close(
+        kb.window, torch.hann_window(n_window, periodic=True),
+        rtol=0, atol=4e-7)
+    plain = mel_kernel.build_mel_kernel_bases(
+        n_window, 255 if n_window == 2048 else n_window // 8 - 1,
+        mel_filterbank(sr, n_window, n_mels, dtype=np.float64), device="cpu")
+    assert torch.equal(kb.twiddle, plain.twiddle)
+    assert plain.power_db is False
+
+
+def test_power_db_envelope():
+    """The power-dB form admits HTS-AT's N // H = 3 and an exact multiple,
+    any hop up to ``MAX_HOP_DB``, and refuses a longer hop, a window the
+    kernel has no FFT for and n_mels the banded sum does not take; the
+    magnitude form keeps the JAX kernel's envelope and refuses them."""
+    ok = lambda *g: mel_kernel.supports(*g, power_db=True)  # noqa: E731
+    assert ok(1024, 320, 64) and ok(256, 80, 32) and ok(2048, 512, 128)
+    assert ok(2048, 255, 128) and ok(128, 1, 4)
+    assert ok(2048, mel_kernel.MAX_HOP_DB, 128)
+    assert not mel_kernel.supports(1024, 320, 64)
+    assert not mel_kernel.supports(2048, 512, 128)
+    with pytest.raises(ValueError, match="hop_size"):
+        mel_kernel.check_geometry(2048, mel_kernel.MAX_HOP_DB + 1, 128,
+                                  power_db=True)
+    with pytest.raises(ValueError, match="hop_size"):
+        mel_kernel.check_geometry(1024, 0, 64, power_db=True)
+    for n in (64, 1000, 4096):
+        with pytest.raises(ValueError, match="power of two"):
+            mel_kernel.check_geometry(n, 320, 64, power_db=True)
+    for m in (66, 132):
+        with pytest.raises(ValueError, match="n_mels"):
+            mel_kernel.check_geometry(1024, 320, m, power_db=True)
+    fb = mel_filterbank(32000, 1024, 64, dtype=np.float64)
+    with pytest.raises(ValueError, match="hop_size"):
+        mel_kernel.build_mel_kernel_bases(1024, 600, fb, device="cpu",
+                                          power_db=True)
+    with pytest.raises(ValueError, match="N//H"):
+        mel_kernel.build_mel_kernel_bases(1024, 320, fb, device="cpu")
